@@ -1,0 +1,312 @@
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises, exit code != 0):
+ 1. require CUDA; print the card's name and power limit; turn TF32 off;
+ 2. build the CUDA kernels from rbslam_tpu_torch/csrc (nvcc, first use);
+ 3. compare each kernel with its plain PyTorch version at the main
+    path's shapes, and time both;
+ 4. headline run of the port's filter: bean_6D, N_P=16384, m=125 (n_lin
+    128), T=192, bf16 covariance, lowrank r=8, systematic resampling;
+    check finiteness, the launch counts of every kernel, position RMSE,
+    and particle-steps/s (best of 3 after a warm-up);
+ 5. the same path at the reference shape: N_P=4096, m=509, f32;
+ 6. the filter on the card (kernels) against the same filter on the CPU
+    (the wrappers' plain versions), N_P=64, m=125, T=12, f32, the same
+    injected noise: equal ancestors, close estimates.
+
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
+from rbslam_tpu_torch.kernels import (
+    _lib,
+    gather_cp,
+    gather_cp_plain,
+    grad_basis,
+    grad_basis_plain,
+    kf_rebase,
+    launch_counts,
+    mag3d_jacobian_rows,
+    mag3d_jacobian_rows_plain,
+    pack_basis_constants,
+    rebase_plain,
+    reset_launch_counts,
+)
+from rbslam_tpu_torch.basis import hypercube_basis
+from rbslam_tpu_torch.workloads.dense_mag import build_problem
+
+KERNELS = {
+    "jac3d_rows": ("rbslam_tpu_torch/csrc/basis_eval.cu",
+                   "rbslam_tpu/kernels/basis_eval.py:138"),
+    "gather_cp": ("rbslam_tpu_torch/csrc/kf_update.cu",
+                  "rbslam_tpu/kernels/kf_update.py:471"),
+    "rebase": ("rbslam_tpu_torch/csrc/kf_update.cu",
+               "rbslam_tpu/kernels/kf_update.py:659"),
+    "grad_basis": ("rbslam_tpu_torch/csrc/basis_eval.cu",
+                   "rbslam_tpu/kernels/basis_eval.py:64"),
+}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync(device) -> None:
+    torch.cuda.synchronize(device)
+
+
+def time_ms(fn, device, reps: int = 10) -> float:
+    """Mean milliseconds per call: CUDA events around ``reps`` calls after
+    one warm-up call."""
+    fn()
+    sync(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def compare(name, kernel, plain, device, dtype, shape_note):
+    """Run kernel and plain version on the same inputs; check the error
+    against the dtype's tolerance (relative to the output's max
+    magnitude; in float32 also elementwise, rtol 1e-4 with an absolute
+    floor of 1e-6 of that magnitude); time both."""
+    out_k = kernel()
+    out_p = plain()
+    sync(device)
+    if out_k.shape != out_p.shape or out_k.dtype != out_p.dtype:
+        raise AssertionError(
+            f"{name}: kernel {tuple(out_k.shape)} {out_k.dtype} vs plain "
+            f"{tuple(out_p.shape)} {out_p.dtype}"
+        )
+    a, b = out_k.float(), out_p.float()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((a - b).abs().max())
+    scale = float(b.abs().max())
+    rel = err / max(scale, 1e-30)
+    ms = time_ms(kernel, device)
+    plain_ms = time_ms(plain, device)
+    log(f"[3] {name} {shape_note}: max_abs_err={err:.3e} rel={rel:.3e} "
+        f"(tol {TOL[dtype]:.0e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms")
+    if not rel <= TOL[dtype]:
+        raise AssertionError(f"{name} {shape_note}: rel err {rel} > {TOL[dtype]}")
+    if dtype == torch.float32 and not torch.allclose(
+            a, b, rtol=TOL[dtype], atol=1e-6 * scale):
+        raise AssertionError(f"{name} {shape_note}: elementwise error above "
+                             f"rtol {TOL[dtype]}, atol {1e-6 * scale:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
+                  ny=3, rw=24):
+    """Phase 3: each kernel against its plain version on the card."""
+    g = torch.Generator(device=device).manual_seed(0)
+    basis = hypercube_basis(m, [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]])
+    consts = pack_basis_constants(basis, device)
+    pos = (torch.rand((n, 3), generator=g, device=device) - 0.5) \
+        * torch.tensor([36.0, 36.0, 4.0], device=device)
+    quat = torch.randn((n, 4), generator=g, device=device)
+    quat = quat / quat.norm(dim=-1, keepdim=True)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        r = compare(
+            "jac3d_rows",
+            lambda: mag3d_jacobian_rows(consts, pos, quat, nl, dt),
+            lambda: mag3d_jacobian_rows_plain(consts, pos, quat, nl, dt),
+            device, dt, f"N={n} m={m} nl={nl} {dt}",
+        )
+        rows.setdefault("jac3d_rows", r)
+    rows["grad_basis"] = compare(
+        "grad_basis", lambda: grad_basis(consts, pos),
+        lambda: grad_basis_plain(consts, pos), device, torch.float32,
+        f"N={n} m={m} d=3 float32",
+    )
+
+    def factored(nn, nll, dt):
+        B = torch.randn((nn, nll, nll), generator=g, device=device)
+        P_base = (0.05 * (B + B.transpose(1, 2))
+                  + 2.0 * torch.eye(nll, device=device)).to(dt)
+        del B
+        Wt = (0.1 * torch.randn((nn, rw, nll), generator=g,
+                                device=device)).to(dt)
+        C = (0.3 * torch.randn((nn, ny, nll), generator=g,
+                               device=device)).to(dt)
+        bidx = torch.randint(0, nn, (nn,), generator=g, device=device,
+                             dtype=torch.int32)
+        return bidx, C, Wt, P_base
+
+    for nn, nll, dt in ((n, nl, torch.bfloat16), (n_ref, nl_ref, torch.float32)):
+        bidx, C, Wt, P_base = factored(nn, nll, dt)
+        note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
+        r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
+                    lambda: gather_cp_plain(bidx, C, Wt, P_base),
+                    device, torch.float32 if dt == torch.float32 else dt, note)
+        rows.setdefault("gather_cp", r)
+        r = compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
+                    lambda: rebase_plain(bidx, Wt, P_base), device, dt, note)
+        rows.setdefault("rebase", r)
+        del bidx, C, Wt, P_base
+    return rows
+
+
+def filter_config(n_particles, cov_dtype):
+    return RBPFConfig(
+        n_particles=n_particles, resampling="systematic",
+        cov_dtype=cov_dtype, symmetrize_cov=False, kf_kernel="lowrank",
+        lowrank_period=8,
+    )
+
+
+def check_result(res, T, n_particles, n_lin):
+    expect = {
+        "traj_mean": (T, 7), "traj_max": (T, 7), "xl_mean": (n_lin,),
+        "P_mean": (n_lin, n_lin), "logw": (n_particles,), "ess": (T,),
+        "ancestors": (T - 1, n_particles),
+        "xn_traj": (T, n_particles, 7),
+    }
+    for field, shape in expect.items():
+        t = getattr(res, field)
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{field} shape {tuple(t.shape)} != {shape}")
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{field} has non-finite values")
+    if not bool(torch.isfinite(res.log_evidence)):
+        raise AssertionError("log_evidence is not finite")
+
+
+def run_path(tag, device, m, n_particles, T, cov_dtype, card, expect_counts):
+    """Phases 4 and 5: the port's filter at full width on the card."""
+    t0 = time.perf_counter()
+    problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
+    log(f"[{tag}] dataset built in {time.perf_counter() - t0:.2f} s "
+        f"(bean_6D, T={T}, m_sim=512, seed 1)")
+    cfg = filter_config(n_particles, cov_dtype)
+    gen = torch.Generator(device=device)
+
+    def run(seed):
+        gen.manual_seed(seed)
+        res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
+                       device=device)
+        sync(device)
+        return res
+
+    reset_launch_counts()
+    res = run(0)
+    counts = launch_counts()
+    log(f"[{tag}] launches in one run: {counts}")
+    check_result(res, T, n_particles, problem.potential.n_lin)
+    if expect_counts is not None and counts != expect_counts:
+        raise AssertionError(f"launch counts {counts} != {expect_counts}")
+    truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
+    rmse = float(torch.sqrt(torch.mean(
+        torch.sum((res.traj_mean[:, :3] - truth) ** 2, dim=-1))))
+    odo = torch.as_tensor(data.odometry_path[:, :3], dtype=torch.float32,
+                          device=device)
+    rmse_odo = float(torch.sqrt(torch.mean(
+        torch.sum((odo - truth) ** 2, dim=-1))))
+    log(f"[{tag}] position RMSE of traj_mean vs truth: {rmse:.4f} m "
+        f"(dead-reckoned odometry: {rmse_odo:.4f} m); chol_retries="
+        f"{int(res.chol_retries)}")
+    best = float("inf")
+    for i in range(3):
+        t0 = time.perf_counter()
+        run(i + 1)
+        best = min(best, time.perf_counter() - t0)
+    rate = n_particles * T / best
+    log(f"[{tag}] N_P={n_particles} m={m} (n_lin={m + 3}) T={T} {cov_dtype} "
+        f"lowrank r=8: best of 3 {best:.4f} s = {rate:.1f} particle-steps/s "
+        f"({best / T * 1e3:.4f} ms/step) on {card}")
+    return counts
+
+
+def phase_plain_vs_kernel(device, m=125, n_particles=64, T=12):
+    """Phase 6: the filter on the card, whose wrappers launch the kernels,
+    against the same filter on the CPU, whose wrappers run the plain
+    versions, with the same injected noise."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    u0 = torch.rand((T - 1,), generator=gen, device=device)
+    w = torch.randn((T - 1, n_particles, 6), generator=gen, device=device)
+    cfg = filter_config(n_particles, "float32")
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        problem, _ = build_problem(m, T, seed=1, m_sim=512, device=dev)
+        out[dev.type] = run_rbpf(*problem.rbpf_args(), cfg, generator=None,
+                                 device=dev, noise=(u0.to(dev), w.to(dev)))
+    sync(device)
+    k, p = out["cuda"], out["cpu"]
+    if not torch.equal(k.ancestors.cpu(), p.ancestors):
+        raise AssertionError("ancestors differ between kernel and plain path")
+    d_traj = float((k.traj_mean.cpu() - p.traj_mean).abs().max())
+    d_xl = float((k.xl_mean.cpu() - p.xl_mean).abs().max())
+    log(f"[6] kernel path (cuda) vs plain path (cpu) (N_P={n_particles}, "
+        f"m={m}, T={T}, f32): "
+        f"ancestors equal, max|d traj_mean|={d_traj:.3e} (tol 1e-3), "
+        f"max|d xl_mean|={d_xl:.3e} (tol 5e-3)")
+    if not (d_traj <= 1e-3 and d_xl <= 5e-3):
+        raise AssertionError("kernel path and plain path disagree")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "needs one NVIDIA GPU")
+    device = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    _lib.lib()
+    nvcc = ("a cached build" if _lib.build_seconds is None
+            else f"nvcc {_lib.build_seconds:.2f} s")
+    log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({nvcc})")
+
+    rows = phase_compare(device)
+    # T=192: step 0 (K4) + 191 steps (K1, K2) in 23 periods of 8 and a
+    # remainder period of 7, each closed by one rebase (K3)
+    expect = {"grad_basis": 1, "jac3d_rows": 191, "gather_cp": 191,
+              "rebase": 24}
+    counts = run_path("4", device, 125, 16384, 192, "bfloat16", card, expect)
+    run_path("5", device, 509, 4096, 192, "float32", card, expect)
+    phase_plain_vs_kernel(device)
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[name], **rows[name]}
+        for name, (src, rep) in KERNELS.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

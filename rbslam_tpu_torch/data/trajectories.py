@@ -1,0 +1,90 @@
+"""Ground-truth trajectory generators (port of rbslam_tpu/data/trajectories.py;
+examples/slam-dense-radio/generateData_dense.m:67-214).
+
+Deterministic geometry computed with numpy on the host; the quaternion
+steps run in float32 torch, as the reference computes them in float32.
+Only the 6-D bean family of the flagship workload is ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..math.quaternions import qinv, qmul, rmat_to_quat
+
+
+@dataclass(frozen=True)
+class Trajectory:
+    """Ground truth: positions [T, 3], quaternions [T, 4], initial full
+    state, and noiseless odometry increments [T-1, 7]."""
+
+    pos: np.ndarray
+    quat: Optional[np.ndarray]
+    init_state: np.ndarray
+    dx: np.ndarray
+
+    @property
+    def n_steps(self) -> int:
+        return int(self.pos.shape[0])
+
+
+def _heading_from_diffs(u, v):
+    th = np.arctan2(np.diff(v), np.diff(u))
+    return np.append(th, th[-1])
+
+
+def _yaw_rmats(psi):
+    """Body-from-nav rotations (generateData_dense.m:196-198):
+    R = [[c, s, 0], [-s, c, 0], [0, 0, 1]]."""
+    R = np.zeros((psi.shape[0], 3, 3))
+    R[:, 0, 0] = np.cos(psi)
+    R[:, 0, 1] = np.sin(psi)
+    R[:, 1, 0] = -np.sin(psi)
+    R[:, 1, 1] = np.cos(psi)
+    R[:, 2, 2] = 1.0
+    return R
+
+
+def _quat_increments(quat):
+    """dq_t = q_t^{-1} ⊗ q_{t+1} (generateData_dense.m:211-213)."""
+    q = torch.as_tensor(quat, dtype=torch.float32)
+    return qmul(qinv(q[:-1]), q[1:]).numpy()
+
+
+def _bean_curve(n_laps, n_per_lap, a):
+    psi = np.linspace(0.0, n_laps * np.pi, n_laps * n_per_lap)
+    r = a * np.sin(psi) ** 3 + a * np.cos(psi) ** 3
+    return r * np.cos(psi) - 0.3, r * np.sin(psi) - 0.3
+
+
+def bean_6d(n_laps=3, n_per_lap=64, a=15.0) -> Trajectory:
+    u, v = _bean_curve(n_laps, n_per_lap, a)
+    th = _heading_from_diffs(u, v)
+    pos = np.stack([u, v, np.zeros_like(u)], axis=-1)
+    quat = rmat_to_quat(
+        torch.as_tensor(_yaw_rmats(th), dtype=torch.float32)
+    ).numpy()
+    pos = pos - (pos.min(0) + pos.max(0)) / 2.0
+    init = np.concatenate([pos[0], quat[0]])
+    dx = np.concatenate(
+        [np.diff(pos, axis=0), _quat_increments(quat)], axis=-1
+    )
+    return Trajectory(pos, quat, init, dx)
+
+
+TRAJECTORY_TYPES = {"bean_6D": bean_6d}
+
+
+def generate_trajectory(traj_type: str, **kwargs) -> Trajectory:
+    try:
+        fn = TRAJECTORY_TYPES[traj_type]
+    except KeyError:
+        raise ValueError(
+            f"unknown or unported trajectory type {traj_type!r}; "
+            f"options: {sorted(TRAJECTORY_TYPES)}"
+        ) from None
+    return fn(**kwargs)

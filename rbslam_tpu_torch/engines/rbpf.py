@@ -1,0 +1,343 @@
+"""Rao-Blackwellized particle filter, factored-covariance ("lowrank") path
+(port of rbslam_tpu/engines/rbpf.py).
+
+Reproduces the semantics of the reference filter (src/particleFilter.m):
+per step, (1) resample ancestors from the previous weights and propagate
+the nonlinear states (:103-113), (2) per-particle log-weights from the
+marginal innovation likelihood (:126-151), (3) log-sum-exp normalize
+(:153-156), (4) per-particle Kalman measurement update of the map
+(:163-204). Ancestor indices are stored and the trajectories rebuilt
+once at the end; ``P_mean`` is the correct weighted accumulation (the
+reference assigns inside its loop, :228-230).
+
+The covariance is carried as P = P_base[bidx] - Wt^T Wt: per step the
+CUDA kernels build the Jacobian (K1) and the gathered C P contraction
+(K2) and ny new factor rows are placed; every r steps the base is
+rebuilt (K3). Step 0 runs the dense update with the K4 basis gradient.
+
+Randomness enters through one seam: per step one ``u0 ~ U[0,1)`` for
+systematic resampling and one [N, 6] standard normal for the dynamics,
+drawn from ``generator`` or taken from ``noise``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..math.linalg import ess_from_logw, logsumexp_normalize
+from ..models.base import DenseModel
+from ..ops.kalman import kalman_update_dense_batched
+from ..ops.resampling import systematic_resample
+from ..kernels.kf_update import kf_rebase, kf_update_lowrank
+
+
+class RBPFConfig(NamedTuple):
+    n_particles: int
+    resampling: str = "multinomial"
+    jitter: float = 1e-3
+    joseph: bool = False
+    store_trajectories: bool = True
+    kf_kernel: str = "xla"
+    ess_threshold: float = 1.0
+    lowrank_period: int = 8
+    cov_dtype: str = "float32"
+    allow_bf16_large_nl: bool = False
+    dist_resampling: str = "replicated_cdf"
+    symmetrize_cov: bool = True
+
+
+class RBPFResult(NamedTuple):
+    traj_max: torch.Tensor          # [T, n_nonlin] max-weight particle per step
+    traj_mean: torch.Tensor         # [T, n_nonlin] weighted mean per step
+    xl_max: torch.Tensor            # [n_lin] final max-weight map
+    xl_mean: torch.Tensor           # [n_lin] final weighted-mean map
+    P_max: torch.Tensor             # [n_lin, n_lin]
+    P_mean: torch.Tensor            # [n_lin, n_lin] (correct accumulation)
+    traj_sample_iwmax: torch.Tensor  # [T, n_nonlin] ancestral path of final best
+    xn_traj: torch.Tensor           # [T, N_P, n_nonlin] reconstructed trajectories
+    xn_hist: torch.Tensor           # [T, N_P, n_nonlin] raw per-step cloud
+    ancestors: torch.Tensor         # [T-1, N_P] int32
+    logw: torch.Tensor              # [N_P] final normalized log-weights
+    xn: torch.Tensor                # [N_P, n_nonlin] final particles
+    xl: torch.Tensor                # [N_P, n_lin] final maps
+    P: torch.Tensor                 # [N_P, n_lin, n_lin] final covariances
+    ess: torch.Tensor               # [T] effective sample size per step
+    log_evidence: torch.Tensor      # scalar: sum_t log(1/N sum w~)
+    chol_retries: torch.Tensor      # scalar: total jitter-retry count
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def reconstruct_trajectories(xn_hist, ancestors):
+    """Rebuild per-particle ancestral trajectories.
+
+    xn_hist [T, N_P, dn]; ancestors [T-1, N_P] (ancestors[t-1, i] = parent
+    of particle i at step t). Returns [T, N_P, dn] where column i is the
+    full history of final particle i (src/particleFilter.m:117-118).
+    """
+    T, n_p, _ = xn_hist.shape
+    idx = torch.arange(n_p, device=xn_hist.device)
+    rows = [idx]
+    for t in range(T - 2, -1, -1):
+        idx = ancestors[t].long()[idx]
+        rows.append(idx)
+    idx_full = torch.stack(rows[::-1])                     # [T, N_P]
+    return torch.gather(
+        xn_hist, 1, idx_full[:, :, None].expand(-1, -1, xn_hist.shape[-1])
+    )
+
+
+def _check_supported(model, config: RBPFConfig, mesh) -> None:
+    if config.kf_kernel not in ("xla", "block_gather", "lowrank"):
+        raise ValueError(
+            f"unknown kf_kernel {config.kf_kernel!r}: expected 'xla', "
+            "'block_gather' or 'lowrank'"
+        )
+    if config.kf_kernel == "xla":
+        raise NotImplementedError(
+            "kf_kernel='xla' is not ported yet (ROADMAP queue 1 item 6)"
+        )
+    if config.kf_kernel == "block_gather":
+        raise NotImplementedError(
+            "kf_kernel='block_gather' is not ported yet (ROADMAP queue 2 "
+            "item 5)"
+        )
+    if not isinstance(model, DenseModel):
+        raise NotImplementedError(
+            "sparse models are not ported yet (ROADMAP queue 1 item 13)"
+        )
+    if model.ny > 3:
+        raise NotImplementedError("the lowrank update supports ny <= 3")
+    if config.ess_threshold < 1.0:
+        raise NotImplementedError(
+            "ESS-gated resampling (ess_threshold < 1) is not ported yet "
+            "(ROADMAP queue 1 item 6)"
+        )
+    if config.resampling != "systematic":
+        raise NotImplementedError(
+            f"resampling={config.resampling!r} in the filter is not ported "
+            "yet (ROADMAP queue 1 item 6); use 'systematic'"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded filtering is not ported yet (ROADMAP queue 1 "
+            "item 15)"
+        )
+    if config.cov_dtype not in _DTYPES:
+        raise ValueError(f"cov_dtype must be one of {sorted(_DTYPES)}")
+
+
+def _as(x, device, dtype=torch.float32):
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+             config: RBPFConfig, *, generator: Optional[torch.Generator],
+             device, noise=None, mask=None, mesh=None) -> RBPFResult:
+    """Run the RBPF on ``device``.
+
+    dx [T-1, n_u] odometry; y [T, ny] observations; Q [nw, nw] or
+    [T-1, nw, nw]; dt scalar or [T-1]. ``generator`` (a torch.Generator
+    on ``device``) supplies every random draw unless ``noise = (u0 [T-1],
+    w [T-1, N, 6])`` is given. On a CUDA device every kernel wrapper
+    launches its kernel; on the CPU the wrappers run their plain versions.
+
+    Only the lowrank kernel path with systematic resampling every step is
+    ported; the other paths raise NotImplementedError naming the ROADMAP
+    item that ports them.
+    """
+    _check_supported(model, config, mesh)
+    device = torch.device(device)
+    n_p = config.n_particles
+    f32 = torch.float32
+    y = _as(y, device)
+    T = y.shape[0]
+    # the kernel paths have no observation-mask support: NaN-masked
+    # measurements would enter the update as y=0 observations
+    if mask is not None:
+        if not bool(torch.all(_as(mask, device) != 0)):
+            raise ValueError(
+                "the lowrank KF kernel path does not support masked "
+                "observations"
+            )
+    elif not bool(torch.all(torch.isfinite(y))):
+        raise ValueError(
+            "y contains NaN but the lowrank KF kernel path is selected; "
+            "NaN rows are only masked correctly on kf_kernel='xla'"
+        )
+    dx = _as(dx, device)
+    Q = _as(Q, device)
+    if Q.dim() == 2:
+        Q = Q.expand((T - 1,) + Q.shape)
+    dt = _as(dt, device)
+    if dt.dim() == 0:
+        dt = dt.expand(T - 1)
+    R = _as(R, device)
+    if noise is None and generator is None:
+        raise ValueError("give a torch.Generator or injected noise")
+    if noise is not None:
+        u0_all, w_all = (_as(a, device) for a in noise)
+        if u0_all.shape != (T - 1,) or w_all.shape != (T - 1, n_p, 6):
+            raise ValueError(
+                f"noise must be (u0 [{T - 1}], w [{T - 1}, {n_p}, 6])"
+            )
+
+    def draw(t):
+        if noise is not None:
+            return u0_all[t], w_all[t]
+        u0 = torch.rand((), generator=generator, device=device)
+        w = torch.randn((n_p, 6), generator=generator, device=device)
+        return u0, w
+
+    xn0 = _as(x0_nonlin, device).expand(n_p, -1).contiguous()
+    x0_lin = _as(x0_lin, device)
+    xl0 = x0_lin.expand(n_p, -1) if x0_lin.dim() == 1 else x0_lin
+    n_lin = xl0.shape[-1]
+    cov_dtype = _DTYPES[config.cov_dtype]
+    lowrank = T > 1
+    if (not lowrank and cov_dtype == torch.bfloat16 and n_lin > 256
+            and not config.allow_bf16_large_nl):
+        raise ValueError(
+            f"cov_dtype='bfloat16' at n_lin={n_lin} > 256 destabilizes the "
+            "per-step filter paths; use float32, T > 1 (the lowrank "
+            "carry), or allow_bf16_large_nl=True"
+        )
+    P0 = _as(P0_lin, device).to(cov_dtype)
+    nl_pad = n_lin
+    if lowrank:
+        # zero-pad the map to a multiple of 128 (zero rows and columns
+        # are exact) and slice back at the end
+        nl_pad = -(-n_lin // 128) * 128
+        pad = nl_pad - n_lin
+        xl0 = torch.nn.functional.pad(xl0, (0, pad))
+        P0 = torch.nn.functional.pad(P0, (0, pad, 0, pad))
+    P0 = P0.expand((n_p,) + P0.shape)
+
+    # --- step t = 0: no prediction (src/particleFilter.m:103) ---
+    C0 = model.meas_jacobian_batch(xn0)
+    C0 = torch.nn.functional.pad(C0, (0, nl_pad - C0.shape[-1]))
+    xl, P, logw1, retried0 = kalman_update_dense_batched(
+        C0, P0, xl0, y[0], R, config.jitter, config.joseph,
+        symmetrize_out=lowrank or config.symmetrize_cov,
+    )
+    del P0
+    retries = retried0.sum()
+    w1, logw1n, logz0 = logsumexp_normalize(logw1)
+    logw_n = logw1n
+    log_np = math.log(n_p)
+
+    n_steps = T - 1
+    ancestors = torch.empty((n_steps, n_p), dtype=torch.int32, device=device)
+    traj_max_t = torch.empty((n_steps, 7), device=device)
+    traj_mean_t = torch.empty((n_steps, 7), device=device)
+    ess_t = torch.empty((n_steps,), device=device)
+    logz_t = torch.empty((n_steps,), device=device)
+    xn_hist = (torch.empty((T, n_p, 7), device=device)
+               if config.store_trajectories else None)
+    if xn_hist is not None:
+        xn_hist[0] = xn0
+    xn = xn0
+
+    if lowrank:
+        # --- low-rank factored covariance loop ------------------------
+        ny = model.ny
+        r = config.lowrank_period
+        ar = torch.arange(n_p, dtype=torch.int32, device=device)
+        P_base = P
+        t = 0
+        while t < n_steps:
+            length = min(r, n_steps - t)
+            Wt = torch.zeros((n_p, ny * length, nl_pad), dtype=cov_dtype,
+                             device=device)
+            bidx = ar
+            for phase in range(length):
+                u0, w_dyn = draw(t)
+                ai = systematic_resample(u0, torch.exp(logw_n), n_p)
+                xn_a, xl_a = xn[ai], xl[ai]
+                bidx = bidx[ai]
+                Wt = Wt[ai]
+                xn = model.dynamics_batch(w_dyn, xn_a, dx[t], dt[t], Q[t])
+                C = model.meas_jacobian_batch_rows(xn, nl_pad, cov_dtype)
+                xl, wnew, logw, bad = kf_update_lowrank(
+                    bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter
+                )
+                # the freshly gathered factor's rows of this phase are
+                # still zero: write the new rows in place
+                Wt[:, ny * phase:ny * phase + ny] = wnew
+                retries = retries + bad.sum()
+                # -log N_P + log N_P: the carried weights reset at resampling
+                w_new, logw_n, logz = logsumexp_normalize(logw)
+                iw_max = torch.argmax(logw_n)
+                ancestors[t] = ai.to(torch.int32)
+                traj_max_t[t] = xn[iw_max]
+                traj_mean_t[t] = torch.sum(xn * w_new[:, None], dim=0)
+                ess_t[t] = ess_from_logw(logw_n)
+                logz_t[t] = logz - log_np
+                if xn_hist is not None:
+                    xn_hist[t + 1] = xn
+                t += 1
+            P_base = kf_rebase(bidx, Wt, P_base)
+        P = P_base
+
+    # prepend step-0 outputs
+    traj_max = torch.cat([xn0[torch.argmax(logw1n)][None], traj_max_t])
+    traj_mean = torch.cat(
+        [torch.sum(xn0 * w1[:, None], dim=0)[None], traj_mean_t]
+    )
+    ess = torch.cat([ess_from_logw(logw1n)[None], ess_t])
+    log_evidence = (logz0 - log_np) + torch.sum(logz_t)
+
+    if xn_hist is not None:
+        xn_traj = reconstruct_trajectories(xn_hist, ancestors)
+    else:
+        xn_hist = torch.zeros((0,), device=device)
+        xn_traj = torch.zeros((0,), device=device)
+
+    xl_f = xl[..., :n_lin]
+    P_f = P[..., :n_lin, :n_lin]
+    if config.store_trajectories:
+        P_f = P_f.to(f32)
+    w_f = torch.exp(logw_n)
+    iw_max = torch.argmax(logw_n)
+    xl_mean = torch.sum(xl_f * w_f[:, None], dim=0)
+    dev = xl_mean[None, :] - xl_f
+    P_mean = _weighted_sum(w_f.to(P_f.dtype), P_f) + torch.einsum(
+        "p,pi,pj->ij", w_f, dev, dev
+    )
+    return RBPFResult(
+        traj_max=traj_max,
+        traj_mean=traj_mean,
+        xl_max=xl_f[iw_max],
+        xl_mean=xl_mean,
+        P_max=P_f[iw_max].to(f32),
+        P_mean=P_mean,
+        traj_sample_iwmax=(
+            xn_traj[:, iw_max] if config.store_trajectories else xn_traj
+        ),
+        xn_traj=xn_traj,
+        xn_hist=xn_hist,
+        ancestors=ancestors,
+        logw=logw_n,
+        xn=xn,
+        xl=xl_f,
+        P=P_f,
+        ess=ess,
+        log_evidence=log_evidence,
+        chol_retries=retries,
+    )
+
+
+def _weighted_sum(w, P, chunk_bytes: int = 1 << 28):
+    """sum_p w[p] P[p] accumulated in float32, chunked over particles so a
+    float32 copy of a bf16 ensemble is never materialized whole."""
+    n = P.shape[0]
+    per = max(1, chunk_bytes // (P[0].numel() * 4))
+    acc = torch.zeros(P.shape[1:], dtype=torch.float32, device=P.device)
+    for s in range(0, n, per):
+        acc += torch.einsum("p,pij->ij", w[s:s + per].float(),
+                            P[s:s + per].float())
+    return acc

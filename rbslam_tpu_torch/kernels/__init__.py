@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels of the filter's hot path, with their plain
+PyTorch versions (port of rbslam_tpu/kernels/).
+
+K1 mag3d_jacobian_rows  (replaces basis_eval.py:_jac3d_rows_kernel)
+K2 gather_cp            (replaces kf_update.py:_kernel_gather_cp)
+K3 kf_rebase            (replaces kf_update.py:_kernel_rebase)
+K4 grad_basis           (replaces basis_eval.py:_grad_kernel)
+"""
+
+from ._lib import launch_counts, reset_launch_counts
+from .basis_eval import (
+    BasisConstants,
+    grad_basis,
+    grad_basis_plain,
+    mag3d_jacobian_rows,
+    mag3d_jacobian_rows_plain,
+    pack_basis_constants,
+)
+from .kf_update import (
+    gather_cp,
+    gather_cp_plain,
+    kf_rebase,
+    kf_update_lowrank,
+    rebase_plain,
+)
+
+__all__ = [
+    "launch_counts", "reset_launch_counts",
+    "BasisConstants", "pack_basis_constants",
+    "grad_basis", "grad_basis_plain",
+    "mag3d_jacobian_rows", "mag3d_jacobian_rows_plain",
+    "gather_cp", "gather_cp_plain", "kf_rebase", "rebase_plain",
+    "kf_update_lowrank",
+]

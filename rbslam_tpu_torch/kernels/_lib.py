@@ -1,0 +1,146 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under ``rbslam_tpu_torch/csrc/`` are compiled at first use
+with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a
+plain C interface, which is loaded with ``ctypes``. The library's file
+name carries a hash of the sources, so an edited source is rebuilt and
+a stale build is never loaded. The build directory
+(``rbslam_tpu_torch/_build/``) is listed in ``.gitignore``.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; an entry that launches nothing returns an error.
+Each wrapper returns an empty output before the C call (nothing to
+launch) and otherwise passes the entry's code to :func:`check` right after
+its launch: a non-zero code raises, and a launch is counted there and
+nowhere else. :func:`launch_counts` / :func:`reset_launch_counts`
+read and clear the counters, so a run can show which kernels its path
+went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("basis_eval.cu", "kf_update.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase")
+_launches = dict.fromkeys(KERNEL_NAMES, 0)
+_lib = None
+build_seconds = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    # (x, consts, scale, out, n, m, d, stream)
+    "rbs_grad_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
+    # (pos, quat, consts, scale, out, n, m, nl_pad, out_bf16, stream)
+    "rbs_jac3d_rows": (_P, _P, _P, _F, _P, _LL, _I, _I, _I, _P),
+    # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, bf16, stream)
+    "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
+    # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, bf16, stream)
+    "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "are built from rbslam_tpu_torch/csrc at first use"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel library if no build of these sources exists;
+    return its path. ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    memory and spills per kernel) and prints the compiler's output."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"librbslam_kernels_{_source_hash()}.so"
+    if out.exists() and not verbose:
+        return out
+    t0 = time.perf_counter()
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        major, minor = torch.cuda.get_device_capability()
+        if (major, minor) != (9, 0):
+            raise RuntimeError(
+                f"kernels are built for sm_90a (Hopper); this card is "
+                f"sm_{major}{minor}"
+            )
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error; else count the launch."""
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {code}")
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0

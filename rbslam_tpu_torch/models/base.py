@@ -1,0 +1,36 @@
+"""Model protocol: state-space models as NamedTuples of callables (port of
+rbslam_tpu/models/base.py).
+
+Noise enters every sampled transition as an explicit standard-normal
+tensor drawn by the caller (from a ``torch.Generator``, or injected by
+the tests), never inside the model.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+
+class DenseModel(NamedTuple):
+    """Conditionally linear measurement: y = C(xn) @ xl + r.
+
+    dynamics:      (w, xn, u, dt, Q) -> xn'     one particle, w standard normal
+    dyn_residual:  whitened dynamics residual for the smoothers (None here)
+    meas_jacobian: (xn) -> C [ny, n_lin]
+    n_nonlin, n_lin, ny: static dimensions
+    meas_jacobian_batch:      (xn [P, dn]) -> C [P, ny, n_lin]
+    dynamics_batch:           (w [P, nw], xn [P, dn], u, dt, Q) -> xn' [P, dn]
+    meas_jacobian_batch_rows: (xn [P, dn], nl_pad, dtype) ->
+                              C [P, ny, nl_pad] in ``dtype`` (the fused
+                              rows-layout Jacobian the lowrank update consumes)
+    """
+
+    dynamics: Callable
+    dyn_residual: Optional[Callable]
+    meas_jacobian: Callable
+    n_nonlin: int
+    n_lin: int
+    ny: int
+    meas_jacobian_batch: Optional[Callable] = None
+    dynamics_batch: Optional[Callable] = None
+    meas_jacobian_batch_rows: Optional[Callable] = None

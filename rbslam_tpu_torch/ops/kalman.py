@@ -1,0 +1,163 @@
+"""Batched per-particle Kalman measurement updates, small-ny form (port of
+rbslam_tpu/ops/kalman.py:107-289).
+
+Dense path (src/particleFilter.m:137-150,181-198): per particle i,
+
+    S_i = C_i P_i C_i' + R          (ny x ny, ny <= 3)
+    logw_i = log N(e_i; 0, S_i)
+    K_i = P_i C_i' S_i^{-1}
+    xl_i += K_i e_i ;  P_i -= K_i S_i K_i'
+
+The ny x ny algebra is closed-form and elementwise over the batch. All
+contractions accumulate in float32 whatever the covariance storage
+dtype. The masked (sparse) update and the ny > 3 form come with the
+engine paths that use them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..math.linalg import symmetrize
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+
+def _chol_small_batched(S: torch.Tensor, jitter: float):
+    """Closed-form batched Cholesky for ny <= 3: S [N, ny, ny].
+
+    Where any pivot fails, the particle's S gets a scale-aware jitter
+    (jitter times the mean diagonal, at least 1) before factoring — the
+    reference's retry (src/particleFilter.m:145-148) kept meaningful
+    under reduced precision. Returns (L, bad).
+    """
+    ny = S.shape[-1]
+
+    def pivots(Sm):
+        l11s = Sm[:, 0, 0]
+        piv = [l11s]
+        if ny >= 2:
+            l11 = torch.sqrt(torch.clamp(l11s, min=1e-30))
+            l21 = Sm[:, 1, 0] / l11
+            piv.append(Sm[:, 1, 1] - l21**2)
+        if ny >= 3:
+            l31 = Sm[:, 2, 0] / l11
+            l22 = torch.sqrt(torch.clamp(piv[1], min=1e-30))
+            l32 = (Sm[:, 2, 1] - l31 * l21) / l22
+            piv.append(Sm[:, 2, 2] - l31**2 - l32**2)
+        return piv
+
+    bad = torch.zeros(S.shape[0], dtype=torch.bool, device=S.device)
+    for p in pivots(S):
+        bad = bad | (p <= 0)
+    eye = torch.eye(ny, dtype=S.dtype, device=S.device)
+    diag_scale = torch.clamp(
+        torch.diagonal(S, dim1=-2, dim2=-1).mean(dim=-1), min=1.0
+    )
+    S = torch.where(
+        bad[:, None, None], S + (jitter * diag_scale)[:, None, None] * eye, S
+    )
+
+    cols = []
+    zero = torch.zeros_like(S[:, 0, 0])
+    l11 = torch.sqrt(S[:, 0, 0])
+    if ny == 1:
+        return l11[:, None, None], bad
+    l21 = S[:, 1, 0] / l11
+    l22 = torch.sqrt(S[:, 1, 1] - l21**2)
+    if ny == 2:
+        cols = [[l11, zero], [l21, l22]]
+    else:
+        l31 = S[:, 2, 0] / l11
+        l32 = (S[:, 2, 1] - l31 * l21) / l22
+        l33 = torch.sqrt(S[:, 2, 2] - l31**2 - l32**2)
+        cols = [[l11, zero, zero], [l21, l22, zero], [l31, l32, l33]]
+    L = torch.stack([torch.stack(r, dim=-1) for r in cols], dim=-2)
+    return L, bad
+
+
+def _tri_solve_small_batched(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Forward-substitute L v = b, batched, ny <= 3 (elementwise)."""
+    ny = L.shape[-1]
+    v0 = b[:, 0] / L[:, 0, 0]
+    vs = [v0]
+    if ny >= 2:
+        vs.append((b[:, 1] - L[:, 1, 0] * v0) / L[:, 1, 1])
+    if ny >= 3:
+        vs.append(
+            (b[:, 2] - L[:, 2, 0] * vs[0] - L[:, 2, 1] * vs[1]) / L[:, 2, 2]
+        )
+    return torch.stack(vs, dim=-1)
+
+
+def _Li_from_chol_small_batched(L: torch.Tensor) -> torch.Tensor:
+    """L^-1 (lower), batched, ny <= 3 (elementwise)."""
+    ny = L.shape[-1]
+    zero = torch.zeros_like(L[:, 0, 0])
+    i00 = 1.0 / L[:, 0, 0]
+    if ny == 1:
+        return i00[:, None, None]
+    i11 = 1.0 / L[:, 1, 1]
+    i10 = -L[:, 1, 0] * i00 / L[:, 1, 1]
+    if ny == 2:
+        rows = [[i00, zero], [i10, i11]]
+    else:
+        i22 = 1.0 / L[:, 2, 2]
+        i21 = -L[:, 2, 1] * i11 / L[:, 2, 2]
+        i20 = -(L[:, 2, 0] * i00 + L[:, 2, 1] * i10) / L[:, 2, 2]
+        rows = [[i00, zero, zero], [i10, i11, zero], [i20, i21, i22]]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _inv_from_chol_small_batched(L: torch.Tensor) -> torch.Tensor:
+    """S^-1 = L^-T L^-1, batched, ny <= 3 (elementwise)."""
+    Li = _Li_from_chol_small_batched(L)
+    return torch.einsum("pki,pkj->pij", Li, Li)
+
+
+def kalman_update_dense_batched(C, P, xl, y, R, jitter: float,
+                                joseph: bool = False,
+                                symmetrize_out: bool = True):
+    """Whole-ensemble dense KF update, ny <= 3: C [N,ny,nl], P [N,nl,nl]
+    (any storage dtype), xl [N,nl]. Returns (xl', P', logw [N], retried [N]).
+
+    As the reference path, the contractions use P's LAST axis (exact for
+    the symmetric covariance), the downdate is formed in float32 and
+    subtracted in P's storage dtype, and a float32 C against a bf16 P is
+    promoted to float32.
+    """
+    if C.shape[1] > 3:
+        raise NotImplementedError(
+            "ny > 3 dense update (the lax form, rbslam_tpu/ops/kalman.py:"
+            "292-324) is ROADMAP queue 1 item 4"
+        )
+    f32 = torch.float32
+    Cf = C.to(f32)
+    e = y[None, :] - torch.einsum("pij,pj->pi", Cf, xl.to(f32))
+    CP = torch.einsum("pij,pkj->pik", Cf, P.to(f32))
+    S = torch.einsum("pik,pjk->pij", CP, Cf) + R
+    L, retried = _chol_small_batched(S, jitter)
+    v = _tri_solve_small_batched(L, e)
+    ny = e.shape[-1]
+    hld = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    logw = -hld - 0.5 * torch.sum(v * v, dim=-1) - 0.5 * ny * _LOG2PI
+    Sinv = _inv_from_chol_small_batched(L)
+    K = torch.einsum("pji,pjk->pik", CP, Sinv)              # [N, nl, ny]
+    xl_new = xl + torch.einsum("pij,pj->pi", K, e)
+    if joseph:
+        n = P.shape[-1]
+        IKC = torch.eye(n, dtype=f32, device=P.device) - K @ Cf
+        P_new = torch.einsum("pij,pjk,plk->pil", IKC, P.to(f32), IKC) \
+            + K @ R @ K.transpose(-1, -2)
+    else:
+        # P - K S K' == P - (CP)' Sinv (CP): rank-ny sum of broadcasts
+        X = torch.einsum("pij,pjk->pik", Sinv, CP)
+        downdate = sum(
+            CP[:, j][:, :, None] * X[:, j][:, None, :] for j in range(ny)
+        )
+        P_new = P - downdate.to(P.dtype)
+    if symmetrize_out:
+        P_new = symmetrize(P_new)
+    return xl_new, P_new.to(P.dtype), logw, retried

@@ -1,0 +1,106 @@
+"""Where one filter run's time goes on the GPU.
+
+    python -m rbslam_tpu_torch.workloads.profile_dense_mag \
+        [--particles 16384] [--basis 125] [--steps 192] [--cov-dtype bfloat16] \
+        [--out profile.txt]
+
+Builds the flagship problem (bean_6D, seed 1), runs the lowrank filter
+once to warm up, then once under ``torch.profiler`` (CPU and CUDA
+activities). Reports the run's wall time, the device time per kernel
+name (sum over the run), the device busy share (kernel + memcpy/memset
+time over wall time), and the device operations launched per step.
+Needs a CUDA device; there is no CPU mode.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..engines import RBPFConfig, run_rbpf
+from .dense_mag import build_problem
+
+
+def _device_events(prof):
+    """(name, microseconds) of every device-side event of the trace."""
+    out = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out.append((e.name, e.time_range.end - e.time_range.start))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--particles", type=int, default=16384)
+    ap.add_argument("--basis", type=int, default=125)
+    ap.add_argument("--steps", type=int, default=192)
+    ap.add_argument("--cov-dtype", default="bfloat16",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--out", default=None, help="also write the report here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_dense_mag needs a CUDA device")
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    problem, _ = build_problem(args.basis, args.steps, seed=1, device=device)
+    cfg = RBPFConfig(n_particles=args.particles, resampling="systematic",
+                     cov_dtype=args.cov_dtype, symmetrize_cov=False,
+                     kf_kernel="lowrank")
+    gen = torch.Generator(device=device)
+
+    def run(seed):
+        gen.manual_seed(seed)
+        res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
+                       device=device)
+        torch.cuda.synchronize()
+        return res
+
+    run(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(1)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_events(prof)
+    by_name = defaultdict(lambda: [0, 0.0])
+    for name, us in events:
+        by_name[name][0] += 1
+        by_name[name][1] += us
+    busy_us = sum(us for _, us in events)
+    T = args.steps
+    lines = [
+        f"card: {card}",
+        f"config: N_P={args.particles} m={args.basis} T={T} "
+        f"{args.cov_dtype} lowrank r=8, systematic",
+        f"wall {wall_us / 1e3:.3f} ms under the profiler "
+        f"({wall_us / 1e3 / T:.4f} ms/step)",
+        f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of "
+        f"wall (idle share {1 - busy_us / wall_us:.3f})",
+        f"device operations: {len(events)} ({len(events) / T:.1f} per step)",
+        "device time by kernel (count, total ms, share of busy):",
+    ]
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {us / 1e3:10.3f} ms {n:7d}x {us / busy_us:6.3f}  "
+                     f"{name[:110]}")
+    report = "\n".join(lines)
+    print(report)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(report + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

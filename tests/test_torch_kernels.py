@@ -1,0 +1,340 @@
+"""Kernels K1-K4 of the port.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against the JAX package's Pallas entry points (interpret mode on the CPU)
+on the same numpy inputs, mirroring tests/test_kernels.py and
+tests/test_fused_kf.py. ``TestOnCard`` (marker ``gpu``) compares each
+CUDA kernel with its plain version and skips without a card; it needs no
+JAX.
+
+Tolerances: float32 Jacobians atol 1e-5 (plus rtol 1e-5 of the value);
+the factored update 1e-4 relative to the outputs' scale, tighter than
+the 5e-2 of the JAX package's own kernel-vs-XLA test; bf16 outputs one
+bf16 rounding (8e-3) of the output's scale.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rbslam_tpu_torch.basis import hypercube_basis  # noqa: E402
+from rbslam_tpu_torch.kernels import (  # noqa: E402
+    gather_cp,
+    gather_cp_plain,
+    grad_basis,
+    grad_basis_plain,
+    kf_rebase,
+    kf_update_lowrank,
+    launch_counts,
+    mag3d_jacobian_rows,
+    mag3d_jacobian_rows_plain,
+    pack_basis_constants,
+    rebase_plain,
+    reset_launch_counts,
+)
+
+LL = np.array([2.0, 2.0, 1.0])
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's kernel entry points (imported only where needed,
+    so the on-card tests run where JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from rbslam_tpu.basis import hypercube_basis as jhb
+    from rbslam_tpu.kernels import grad_basis_pallas
+    from rbslam_tpu.kernels.basis_eval import mag3d_jacobian_rows_pallas
+    from rbslam_tpu.kernels.kf_update import kf_rebase as jrebase
+    from rbslam_tpu.kernels.kf_update import kf_update_lowrank as jlowrank
+
+    return {
+        "jnp": jnp, "hypercube_basis": jhb, "grad": grad_basis_pallas,
+        "rows": mag3d_jacobian_rows_pallas, "rebase": jrebase,
+        "lowrank": jlowrank,
+    }
+
+
+def t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _points(n=37, seed=7):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    return pos, q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobian_rows_matches_jax(jx, dtype):
+    jnp = jx["jnp"]
+    pos, q = _points()
+    consts = pack_basis_constants(hypercube_basis(61, LL), "cpu")
+    tdt = getattr(torch, dtype)
+    port = mag3d_jacobian_rows(consts, t(pos), t(q), 128, tdt)
+    ref = np.asarray(jx["rows"](jx["hypercube_basis"](61, LL),
+                                jnp.asarray(pos), jnp.asarray(q), 128,
+                                jnp.dtype(dtype)).astype(jnp.float32))
+    assert port.shape == (37, 3, 128) and port.dtype == tdt
+    np.testing.assert_array_equal(port[:, :, 3 + 61:].float().numpy(), 0.0)
+    if dtype == "float32":
+        np.testing.assert_allclose(port.numpy(), ref, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(port.float().numpy(), ref, rtol=8e-3,
+                                   atol=8e-3 * float(np.abs(ref).max()))
+
+
+def test_grad_basis_matches_jax(jx):
+    jnp = jx["jnp"]
+    pos, _ = _points(53, seed=3)
+    consts = pack_basis_constants(hypercube_basis(61, LL), "cpu")
+    port = grad_basis(consts, t(pos))
+    ref = np.asarray(jx["grad"](jx["hypercube_basis"](61, LL),
+                                jnp.asarray(pos)))
+    assert port.shape == (53, 3, 61)
+    np.testing.assert_allclose(port.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_grad_basis_matches_basis_gradient():
+    """K4's plain version equals LaplaceBasis.grad_phi (the jnp-style path)."""
+    basis = hypercube_basis(40, LL)
+    pos, _ = _points(20, seed=5)
+    consts = pack_basis_constants(basis, "cpu")
+    np.testing.assert_allclose(grad_basis(consts, t(pos)).numpy(),
+                               basis.grad_phi(t(pos)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _factored(ny, seed=3, N=32, nl=128):
+    rng = np.random.default_rng(seed)
+    rw = 8 * ny
+    A = (0.2 * rng.normal(size=(N, nl, nl))).astype(np.float32)
+    P_base = A @ A.transpose(0, 2, 1) + 2.0 * np.eye(nl, dtype=np.float32)
+    Wt = np.zeros((N, rw, nl), np.float32)
+    Wt[:, :2 * ny] = 0.1 * rng.normal(size=(N, 2 * ny, nl))
+    C = (0.3 * rng.normal(size=(N, ny, nl))).astype(np.float32)
+    xl = rng.normal(size=(N, nl)).astype(np.float32)
+    y = rng.normal(size=(ny,)).astype(np.float32)
+    R = (0.5 * np.eye(ny)).astype(np.float32)
+    bidx = rng.integers(0, N, size=N).astype(np.int32)
+    return bidx, C, xl, Wt, P_base, y, R
+
+
+def _scaled_close(port, ref, rel):
+    ref = np.asarray(ref, np.float64)
+    np.testing.assert_allclose(np.asarray(port, np.float64), ref, rtol=rel,
+                               atol=rel * max(float(np.abs(ref).max()), 1.0))
+
+
+@pytest.mark.parametrize("ny", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lowrank_update_and_rebase_match_jax(jx, ny, dtype):
+    jnp = jx["jnp"]
+    bidx, C, xl, Wt, P_base, y, R = _factored(ny)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    # the storage-dtype inputs both packages see
+    Cs, Wts, Ps = (np.asarray(jnp.asarray(a).astype(jdt).astype(jnp.float32))
+                   for a in (C, Wt, P_base))
+    port = kf_update_lowrank(t(bidx), t(Cs).to(tdt), t(xl), t(Wts).to(tdt),
+                             t(Ps).to(tdt), t(y), t(R))
+    ref = jx["lowrank"](jnp.asarray(bidx), jnp.asarray(Cs).astype(jdt),
+                        jnp.asarray(xl), jnp.asarray(Wts).astype(jdt),
+                        jnp.asarray(Ps).astype(jdt), jnp.asarray(y),
+                        jnp.asarray(R))
+    rel = 1e-4 if dtype == "float32" else 8e-3
+    assert port[1].dtype == tdt
+    _scaled_close(port[0].numpy(), ref[0], rel)
+    _scaled_close(port[1].float().numpy(),
+                  np.asarray(ref[1].astype(jnp.float32)), rel)
+    _scaled_close(port[2].numpy(), ref[2], rel)
+    np.testing.assert_array_equal(port[3].numpy(), np.asarray(ref[3]))
+
+    P_new = kf_rebase(t(bidx), t(Wts).to(tdt), t(Ps).to(tdt))
+    P_ref = jx["rebase"](jnp.asarray(bidx), jnp.asarray(Wts).astype(jdt),
+                         jnp.asarray(Ps).astype(jdt))
+    assert P_new.dtype == tdt
+    _scaled_close(P_new.float().numpy(),
+                  np.asarray(P_ref.astype(jnp.float32)), rel)
+
+
+def test_lowrank_jitter_retry_matches_jax(jx):
+    """S = 0 (P_base = 0, R = 0): every particle takes the scale-aware
+    jitter retry, with finite weights, as in the JAX package."""
+    jnp = jx["jnp"]
+    N, ny, nl, rw = 8, 3, 128, 24
+    C = (0.3 * np.random.default_rng(0).normal(size=(N, ny, nl))
+         ).astype(np.float32)
+    args = (np.arange(N, dtype=np.int32), C, np.zeros((N, nl), np.float32),
+            np.zeros((N, rw, nl), np.float32),
+            np.zeros((N, nl, nl), np.float32), np.ones(ny, np.float32),
+            np.zeros((ny, ny), np.float32))
+    port = kf_update_lowrank(*map(t, args))
+    ref = jx["lowrank"](*map(jnp.asarray, args))
+    assert bool(port[3].all())
+    np.testing.assert_array_equal(port[3].numpy(), np.asarray(ref[3]))
+    assert np.isfinite(port[2].numpy()).all()
+    _scaled_close(port[2].numpy(), ref[2], 1e-4)
+
+
+def test_lowrank_update_equals_dense_update():
+    """The factored update equals the dense small-ny update on the
+    materialized covariance P_base[bidx] - Wt^T Wt (port only)."""
+    from rbslam_tpu_torch.ops.kalman import kalman_update_dense_batched
+
+    bidx, C, xl, Wt, P_base, y, R = map(t, _factored(3, seed=9))
+    P_eff = P_base[bidx.long()] - torch.einsum("pri,prj->pij", Wt, Wt)
+    ref = kalman_update_dense_batched(C, P_eff, xl, y, R, 1e-3,
+                                      symmetrize_out=False)
+    xl_new, wnew, logw, bad = kf_update_lowrank(bidx, C, xl, Wt, P_base, y, R)
+    _scaled_close(xl_new.numpy(), ref[0].numpy(), 1e-4)
+    _scaled_close(logw.numpy(), ref[2].numpy(), 1e-4)
+    Wt2 = Wt.clone()
+    Wt2[:, 6:9] = wnew
+    _scaled_close(kf_rebase(bidx, Wt2, P_base).numpy(), ref[1].numpy(), 1e-4)
+
+
+def test_wrappers_reject_bad_inputs():
+    consts = pack_basis_constants(hypercube_basis(20, LL), "cpu")
+    pos, q = map(t, _points(4))
+    with pytest.raises(TypeError):
+        grad_basis(consts, pos.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mag3d_jacobian_rows(consts, t(np.zeros((3, 4), np.float32)).T, q[:4],
+                            128)
+    with pytest.raises(ValueError, match="nl_pad"):
+        mag3d_jacobian_rows(consts, pos, q, 16)
+    bidx, C, xl, Wt, P_base, y, R = map(t, _factored(1, N=4))
+    with pytest.raises(TypeError, match="int32"):
+        gather_cp(bidx.long(), C, Wt, P_base)
+    with pytest.raises(TypeError):
+        kf_rebase(bidx, Wt.to(torch.bfloat16), P_base)
+    with pytest.raises(ValueError, match="contiguous"):
+        kf_rebase(bidx, Wt, P_base.transpose(1, 2))
+    with pytest.raises(ValueError):
+        gather_cp(bidx, C[:, :, :64].contiguous(), Wt, P_base)
+
+
+def test_cpu_tensors_take_plain_version_and_count_nothing():
+    reset_launch_counts()
+    consts = pack_basis_constants(hypercube_basis(20, LL), "cpu")
+    pos, q = map(t, _points(6))
+    grad_basis(consts, pos)
+    mag3d_jacobian_rows(consts, pos, q, 128)
+    assert launch_counts() == {"grad_basis": 0, "jac3d_rows": 0,
+                               "gather_cp": 0, "rebase": 0}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a): the CUDA kernels have "
+                    "no CPU mode; their plain versions are tested above")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+class TestOnCard:
+    """Each CUDA kernel against its plain version on the card, at small
+    and at the main path's widths. f32: 1e-4 of the output's max
+    magnitude, and elementwise rtol 1e-4 with an absolute floor of 1e-6
+    of that magnitude; bf16: 2e-2 of the max magnitude."""
+
+    @staticmethod
+    def _check(kernel_out, plain_out, dtype):
+        assert kernel_out.shape == plain_out.shape
+        assert kernel_out.dtype == plain_out.dtype
+        a, b = kernel_out.float(), plain_out.float()
+        assert bool(torch.isfinite(a).all())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale
+        if dtype == torch.float32:
+            assert torch.allclose(a, b, rtol=tol, atol=1e-6 * scale)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("n,m", [(37, 61), (4096, 125)])
+    def test_basis_kernels(self, card, dtype, n, m):
+        g = torch.Generator(device=card).manual_seed(n)
+        consts = pack_basis_constants(hypercube_basis(m, [[-20, -20, -2.4],
+                                                          [20, 20, 2.4]]),
+                                      card)
+        pos = 30 * (torch.rand((n, 3), generator=g, device=card) - 0.5)
+        q = torch.randn((n, 4), generator=g, device=card)
+        q = q / q.norm(dim=-1, keepdim=True)
+        before = launch_counts()
+        self._check(mag3d_jacobian_rows(consts, pos, q, 128 * (1 + m // 128),
+                                        dtype),
+                    mag3d_jacobian_rows_plain(consts, pos, q,
+                                              128 * (1 + m // 128), dtype),
+                    dtype)
+        self._check(grad_basis(consts, pos), grad_basis_plain(consts, pos),
+                    torch.float32)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["jac3d_rows"] == before["jac3d_rows"] + 1
+        assert after["grad_basis"] == before["grad_basis"] + 1
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("ny,nl,rw", [(1, 128, 8), (3, 128, 24),
+                                          (3, 512, 21)])
+    def test_factored_kernels(self, card, dtype, ny, nl, rw):
+        g = torch.Generator(device=card).manual_seed(nl + ny)
+        n = 256
+        B = torch.randn((n, nl, nl), generator=g, device=card)
+        P_base = (0.05 * (B + B.transpose(1, 2))
+                  + 2 * torch.eye(nl, device=card)).to(dtype)
+        Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=card)
+              ).to(dtype)
+        C = (0.3 * torch.randn((n, ny, nl), generator=g, device=card)
+             ).to(dtype)
+        bidx = torch.randint(0, n, (n,), generator=g, device=card,
+                             dtype=torch.int32)
+        self._check(gather_cp(bidx, C, Wt, P_base),
+                    gather_cp_plain(bidx, C, Wt, P_base), dtype)
+        self._check(kf_rebase(bidx, Wt, P_base),
+                    rebase_plain(bidx, Wt, P_base), dtype)
+        torch.cuda.synchronize()
+
+    def test_empty_inputs_launch_nothing(self, card):
+        """An empty ensemble returns an empty output without a launch, so
+        the counters count launches only."""
+        consts = pack_basis_constants(hypercube_basis(20, LL), card)
+        pos = torch.zeros((0, 3), device=card)
+        q = torch.zeros((0, 4), device=card)
+        bidx = torch.zeros((0,), dtype=torch.int32, device=card)
+        Wt = torch.zeros((0, 8, 128), device=card)
+        C = torch.zeros((0, 3, 128), device=card)
+        P_base = torch.zeros((4, 128, 128), device=card)
+        before = launch_counts()
+        assert grad_basis(consts, pos).shape == (0, 3, consts.m)
+        assert mag3d_jacobian_rows(consts, pos, q, 128).shape == (0, 3, 128)
+        assert gather_cp(bidx, C, Wt, P_base).shape == (0, 3, 128)
+        assert kf_rebase(bidx, Wt, P_base).shape == (0, 128, 128)
+        assert launch_counts() == before
+
+    def test_offsets_beyond_int32(self, card):
+        """N=131072, nl=128: N*nl*nl = 2.1e9 elements, past 2^31. The
+        kernels' last particles (reading the last ancestor rows) are
+        checked against the plain version on those particles only."""
+        n, nl, rw, ny = 131072, 128, 24, 3
+        g = torch.Generator(device=card).manual_seed(1)
+        P_base = torch.empty((n, nl, nl), dtype=torch.bfloat16, device=card)
+        P_base.normal_(generator=g)
+        Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=card)
+              ).to(torch.bfloat16)
+        C = (0.3 * torch.randn((n, ny, nl), generator=g, device=card)
+             ).to(torch.bfloat16)
+        bidx = torch.arange(n, device=card, dtype=torch.int32).flip(0)
+        bidx[-64:] = n - 1 - torch.arange(64, device=card, dtype=torch.int32)
+        tail = slice(n - 64, n)
+        self._check(gather_cp(bidx, C, Wt, P_base)[tail],
+                    gather_cp_plain(bidx[tail], C[tail], Wt[tail], P_base),
+                    torch.bfloat16)
+        out = kf_rebase(bidx, Wt, P_base)
+        self._check(out[tail], rebase_plain(bidx[tail], Wt[tail], P_base),
+                    torch.bfloat16)
+        torch.cuda.synchronize()

@@ -1,0 +1,338 @@
+"""The whole slice: the port's lowrank RBPF against the JAX package's on the
+same problem and the same random draws, on the CPU.
+
+The problem is bench._build_problem(29, 16, 12, pallas_basis=True): n_lin
+32 (padded to 128), T=12, i.e. one full rebase period of 8 plus a
+remainder of 3. JAX's own draws (its key flow, rbslam_tpu/engines/
+rbpf.py:436,523,549) are injected into the port through ``noise``.
+
+Tolerances (as the JAX package's lowrank-vs-block test): ancestors and
+retry counts equal; traj_mean atol 1e-3; xl_mean and P_mean atol 5e-3;
+logw and log_evidence atol 1e-2.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import bench  # noqa: E402
+from rbslam_tpu.basis.laplace import domain_center  # noqa: E402
+from rbslam_tpu.engines import RBPFConfig as JConfig  # noqa: E402
+from rbslam_tpu.engines import run_rbpf as jrun_rbpf  # noqa: E402
+from rbslam_tpu.engines.rbpf import (  # noqa: E402
+    reconstruct_trajectories as jreconstruct,
+)
+from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf  # noqa: E402
+from rbslam_tpu_torch.engines.rbpf import reconstruct_trajectories  # noqa: E402
+from rbslam_tpu_torch.utils import problem_from_numpy  # noqa: E402
+
+N_P = 16
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_noise(T, n, seed=0):
+    """The draws JAX's lowrank filter makes: key, k0 = split(key);
+    step_keys = split(key, T-1); per step k_res, k_dyn = split(k);
+    u0 = uniform(k_res, ()), w = normal(k_dyn, (n, 6))."""
+    key = jax.random.PRNGKey(seed)
+    key, _ = jax.random.split(key)
+    u0, w = [], []
+    for k in jax.random.split(key, T - 1):
+        k_res, k_dyn = jax.random.split(k)
+        u0.append(np.asarray(jax.random.uniform(k_res, ())))
+        w.append(np.asarray(jax.random.normal(k_dyn, (n, 6), jnp.float32)))
+    return np.stack(u0).reshape(T - 1), np.stack(w).reshape(T - 1, n, 6)
+
+
+def _config(cfg_cls, **kw):
+    base = dict(n_particles=N_P, resampling="systematic",
+                symmetrize_cov=False, kf_kernel="lowrank")
+    base.update(kw)
+    return cfg_cls(**base)
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    data, model, potential, k, Q, R = bench._build_problem(
+        29, N_P, 12, pallas_basis=True
+    )
+    b = potential.basis
+    center = np.asarray(jnp.asarray(domain_center(data.LL), jnp.float32))
+    prob = problem_from_numpy(
+        b.NN, b.L, b.eigenvalues, center, np.asarray(k), np.asarray(Q),
+        np.asarray(R), 0.01, np.asarray(data.dx), np.asarray(data.y),
+        np.asarray(data.init_state), device="cpu",
+    )
+    jargs = (model, data.dx, data.y, data.init_state,
+             jnp.zeros(potential.n_lin), jnp.diag(k), Q, R, 0.01)
+    T = int(data.y.shape[0])
+    ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs, _config(JConfig))
+    noise = jax_noise(T, N_P)
+    port = run_rbpf(*prob.rbpf_args(), _config(RBPFConfig), generator=None,
+                    device="cpu", noise=noise)
+    return {"ref": ref, "port": port, "prob": prob, "jargs": jargs,
+            "noise": noise, "T": T}
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def test_slice_ancestors_equal(slice_run):
+    port, ref = slice_run["port"], slice_run["ref"]
+    assert port.ancestors.dtype == torch.int32
+    np.testing.assert_array_equal(_np(port.ancestors), _np(ref.ancestors))
+
+
+def test_slice_trajectories(slice_run):
+    port, ref = slice_run["port"], slice_run["ref"]
+    for field in ("traj_mean", "traj_max", "traj_sample_iwmax", "xn_traj",
+                  "xn_hist", "xn"):
+        np.testing.assert_allclose(_np(getattr(port, field)),
+                                   _np(getattr(ref, field)), atol=1e-3,
+                                   err_msg=field)
+
+
+@pytest.mark.parametrize("field", ["xl_mean", "P_mean", "xl_max", "P_max",
+                                   "xl", "P"])
+def test_slice_map(slice_run, field):
+    port, ref = slice_run["port"], slice_run["ref"]
+    assert getattr(port, field).shape == getattr(ref, field).shape
+    np.testing.assert_allclose(_np(getattr(port, field)),
+                               _np(getattr(ref, field)), atol=5e-3)
+
+
+def test_slice_weights_and_counters(slice_run):
+    port, ref = slice_run["port"], slice_run["ref"]
+    np.testing.assert_allclose(_np(port.logw), _np(ref.logw), atol=1e-2)
+    np.testing.assert_allclose(float(port.log_evidence),
+                               float(ref.log_evidence), atol=1e-2)
+    np.testing.assert_allclose(_np(port.ess), _np(ref.ess), rtol=1e-3)
+    assert int(port.chol_retries) == int(ref.chol_retries)
+
+
+def test_slice_bf16_matches_jax_bf16(slice_run):
+    """bf16 covariance storage: the port's run equals the JAX package's bf16
+    run on the same draws, and departs from the f32 run exactly as the
+    JAX package's bf16 run departs from its own f32 run (by up to ~0.09 in
+    traj_mean at T=12 on this problem, through resampling decisions that
+    bf16 rounding changes)."""
+    prob, jargs = slice_run["prob"], slice_run["jargs"]
+    port = run_rbpf(*prob.rbpf_args(),
+                    _config(RBPFConfig, cov_dtype="bfloat16"),
+                    generator=None, device="cpu", noise=slice_run["noise"])
+    ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs,
+                    _config(JConfig, cov_dtype="bfloat16"))
+    for field in ("traj_mean", "xl_mean", "P_mean", "logw"):
+        assert bool(torch.isfinite(getattr(port, field)).all()), field
+    np.testing.assert_array_equal(_np(port.ancestors), _np(ref.ancestors))
+    np.testing.assert_allclose(_np(port.traj_mean), _np(ref.traj_mean),
+                               atol=1e-3)
+    np.testing.assert_allclose(_np(port.xl_mean), _np(ref.xl_mean),
+                               atol=5e-3)
+    scale = float(np.abs(_np(ref.P_mean)).max())
+    np.testing.assert_allclose(_np(port.P_mean), _np(ref.P_mean),
+                               atol=2 ** -8 * scale)
+    gap_port = _np(port.traj_mean) - _np(slice_run["port"].traj_mean)
+    gap_ref = _np(ref.traj_mean) - _np(slice_run["ref"].traj_mean)
+    np.testing.assert_allclose(gap_port, gap_ref, atol=1e-3)
+
+
+def test_slice_generator_draws(slice_run):
+    """Without injected noise the filter draws from the generator: the same
+    seed gives the same run."""
+    prob = slice_run["prob"]
+    runs = [run_rbpf(*prob.rbpf_args(), _config(RBPFConfig),
+                     generator=torch.Generator().manual_seed(3),
+                     device="cpu") for _ in range(2)]
+    assert torch.equal(runs[0].ancestors, runs[1].ancestors)
+    assert torch.equal(runs[0].traj_mean, runs[1].traj_mean)
+    assert bool(torch.isfinite(runs[0].xl_mean).all())
+
+
+def test_T1_matches_jax(slice_run):
+    prob = slice_run["prob"]
+    jargs = slice_run["jargs"]
+    model, dx, y = jargs[:3]
+    ref = jrun_rbpf(jax.random.PRNGKey(0), model, dx[:0], y[:1], *jargs[3:],
+                    _config(JConfig, n_particles=8))
+    port = run_rbpf(prob.model, prob.dx[:0], prob.y[:1], *prob.rbpf_args()[3:],
+                    _config(RBPFConfig, n_particles=8), generator=None,
+                    device="cpu", noise=(np.zeros(0), np.zeros((0, 8, 6))))
+    assert port.ancestors.shape == (0, 8)
+    np.testing.assert_allclose(_np(port.xl_mean), _np(ref.xl_mean),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(port.logw), _np(ref.logw), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(port.P_mean), _np(ref.P_mean), atol=5e-3)
+
+
+def test_mag3d_model_matches_jax(slice_run):
+    """The model's hooks: batched dynamics from the same standard normals,
+    the per-particle Jacobian, the K4-backed batch Jacobian and the
+    K1-backed rows Jacobian."""
+    jmodel = slice_run["jargs"][0]
+    tmodel = slice_run["prob"].model
+    rng = np.random.default_rng(2)
+    xn = np.concatenate([rng.uniform(-5, 5, (16, 3)),
+                         rng.normal(size=(16, 4))], axis=1).astype(np.float32)
+    xn[:, 3:] /= np.linalg.norm(xn[:, 3:], axis=1, keepdims=True)
+    u = np.asarray(slice_run["jargs"][1])[0]
+    Q = np.asarray(slice_run["jargs"][6])
+    key = jax.random.PRNGKey(9)
+    w = np.asarray(jax.random.normal(key, (16, 6), jnp.float32))
+    ref = jmodel.dynamics_batch(key, jnp.asarray(xn), jnp.asarray(u), 0.01,
+                                jnp.asarray(Q))
+    port = tmodel.dynamics_batch(torch.tensor(w), torch.tensor(xn),
+                                 torch.tensor(u), torch.tensor(0.01),
+                                 torch.tensor(Q))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        tmodel.meas_jacobian(torch.tensor(xn[0])).numpy(),
+        np.asarray(jmodel.meas_jacobian(jnp.asarray(xn[0]))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tmodel.meas_jacobian_batch(torch.tensor(xn)).numpy(),
+        np.asarray(jmodel.meas_jacobian_batch(jnp.asarray(xn))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tmodel.meas_jacobian_batch_rows(torch.tensor(xn), 128,
+                                        torch.float32).numpy(),
+        np.asarray(jmodel.meas_jacobian_batch_rows(jnp.asarray(xn), 128,
+                                                   jnp.float32)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_reconstruct_trajectories_matches_jax():
+    rng = np.random.default_rng(0)
+    T, n = 9, 12
+    hist = rng.normal(size=(T, n, 7)).astype(np.float32)
+    anc = rng.integers(0, n, size=(T - 1, n)).astype(np.int32)
+    port = reconstruct_trajectories(torch.tensor(hist), torch.tensor(anc))
+    np.testing.assert_array_equal(
+        port.numpy(), np.asarray(jreconstruct(jnp.asarray(hist),
+                                              jnp.asarray(anc))))
+
+
+def test_masked_or_nan_y_rejected(slice_run):
+    prob = slice_run["prob"]
+    y_nan = prob.y.clone()
+    y_nan[3, 0] = float("nan")
+    args = list(prob.rbpf_args())
+    args[2] = y_nan
+    with pytest.raises(ValueError, match="NaN"):
+        run_rbpf(*args, _config(RBPFConfig), generator=None, device="cpu",
+                 noise=slice_run["noise"])
+    mask = torch.ones_like(prob.y)
+    mask[2, 0] = 0.0
+    with pytest.raises(ValueError, match="mask"):
+        run_rbpf(*prob.rbpf_args(), _config(RBPFConfig), generator=None,
+                 device="cpu", noise=slice_run["noise"], mask=mask)
+
+
+@pytest.mark.parametrize("override", [
+    {"kf_kernel": "xla"}, {"kf_kernel": "block_gather"},
+    {"ess_threshold": 0.5}, {"resampling": "multinomial"},
+])
+def test_unported_paths_raise(slice_run, override):
+    prob = slice_run["prob"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_rbpf(*prob.rbpf_args(), _config(RBPFConfig, **override),
+                 generator=None, device="cpu", noise=slice_run["noise"])
+
+
+def test_unknown_kf_kernel_rejected(slice_run):
+    prob = slice_run["prob"]
+    with pytest.raises(ValueError, match="kf_kernel"):
+        run_rbpf(*prob.rbpf_args(), _config(RBPFConfig, kf_kernel="block"),
+                 generator=None, device="cpu", noise=slice_run["noise"])
+
+
+def test_bean_6d_matches_jax():
+    from rbslam_tpu.data import generate_trajectory as jgen
+    from rbslam_tpu_torch.data import generate_trajectory as tgen
+
+    for kw in ({}, {"n_laps": 1, "n_per_lap": 12}):
+        port, ref = tgen("bean_6D", **kw), jgen("bean_6D", **kw)
+        np.testing.assert_array_equal(port.pos, ref.pos)
+        np.testing.assert_allclose(port.quat, ref.quat, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(port.dx, ref.dx, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(port.init_state, ref.init_state,
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_potential_field_draw_matches_jax():
+    """Given the same standard-normal vectors (JAX's own draws), the port's
+    curl-free field draw equals the JAX package's."""
+    from rbslam_tpu.data.fields import draw_scalar_potential_field as jdraw
+    from rbslam_tpu_torch.data import draw_scalar_potential_field as tdraw
+
+    theta = (650.0, 1.2, 200.0, 10.0)
+    LL = np.array([[-17.0, -9.0, -2.4], [15.0, 8.0, 2.4]])
+    x = np.random.default_rng(1).uniform(-8, 8, size=(40, 3)
+                                          ).astype(np.float32)
+    x[:, 2] = 0.0
+    key = jax.random.PRNGKey(4)
+    ref = jdraw(key, jnp.asarray(x), 64, LL, theta)
+    kw, kn = jax.random.split(key)
+    z_w = np.asarray(jax.random.normal(kw, (67,), jnp.float32))
+    z_n = np.asarray(jax.random.normal(kn, (40, 3), jnp.float32))
+    port = tdraw(torch.tensor(x), 64, LL, theta, z_w=z_w, z_n=z_n)
+    for field in ("weights", "f", "df", "y"):
+        r = np.asarray(getattr(ref, field))
+        np.testing.assert_allclose(getattr(port, field).numpy(), r,
+                                   rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(r).max()),
+                                   err_msg=field)
+
+
+def test_port_builds_its_own_problem():
+    """The port simulates the flagship dataset itself (no JAX on the card)
+    and runs the filter on it."""
+    from rbslam_tpu_torch.workloads.dense_mag import build_problem
+
+    prob, data = build_problem(29, 12, seed=1, m_sim=64, device="cpu")
+    assert prob.dx.shape == (11, 7) and prob.y.shape == (12, 3)
+    assert data.pos.shape == (12, 3)
+    assert bool(torch.isfinite(prob.y).all())
+    res = run_rbpf(*prob.rbpf_args(), _config(RBPFConfig, n_particles=8),
+                   generator=torch.Generator().manual_seed(0), device="cpu")
+    assert res.traj_mean.shape == (12, 7)
+    assert bool(torch.isfinite(res.P_mean).all())
+
+
+def test_package_never_imports_jax():
+    """Import the port with JAX made unimportable and run a 2-step filter."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import torch
+        from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
+        from rbslam_tpu_torch.workloads.dense_mag import build_problem
+        import rbslam_tpu_torch.kernels, rbslam_tpu_torch.data
+        prob, _ = build_problem(13, 2, seed=1, m_sim=32, device="cpu")
+        res = run_rbpf(*prob.rbpf_args(),
+                       RBPFConfig(n_particles=4, resampling="systematic",
+                                  kf_kernel="lowrank"),
+                       generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+        assert res.traj_mean.shape == (2, 7)
+        assert not any(m == "jax" or m.startswith("jax.")
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,86 @@
+"""The port's resampling against the JAX package: given the same weights and
+the same uniforms, the ancestors are equal.
+
+The systematic resampler's histogram form can differ from another
+summation order only at float32 knife-edge ties (n cdf_i - u0 within an
+ulp of an integer, rbslam_tpu/ops/resampling.py:57-62): zero mismatches
+are required at n=128, and at most 0.1% at n=16384 (the blocked-cumsum
+branch).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from rbslam_tpu.ops import resampling as jres  # noqa: E402
+from rbslam_tpu_torch.ops import resampling as tres  # noqa: E402
+
+
+def _weights(rng, n, spread):
+    logw = spread * rng.normal(size=n)
+    w = np.exp(logw - logw.max())
+    return (w / w.sum()).astype(np.float32)
+
+
+def test_systematic_fuzz_n128_exact():
+    rng = np.random.default_rng(0)
+    keys = jax.random.split(jax.random.PRNGKey(0), 100)
+    mismatches = 0
+    for i in range(100):
+        w = _weights(rng, 128, spread=[0.5, 2.0, 5.0][i % 3])
+        u0 = np.asarray(jax.random.uniform(keys[i], ()))
+        ref = np.asarray(jres.systematic_resample(keys[i], jnp.asarray(w),
+                                                  128))
+        port = tres.systematic_resample(torch.tensor(u0), torch.tensor(w),
+                                        128).numpy()
+        mismatches += int(np.sum(ref != port))
+    assert mismatches == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_systematic_blocked_cumsum_n16384(seed):
+    n = 16384
+    rng = np.random.default_rng(100 + seed)
+    w = _weights(rng, n, spread=2.0)
+    key = jax.random.PRNGKey(seed)
+    u0 = np.asarray(jax.random.uniform(key, ()))
+    ref = np.asarray(jres.systematic_resample(key, jnp.asarray(w), n))
+    port = tres.systematic_resample(torch.tensor(u0), torch.tensor(w),
+                                    n).numpy()
+    assert port.dtype == np.int64 and port.shape == (n,)
+    assert np.sum(ref != port) <= n // 1000
+    # a valid comb: nondecreasing and in range
+    assert np.all(np.diff(port) >= 0) and port.min() >= 0 and port.max() < n
+
+
+def test_blocked_cumsum_matches_plain_cumsum():
+    x = np.random.default_rng(3).random(8192).astype(np.float32)
+    port = tres._cumsum_1d(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(port, np.cumsum(x.astype(np.float64)),
+                               rtol=1e-5)
+    ints = torch.arange(8192)
+    np.testing.assert_array_equal(tres._cumsum_1d(ints).numpy(),
+                                  np.cumsum(np.arange(8192)))
+
+
+@pytest.mark.parametrize("scheme", ["multinomial", "stratified"])
+def test_iid_schemes_given_uniforms(scheme):
+    n = 512
+    rng = np.random.default_rng(7)
+    w = _weights(rng, n, spread=1.5)
+    key = jax.random.PRNGKey(5)
+    u = np.asarray(jax.random.uniform(key, (n,)))
+    ref = np.asarray(jres.resample_indices(key, jnp.asarray(w), n, scheme))
+    port = tres.resample_indices(torch.tensor(u), torch.tensor(w), n,
+                                 scheme).numpy()
+    assert np.sum(ref != port) <= 1
+
+
+def test_unknown_scheme_rejected():
+    w = torch.full((8,), 1.0 / 8)
+    with pytest.raises(ValueError, match="scheme"):
+        tres.resample_indices(torch.tensor(0.5), w, 8, "residual")
