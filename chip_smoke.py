@@ -4,17 +4,27 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises, exit code != 0):
  1. require CUDA; print the card's name and power limit; turn TF32 off;
- 2. build the CUDA kernels from rbslam_tpu_torch/csrc (nvcc, first use);
+ 2. build the CUDA kernels from rbslam_tpu_torch/csrc (one nvcc per
+    source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
-    path's shapes, and time both;
+    paths' shapes, and time both;
  4. headline run of the port's filter: bean_6D, N_P=16384, m=125 (n_lin
     128), T=192, bf16 covariance, lowrank r=8, systematic resampling;
     check finiteness, the launch counts of every kernel, position RMSE,
     and particle-steps/s (best of 3 after a warm-up);
  5. the same path at the reference shape: N_P=4096, m=509, f32;
+ 4b/5b. the block_gather path (kernel K5 every step) at both shapes;
+ 4c. the xla path (the JAX package's default) at the headline shape with
+    multinomial resampling every step (the reference's scheme);
  6. the filter on the card (kernels) against the same filter on the CPU
-    (the wrappers' plain versions), N_P=64, m=125, T=12, f32, the same
-    injected noise: equal ancestors, close estimates.
+    (the wrappers' plain versions), N_P=64, m=125, T=24, f32, the same
+    injected noise, on four paths (block_gather + systematic, xla +
+    multinomial, lowrank + systematic with ESS gating at 0.7,
+    block_gather + stratified with ESS gating at 0.7): equal ancestors,
+    close estimates.
+
+Each filter run sets every launch count to 0 just before it and reads the
+counts just after; the counts must be exactly those of its path.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -32,11 +42,13 @@ import torch
 from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
 from rbslam_tpu_torch.kernels import (
     _lib,
+    block_gather_plain,
     gather_cp,
     gather_cp_plain,
     grad_basis,
     grad_basis_plain,
     kf_rebase,
+    kf_update_block_gather,
     launch_counts,
     mag3d_jacobian_rows,
     mag3d_jacobian_rows_plain,
@@ -56,6 +68,8 @@ KERNELS = {
                "rbslam_tpu/kernels/kf_update.py:659"),
     "grad_basis": ("rbslam_tpu_torch/csrc/basis_eval.cu",
                    "rbslam_tpu/kernels/basis_eval.py:64"),
+    "block_gather": ("rbslam_tpu_torch/csrc/kf_update.cu",
+                     "rbslam_tpu/kernels/kf_update.py:307"),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -87,31 +101,47 @@ def compare(name, kernel, plain, device, dtype, shape_note):
     """Run kernel and plain version on the same inputs; check the error
     against the dtype's tolerance (relative to the output's max
     magnitude; in float32 also elementwise, rtol 1e-4 with an absolute
-    floor of 1e-6 of that magnitude); time both."""
-    out_k = kernel()
-    out_p = plain()
+    floor of 1e-6 of that magnitude); time both. ``dtype`` names the
+    tolerance; None holds each output to the tolerance of its own dtype.
+    A kernel with several outputs returns a tuple; a boolean output must
+    be equal."""
+    outs_k = kernel()
+    outs_p = plain()
     sync(device)
-    if out_k.shape != out_p.shape or out_k.dtype != out_p.dtype:
-        raise AssertionError(
-            f"{name}: kernel {tuple(out_k.shape)} {out_k.dtype} vs plain "
-            f"{tuple(out_p.shape)} {out_p.dtype}"
-        )
-    a, b = out_k.float(), out_p.float()
-    if not bool(torch.isfinite(a).all()):
-        raise AssertionError(f"{name}: non-finite kernel output")
-    err = float((a - b).abs().max())
-    scale = float(b.abs().max())
-    rel = err / max(scale, 1e-30)
+    if not isinstance(outs_k, tuple):
+        outs_k, outs_p = (outs_k,), (outs_p,)
+    err = 0.0
+    for out_k, out_p in zip(outs_k, outs_p, strict=True):
+        if out_k.shape != out_p.shape or out_k.dtype != out_p.dtype:
+            raise AssertionError(
+                f"{name}: kernel {tuple(out_k.shape)} {out_k.dtype} vs "
+                f"plain {tuple(out_p.shape)} {out_p.dtype}"
+            )
+        if out_k.dtype == torch.bool:
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"{name} {shape_note}: flags differ")
+            continue
+        tol_dtype = out_k.dtype if dtype is None else dtype
+        tol = TOL[tol_dtype]
+        a, b = out_k.float(), out_p.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rel = e / max(scale, 1e-30)
+        err = max(err, e)
+        log(f"[3] {name} {shape_note}: output {tuple(a.shape)} "
+            f"max_abs_err={e:.3e} rel={rel:.3e} (tol {tol:.0e})")
+        if not rel <= tol:
+            raise AssertionError(f"{name} {shape_note}: rel err {rel} > {tol}")
+        if tol_dtype == torch.float32 and not torch.allclose(
+                a, b, rtol=TOL[torch.float32], atol=1e-6 * scale):
+            raise AssertionError(
+                f"{name} {shape_note}: elementwise error above rtol "
+                f"{TOL[torch.float32]}, atol {1e-6 * scale:.3e}")
     ms = time_ms(kernel, device)
     plain_ms = time_ms(plain, device)
-    log(f"[3] {name} {shape_note}: max_abs_err={err:.3e} rel={rel:.3e} "
-        f"(tol {TOL[dtype]:.0e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms")
-    if not rel <= TOL[dtype]:
-        raise AssertionError(f"{name} {shape_note}: rel err {rel} > {TOL[dtype]}")
-    if dtype == torch.float32 and not torch.allclose(
-            a, b, rtol=TOL[dtype], atol=1e-6 * scale):
-        raise AssertionError(f"{name} {shape_note}: elementwise error above "
-                             f"rtol {TOL[dtype]}, atol {1e-6 * scale:.3e}")
+    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -164,14 +194,43 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                     lambda: rebase_plain(bidx, Wt, P_base), device, dt, note)
         rows.setdefault("rebase", r)
         del bidx, C, Wt, P_base
+
+    def block_inputs(nn, nyy, nll, dt):
+        B = torch.randn((nn, nll, nll), generator=g, device=device)
+        P = (0.05 * (B + B.transpose(1, 2))
+             + 2.0 * torch.eye(nll, device=device)).to(dt)
+        del B
+        C = 0.3 * torch.randn((nn, nyy, nll), generator=g, device=device)
+        xl = torch.randn((nn, nll), generator=g, device=device)
+        y = torch.randn((nyy,), generator=g, device=device)
+        R = 0.5 * torch.eye(nyy, device=device)
+        ai = torch.randint(0, nn, (nn,), generator=g, device=device,
+                           dtype=torch.int32)
+        e = y[None] - torch.einsum("pij,pj->pi", C, xl)
+        return ai, C, xl, P, y, R, e
+
+    # K5 on random ancestors: the headline and reference shapes, and ny=1
+    for nn, nyy, nll, dt in ((n, ny, nl, torch.bfloat16),
+                             (n_ref, ny, nl_ref, torch.float32),
+                             (n, 1, nl, torch.float32)):
+        ai, C, xl, P, y, R, e = block_inputs(nn, nyy, nll, dt)
+        r = compare(
+            "block_gather",
+            lambda: kf_update_block_gather(ai, C, xl, P, y, R, 1e-3),
+            lambda: block_gather_plain(ai, C, e, xl, P, R, 1e-3),
+            device, None, f"N={nn} ny={nyy} nl={nll} {dt}",
+        )
+        rows.setdefault("block_gather", r)
+        del ai, C, xl, P, y, R, e
     return rows
 
 
-def filter_config(n_particles, cov_dtype):
+def filter_config(n_particles, cov_dtype, kf_kernel="lowrank",
+                  resampling="systematic", ess_threshold=1.0):
     return RBPFConfig(
-        n_particles=n_particles, resampling="systematic",
-        cov_dtype=cov_dtype, symmetrize_cov=False, kf_kernel="lowrank",
-        lowrank_period=8,
+        n_particles=n_particles, resampling=resampling,
+        cov_dtype=cov_dtype, symmetrize_cov=False, kf_kernel=kf_kernel,
+        lowrank_period=8, ess_threshold=ess_threshold,
     )
 
 
@@ -192,13 +251,13 @@ def check_result(res, T, n_particles, n_lin):
         raise AssertionError("log_evidence is not finite")
 
 
-def run_path(tag, device, m, n_particles, T, cov_dtype, card, expect_counts):
-    """Phases 4 and 5: the port's filter at full width on the card."""
+def run_path(tag, device, m, T, cfg, card, expect_counts):
+    """Phases 4, 5 and their block_gather and xla variants: the port's
+    filter at full width on the card, with its launch counts."""
     t0 = time.perf_counter()
     problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
     log(f"[{tag}] dataset built in {time.perf_counter() - t0:.2f} s "
         f"(bean_6D, T={T}, m_sim=512, seed 1)")
-    cfg = filter_config(n_particles, cov_dtype)
     gen = torch.Generator(device=device)
 
     def run(seed):
@@ -212,8 +271,8 @@ def run_path(tag, device, m, n_particles, T, cov_dtype, card, expect_counts):
     res = run(0)
     counts = launch_counts()
     log(f"[{tag}] launches in one run: {counts}")
-    check_result(res, T, n_particles, problem.potential.n_lin)
-    if expect_counts is not None and counts != expect_counts:
+    check_result(res, T, cfg.n_particles, problem.potential.n_lin)
+    if counts != expect_counts:
         raise AssertionError(f"launch counts {counts} != {expect_counts}")
     truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
     rmse = float(torch.sqrt(torch.mean(
@@ -225,43 +284,73 @@ def run_path(tag, device, m, n_particles, T, cov_dtype, card, expect_counts):
     log(f"[{tag}] position RMSE of traj_mean vs truth: {rmse:.4f} m "
         f"(dead-reckoned odometry: {rmse_odo:.4f} m); chol_retries="
         f"{int(res.chol_retries)}")
+    del res
     best = float("inf")
     for i in range(3):
         t0 = time.perf_counter()
         run(i + 1)
         best = min(best, time.perf_counter() - t0)
-    rate = n_particles * T / best
-    log(f"[{tag}] N_P={n_particles} m={m} (n_lin={m + 3}) T={T} {cov_dtype} "
-        f"lowrank r=8: best of 3 {best:.4f} s = {rate:.1f} particle-steps/s "
-        f"({best / T * 1e3:.4f} ms/step) on {card}")
+    rate = cfg.n_particles * T / best
+    path = cfg.kf_kernel + (" r=8" if cfg.kf_kernel == "lowrank" else "")
+    log(f"[{tag}] N_P={cfg.n_particles} m={m} (n_lin={m + 3}) T={T} "
+        f"{cfg.cov_dtype} {path} {cfg.resampling}: best of 3 {best:.4f} s "
+        f"= {rate:.1f} particle-steps/s ({best / T * 1e3:.4f} ms/step) on "
+        f"{card}")
     return counts
 
 
-def phase_plain_vs_kernel(device, m=125, n_particles=64, T=12):
+def phase_plain_vs_kernel(device, m=125, n_particles=64, T=24):
     """Phase 6: the filter on the card, whose wrappers launch the kernels,
     against the same filter on the CPU, whose wrappers run the plain
-    versions, with the same injected noise."""
+    versions, with the same injected noise, on four paths. T=24: over the
+    first 12 steps of this trajectory the ESS stays above 0.7 N (the
+    particles barely differ yet), so a gated run would never resample;
+    by step 24 it resamples on about a third of the steps."""
+    cases = [
+        ("block_gather", "systematic", 1.0),
+        ("xla", "multinomial", 1.0),
+        ("lowrank", "systematic", 0.7),
+        ("block_gather", "stratified", 0.7),
+    ]
+    problems = {dev.type: build_problem(m, T, seed=1, m_sim=512,
+                                        device=dev)[0]
+                for dev in (device, torch.device("cpu"))}
     gen = torch.Generator(device=device).manual_seed(7)
-    u0 = torch.rand((T - 1,), generator=gen, device=device)
-    w = torch.randn((T - 1, n_particles, 6), generator=gen, device=device)
-    cfg = filter_config(n_particles, "float32")
-    out = {}
-    for dev in (device, torch.device("cpu")):
-        problem, _ = build_problem(m, T, seed=1, m_sim=512, device=dev)
-        out[dev.type] = run_rbpf(*problem.rbpf_args(), cfg, generator=None,
-                                 device=dev, noise=(u0.to(dev), w.to(dev)))
-    sync(device)
-    k, p = out["cuda"], out["cpu"]
-    if not torch.equal(k.ancestors.cpu(), p.ancestors):
-        raise AssertionError("ancestors differ between kernel and plain path")
-    d_traj = float((k.traj_mean.cpu() - p.traj_mean).abs().max())
-    d_xl = float((k.xl_mean.cpu() - p.xl_mean).abs().max())
-    log(f"[6] kernel path (cuda) vs plain path (cpu) (N_P={n_particles}, "
-        f"m={m}, T={T}, f32): "
-        f"ancestors equal, max|d traj_mean|={d_traj:.3e} (tol 1e-3), "
-        f"max|d xl_mean|={d_xl:.3e} (tol 5e-3)")
-    if not (d_traj <= 1e-3 and d_xl <= 5e-3):
-        raise AssertionError("kernel path and plain path disagree")
+    for kf_kernel, resampling, ess in cases:
+        u_shape = (T - 1,) if resampling == "systematic" \
+            else (T - 1, n_particles)
+        u = torch.rand(u_shape, generator=gen, device=device)
+        w = torch.randn((T - 1, n_particles, 6), generator=gen,
+                        device=device)
+        cfg = filter_config(n_particles, "float32", kf_kernel, resampling,
+                            ess)
+        out = {}
+        for dev in (device, torch.device("cpu")):
+            out[dev.type] = run_rbpf(*problems[dev.type].rbpf_args(), cfg,
+                                     generator=None, device=dev,
+                                     noise=(u.to(dev), w.to(dev)))
+        sync(device)
+        k, p = out["cuda"], out["cpu"]
+        note = (f"{kf_kernel} + {resampling}, ess_threshold={ess} "
+                f"(N_P={n_particles}, m={m}, T={T}, f32)")
+        if not torch.equal(k.ancestors.cpu(), p.ancestors):
+            raise AssertionError(f"{note}: ancestors differ between kernel "
+                                 "and plain path")
+        resampled = sum(
+            not torch.equal(a, torch.arange(n_particles, dtype=a.dtype))
+            for a in p.ancestors)
+        d_traj = float((k.traj_mean.cpu() - p.traj_mean).abs().max())
+        d_xl = float((k.xl_mean.cpu() - p.xl_mean).abs().max())
+        log(f"[6] {note}: card (kernels) vs cpu (plain versions): "
+            f"ancestors equal ({resampled} of {T - 1} steps resampled), "
+            f"max|d traj_mean|={d_traj:.3e} (tol 1e-3), "
+            f"max|d xl_mean|={d_xl:.3e} (tol 5e-3)")
+        if not (d_traj <= 1e-3 and d_xl <= 5e-3):
+            raise AssertionError(f"{note}: kernel path and plain path "
+                                 "disagree")
+        if ess < 1.0 and not 0 < resampled < T - 1:
+            raise AssertionError(f"{note}: the ESS gate should both skip "
+                                 "and resample")
 
 
 def main() -> int:
@@ -288,12 +377,27 @@ def main() -> int:
         f"({nvcc})")
 
     rows = phase_compare(device)
-    # T=192: step 0 (K4) + 191 steps (K1, K2) in 23 periods of 8 and a
-    # remainder period of 7, each closed by one rebase (K3)
-    expect = {"grad_basis": 1, "jac3d_rows": 191, "gather_cp": 191,
-              "rebase": 24}
-    counts = run_path("4", device, 125, 16384, 192, "bfloat16", card, expect)
-    run_path("5", device, 509, 4096, 192, "float32", card, expect)
+    zero = dict.fromkeys(_lib.KERNEL_NAMES, 0)
+    # lowrank, T=192: step 0 (K4) + 191 steps (K1, K2) in 23 periods of 8
+    # and a remainder period of 7, each closed by one rebase (K3)
+    lowrank = {**zero, "grad_basis": 1, "jac3d_rows": 191,
+               "gather_cp": 191, "rebase": 24}
+    counts = run_path("4", device, 125, 192,
+                      filter_config(16384, "bfloat16"), card, lowrank)
+    run_path("5", device, 509, 192, filter_config(4096, "float32"), card,
+             lowrank)
+    # block_gather: K4 at every step's Jacobian (step 0 included), K5 at
+    # every step after step 0; xla: K4 only
+    block = {**zero, "grad_basis": 192, "block_gather": 191}
+    counts_block = run_path(
+        "4b", device, 125, 192,
+        filter_config(16384, "bfloat16", "block_gather"), card, block)
+    run_path("5b", device, 509, 192,
+             filter_config(4096, "float32", "block_gather"), card, block)
+    run_path("4c", device, 125, 192,
+             filter_config(16384, "bfloat16", "xla", "multinomial"), card,
+             {**zero, "grad_basis": 192})
+    counts["block_gather"] = counts_block["block_gather"]
     phase_plain_vs_kernel(device)
 
     kernels = [

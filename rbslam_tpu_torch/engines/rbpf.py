@@ -1,5 +1,4 @@
-"""Rao-Blackwellized particle filter, factored-covariance ("lowrank") path
-(port of rbslam_tpu/engines/rbpf.py).
+"""Rao-Blackwellized particle filter (port of rbslam_tpu/engines/rbpf.py).
 
 Reproduces the semantics of the reference filter (src/particleFilter.m):
 per step, (1) resample ancestors from the previous weights and propagate
@@ -10,14 +9,30 @@ marginal innovation likelihood (:126-151), (3) log-sum-exp normalize
 once at the end; ``P_mean`` is the correct weighted accumulation (the
 reference assigns inside its loop, :228-230).
 
-The covariance is carried as P = P_base[bidx] - Wt^T Wt: per step the
-CUDA kernels build the Jacobian (K1) and the gathered C P contraction
-(K2) and ny new factor rows are placed; every r steps the base is
-rebuilt (K3). Step 0 runs the dense update with the K4 basis gradient.
+Three Kalman-update paths (``RBPFConfig.kf_kernel``), dense models with
+ny <= 3:
 
-Randomness enters through one seam: per step one ``u0 ~ U[0,1)`` for
-systematic resampling and one [N, 6] standard normal for the dynamics,
-drawn from ``generator`` or taken from ``noise``.
+- ``"xla"`` (the JAX package's default): per step, gather P[ai] and run
+  the dense small-ny update (ops/kalman.py) in plain torch; the Jacobian
+  comes from the basis-gradient kernel K4.
+- ``"block_gather"``: per step, the CUDA kernel K5 runs the whole dense
+  update with the gather of P fused in (one read and one write of the
+  covariance ensemble); Jacobian from K4.
+- ``"lowrank"``: the covariance is carried as P = P_base[bidx] - Wt^T Wt;
+  per step the kernels build the rows-layout Jacobian (K1) and the
+  gathered C P contraction (K2) and ny new factor rows are placed; every
+  r steps the base is rebuilt (K3).
+
+Step 0 runs the dense update with the K4 Jacobian on every path. With
+``ess_threshold < 1`` a step resamples only where the ESS of the carried
+weights is at most ``ess_threshold * N``, which the host reads from the
+device once per step; a step that does not resample keeps ai = identity,
+skips the state and covariance gathers and accumulates the log-weights.
+
+Randomness enters through one seam: per step the resampling uniforms
+(one ``u0`` for systematic, N for multinomial and stratified) and one
+[N, 6] standard normal for the dynamics, drawn from ``generator`` or
+taken from ``noise``.
 """
 
 from __future__ import annotations
@@ -30,8 +45,12 @@ import torch
 from ..math.linalg import ess_from_logw, logsumexp_normalize
 from ..models.base import DenseModel
 from ..ops.kalman import kalman_update_dense_batched
-from ..ops.resampling import systematic_resample
-from ..kernels.kf_update import kf_rebase, kf_update_lowrank
+from ..ops.resampling import _SCHEMES, resample_indices
+from ..kernels.kf_update import (
+    kf_rebase,
+    kf_update_block_gather,
+    kf_update_lowrank,
+)
 
 
 class RBPFConfig(NamedTuple):
@@ -97,42 +116,34 @@ def _check_supported(model, config: RBPFConfig, mesh) -> None:
             f"unknown kf_kernel {config.kf_kernel!r}: expected 'xla', "
             "'block_gather' or 'lowrank'"
         )
-    if config.kf_kernel == "xla":
+    if config.resampling not in _SCHEMES:
+        raise ValueError(f"unknown resampling scheme {config.resampling!r}; "
+                         f"options: {sorted(_SCHEMES)}")
+    if config.cov_dtype not in _DTYPES:
+        raise ValueError(f"cov_dtype must be one of {sorted(_DTYPES)}")
+    if mesh is not None:
         raise NotImplementedError(
-            "kf_kernel='xla' is not ported yet (ROADMAP queue 1 item 6)"
-        )
-    if config.kf_kernel == "block_gather":
-        raise NotImplementedError(
-            "kf_kernel='block_gather' is not ported yet (ROADMAP queue 2 "
-            "item 5)"
+            "mesh-sharded filtering is not ported yet (ROADMAP queue 1 "
+            "item 15)"
         )
     if not isinstance(model, DenseModel):
         raise NotImplementedError(
             "sparse models are not ported yet (ROADMAP queue 1 item 13)"
         )
     if model.ny > 3:
-        raise NotImplementedError("the lowrank update supports ny <= 3")
-    if config.ess_threshold < 1.0:
         raise NotImplementedError(
-            "ESS-gated resampling (ess_threshold < 1) is not ported yet "
-            "(ROADMAP queue 1 item 6)"
+            "dense models with ny > 3 need the lax-form update "
+            "(rbslam_tpu/ops/kalman.py:292-324), not ported yet (ROADMAP "
+            "queue 1 item 4)"
         )
-    if config.resampling != "systematic":
-        raise NotImplementedError(
-            f"resampling={config.resampling!r} in the filter is not ported "
-            "yet (ROADMAP queue 1 item 6); use 'systematic'"
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded filtering is not ported yet (ROADMAP queue 1 "
-            "item 15)"
-        )
-    if config.cov_dtype not in _DTYPES:
-        raise ValueError(f"cov_dtype must be one of {sorted(_DTYPES)}")
 
 
 def _as(x, device, dtype=torch.float32):
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _pad_last(x, n):
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
 
 
 def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
@@ -142,13 +153,16 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
 
     dx [T-1, n_u] odometry; y [T, ny] observations; Q [nw, nw] or
     [T-1, nw, nw]; dt scalar or [T-1]. ``generator`` (a torch.Generator
-    on ``device``) supplies every random draw unless ``noise = (u0 [T-1],
-    w [T-1, N, 6])`` is given. On a CUDA device every kernel wrapper
-    launches its kernel; on the CPU the wrappers run their plain versions.
+    on ``device``) supplies every random draw unless ``noise = (u, w)`` is
+    given: u [T-1] (systematic) or [T-1, N] (multinomial, stratified) the
+    resampling uniforms, w [T-1, N, 6] the dynamics' standard normals. On
+    a CUDA device every kernel wrapper launches its kernel; on the CPU the
+    wrappers run their plain versions.
 
-    Only the lowrank kernel path with systematic resampling every step is
-    ported; the other paths raise NotImplementedError naming the ROADMAP
-    item that ports them.
+    The kernel paths (block_gather, lowrank) reject NaN or masked y. On
+    the xla path NaN becomes 0 and the mask is ignored, as the JAX
+    package's dense update does. Sparse models, dense ny > 3 and ``mesh``
+    raise NotImplementedError naming the ROADMAP item that ports them.
     """
     _check_supported(model, config, mesh)
     device = torch.device(device)
@@ -156,19 +170,24 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     f32 = torch.float32
     y = _as(y, device)
     T = y.shape[0]
-    # the kernel paths have no observation-mask support: NaN-masked
-    # measurements would enter the update as y=0 observations
-    if mask is not None:
-        if not bool(torch.all(_as(mask, device) != 0)):
+    block_gather = config.kf_kernel == "block_gather"
+    # T == 1 has no steps: the lowrank config runs step 0 as the xla path
+    lowrank = config.kf_kernel == "lowrank" and T > 1
+    if config.kf_kernel != "xla":
+        # the kernel paths have no observation-mask support: NaN-masked
+        # measurements would enter the update as y=0 observations
+        if mask is not None:
+            if not bool(torch.all(_as(mask, device) != 0)):
+                raise ValueError(
+                    "the KF kernel paths do not support masked "
+                    "observations; use kf_kernel='xla'"
+                )
+        elif not bool(torch.all(torch.isfinite(y))):
             raise ValueError(
-                "the lowrank KF kernel path does not support masked "
-                "observations"
+                "y contains NaN but a KF kernel path is selected; NaN rows "
+                "are only masked correctly on kf_kernel='xla'"
             )
-    elif not bool(torch.all(torch.isfinite(y))):
-        raise ValueError(
-            "y contains NaN but the lowrank KF kernel path is selected; "
-            "NaN rows are only masked correctly on kf_kernel='xla'"
-        )
+    y = torch.nan_to_num(y)
     dx = _as(dx, device)
     Q = _as(Q, device)
     if Q.dim() == 2:
@@ -177,52 +196,64 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     if dt.dim() == 0:
         dt = dt.expand(T - 1)
     R = _as(R, device)
+    u_shape = () if config.resampling == "systematic" else (n_p,)
     if noise is None and generator is None:
         raise ValueError("give a torch.Generator or injected noise")
     if noise is not None:
-        u0_all, w_all = (_as(a, device) for a in noise)
-        if u0_all.shape != (T - 1,) or w_all.shape != (T - 1, n_p, 6):
+        u_all, w_all = (_as(a, device) for a in noise)
+        if (u_all.shape != (T - 1,) + u_shape
+                or w_all.shape != (T - 1, n_p, 6)):
             raise ValueError(
-                f"noise must be (u0 [{T - 1}], w [{T - 1}, {n_p}, 6])"
+                f"noise must be (u {[T - 1, *u_shape]}, w [{T - 1}, {n_p}, "
+                f"6]) for {config.resampling} resampling"
             )
 
     def draw(t):
         if noise is not None:
-            return u0_all[t], w_all[t]
-        u0 = torch.rand((), generator=generator, device=device)
+            return u_all[t], w_all[t]
+        u = torch.rand(u_shape, generator=generator, device=device)
         w = torch.randn((n_p, 6), generator=generator, device=device)
-        return u0, w
+        return u, w
+
+    gated = config.ess_threshold < 1.0
+
+    def resample(u, logw_n):
+        """Ancestors (int32) of this step, or None where the ESS gate
+        keeps the particles (one device-to-host read per step)."""
+        if gated and not bool(ess_from_logw(logw_n)
+                               <= config.ess_threshold * n_p):
+            return None
+        ai = resample_indices(u, torch.exp(logw_n), n_p, config.resampling)
+        return ai.to(torch.int32)
 
     xn0 = _as(x0_nonlin, device).expand(n_p, -1).contiguous()
     x0_lin = _as(x0_lin, device)
     xl0 = x0_lin.expand(n_p, -1) if x0_lin.dim() == 1 else x0_lin
     n_lin = xl0.shape[-1]
     cov_dtype = _DTYPES[config.cov_dtype]
-    lowrank = T > 1
     if (not lowrank and cov_dtype == torch.bfloat16 and n_lin > 256
             and not config.allow_bf16_large_nl):
         raise ValueError(
             f"cov_dtype='bfloat16' at n_lin={n_lin} > 256 destabilizes the "
-            "per-step filter paths; use float32, T > 1 (the lowrank "
-            "carry), or allow_bf16_large_nl=True"
+            "per-step filter paths; use float32, kf_kernel='lowrank' (T > "
+            "1), or allow_bf16_large_nl=True"
         )
     P0 = _as(P0_lin, device).to(cov_dtype)
     nl_pad = n_lin
-    if lowrank:
+    if block_gather or lowrank:
         # zero-pad the map to a multiple of 128 (zero rows and columns
         # are exact) and slice back at the end
         nl_pad = -(-n_lin // 128) * 128
+        xl0 = _pad_last(xl0, nl_pad)
         pad = nl_pad - n_lin
-        xl0 = torch.nn.functional.pad(xl0, (0, pad))
         P0 = torch.nn.functional.pad(P0, (0, pad, 0, pad))
     P0 = P0.expand((n_p,) + P0.shape)
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
-    C0 = model.meas_jacobian_batch(xn0)
-    C0 = torch.nn.functional.pad(C0, (0, nl_pad - C0.shape[-1]))
+    C0 = _pad_last(model.meas_jacobian_batch(xn0), nl_pad)
     xl, P, logw1, retried0 = kalman_update_dense_batched(
         C0, P0, xl0, y[0], R, config.jitter, config.joseph,
-        symmetrize_out=lowrank or config.symmetrize_cov,
+        symmetrize_out=block_gather or lowrank or config.symmetrize_cov,
     )
     del P0
     retries = retried0.sum()
@@ -231,6 +262,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     log_np = math.log(n_p)
 
     n_steps = T - 1
+    ar = torch.arange(n_p, dtype=torch.int32, device=device)
     ancestors = torch.empty((n_steps, n_p), dtype=torch.int32, device=device)
     traj_max_t = torch.empty((n_steps, 7), device=device)
     traj_mean_t = torch.empty((n_steps, 7), device=device)
@@ -242,11 +274,28 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         xn_hist[0] = xn0
     xn = xn0
 
+    def record(t, ai, logw, logw_n):
+        """Weights and per-step outputs of step t; returns the normalized
+        log-weights. A step that resampled reset the carried weights to
+        -log N, so its update's logw is the new weight as it stands."""
+        if ai is not None:
+            ancestors[t] = ai
+        else:
+            ancestors[t] = ar
+            logw = logw_n + log_np + logw
+        w_new, logw_n, logz = logsumexp_normalize(logw)
+        traj_max_t[t] = xn[torch.argmax(logw_n)]
+        traj_mean_t[t] = torch.sum(xn * w_new[:, None], dim=0)
+        ess_t[t] = ess_from_logw(logw_n)
+        logz_t[t] = logz - log_np
+        if xn_hist is not None:
+            xn_hist[t + 1] = xn
+        return logw_n
+
     if lowrank:
         # --- low-rank factored covariance loop ------------------------
         ny = model.ny
         r = config.lowrank_period
-        ar = torch.arange(n_p, dtype=torch.int32, device=device)
         P_base = P
         t = 0
         while t < n_steps:
@@ -255,33 +304,48 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                              device=device)
             bidx = ar
             for phase in range(length):
-                u0, w_dyn = draw(t)
-                ai = systematic_resample(u0, torch.exp(logw_n), n_p)
-                xn_a, xl_a = xn[ai], xl[ai]
-                bidx = bidx[ai]
-                Wt = Wt[ai]
+                u, w_dyn = draw(t)
+                ai = resample(u, logw_n)
+                xn_a, xl_a = xn, xl
+                if ai is not None:
+                    xn_a, xl_a = xn[ai], xl[ai]
+                    bidx = bidx[ai]
+                    Wt = Wt[ai]
                 xn = model.dynamics_batch(w_dyn, xn_a, dx[t], dt[t], Q[t])
                 C = model.meas_jacobian_batch_rows(xn, nl_pad, cov_dtype)
                 xl, wnew, logw, bad = kf_update_lowrank(
                     bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter
                 )
-                # the freshly gathered factor's rows of this phase are
-                # still zero: write the new rows in place
+                # this phase's factor rows are still zero (gathers permute
+                # particles, not rows): write the new rows in place
                 Wt[:, ny * phase:ny * phase + ny] = wnew
                 retries = retries + bad.sum()
-                # -log N_P + log N_P: the carried weights reset at resampling
-                w_new, logw_n, logz = logsumexp_normalize(logw)
-                iw_max = torch.argmax(logw_n)
-                ancestors[t] = ai.to(torch.int32)
-                traj_max_t[t] = xn[iw_max]
-                traj_mean_t[t] = torch.sum(xn * w_new[:, None], dim=0)
-                ess_t[t] = ess_from_logw(logw_n)
-                logz_t[t] = logz - log_np
-                if xn_hist is not None:
-                    xn_hist[t + 1] = xn
+                logw_n = record(t, ai, logw, logw_n)
                 t += 1
             P_base = kf_rebase(bidx, Wt, P_base)
         P = P_base
+    else:
+        # --- dense per-step loop: xla or block_gather -------------------
+        for t in range(n_steps):
+            u, w_dyn = draw(t)
+            ai = resample(u, logw_n)
+            xn_a, xl_a = (xn, xl) if ai is None else (xn[ai], xl[ai])
+            xn = model.dynamics_batch(w_dyn, xn_a, dx[t], dt[t], Q[t])
+            C = _pad_last(model.meas_jacobian_batch(xn), nl_pad)
+            if block_gather:
+                # K5 gathers the pre-resampling P itself
+                xl, P, logw, bad = kf_update_block_gather(
+                    ar if ai is None else ai, C, xl_a, P, y[t + 1], R,
+                    config.jitter,
+                )
+            else:
+                xl, P, logw, bad = kalman_update_dense_batched(
+                    C, P if ai is None else P[ai], xl_a, y[t + 1], R,
+                    config.jitter, config.joseph,
+                    symmetrize_out=config.symmetrize_cov,
+                )
+            retries = retries + bad.sum()
+            logw_n = record(t, ai, logw, logw_n)
 
     # prepend step-0 outputs
     traj_max = torch.cat([xn0[torch.argmax(logw1n)][None], traj_max_t])

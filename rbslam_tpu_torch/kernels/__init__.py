@@ -5,6 +5,7 @@ K1 mag3d_jacobian_rows  (replaces basis_eval.py:_jac3d_rows_kernel)
 K2 gather_cp            (replaces kf_update.py:_kernel_gather_cp)
 K3 kf_rebase            (replaces kf_update.py:_kernel_rebase)
 K4 grad_basis           (replaces basis_eval.py:_grad_kernel)
+K5 kf_update_block_gather (replaces kf_update.py:_kernel_block_gather)
 """
 
 from ._lib import launch_counts, reset_launch_counts
@@ -17,11 +18,14 @@ from .basis_eval import (
     pack_basis_constants,
 )
 from .kf_update import (
+    block_gather_plain,
     gather_cp,
     gather_cp_plain,
     kf_rebase,
+    kf_update_block_gather,
     kf_update_lowrank,
     rebase_plain,
+    spd_inv_logdet_plain,
 )
 
 __all__ = [
@@ -31,4 +35,5 @@ __all__ = [
     "mag3d_jacobian_rows", "mag3d_jacobian_rows_plain",
     "gather_cp", "gather_cp_plain", "kf_rebase", "rebase_plain",
     "kf_update_lowrank",
+    "kf_update_block_gather", "block_gather_plain", "spd_inv_logdet_plain",
 ]

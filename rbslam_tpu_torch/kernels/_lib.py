@@ -35,10 +35,11 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("basis_eval.cu", "kf_update.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase")
+KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase",
+                "block_gather")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 _lib = None
 build_seconds = None
@@ -56,6 +57,10 @@ _SIGNATURES = {
     "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, bf16, stream)
     "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
+    # (ai, C, e, xl, P_all, R, P_out, xl_out, logw, bad, n, n_all, ny, nl,
+    #  jitter, bf16, stream)
+    "rbs_block_gather": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                         _I, _I, _F, _I, _P),
 }
 
 
@@ -80,28 +85,49 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> str:
+    """Wait for every nvcc process; raise if any failed; return the output."""
+    text = ""
+    failed = []
+    for p in procs:
+        stdout, stderr = p.communicate()
+        text += stdout + stderr
+        if p.returncode != 0:
+            failed.append(f"{' '.join(p.args)} ({p.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}\n{text}")
+    return text
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if no build of these sources exists;
-    return its path. ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel) and prints the compiler's output."""
+    return its path. Each source is compiled by its own nvcc, all started
+    together, then linked into one shared library. ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel) and
+    prints the compiler's output."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"librbslam_kernels_{_source_hash()}.so"
     if out.exists() and not verbose:
         return out
     t0 = time.perf_counter()
+    nvcc = _nvcc()
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    objs = [out.with_name(f"{Path(s).stem}.{os.getpid()}.o") for s in SOURCES]
+    text = _run([
+        subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(CSRC / s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for s, o in zip(SOURCES, objs)
+    ])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    text += _run([subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)])
+    for o in objs:
+        o.unlink()
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+        print(text)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -1,6 +1,12 @@
-"""Low-rank factored Kalman update: CUDA kernels K2 and K3 with their plain
-PyTorch versions, and the small-ny algebra around K2 (port of
-rbslam_tpu/kernels/kf_update.py:447-746).
+"""Kalman-update kernels of the filter: the gathered dense update K5 and the
+low-rank factored update K2/K3, with their plain PyTorch versions and the
+small-ny algebra around K2 (port of rbslam_tpu/kernels/kf_update.py).
+
+K5 (``kf_update_block_gather``) is one whole dense KF update per particle
+with the resampling gather of P fused in: it reads each particle's
+ancestor covariance P_all[ai] once and writes P' once, with the small-ny
+innovation algebra (closed-form Cholesky with a Gershgorin repair,
+``spd_inv_logdet_plain``) inside the kernel.
 
 The KF downdate is additive rank-ny per step (src/particleFilter.m:194-198):
 
@@ -177,3 +183,179 @@ def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
     xl_new = xl_gathered.to(f32) + out[:, 0]
     Wnew = out[:, 1:].to(Wt_gathered.dtype)
     return xl_new, Wnew, logw, bad
+
+
+def spd_inv_logdet_plain(S, jitter: float):
+    """Inverse and log-determinant of tiny SPD matrices S [N, ny, ny],
+    ny <= 3, by the closed-form Cholesky with the block kernel's repair
+    (the math of rbslam_tpu/kernels/kf_update.py:_spd_inv_logdet).
+
+    scale = max(1, tr(S)/ny) (max(1, S) at ny = 1); a particle is ``bad``
+    where any pivot is <= 1e-30 scale. Only there, S is shifted by
+    jitter * scale plus the Gershgorin excess max_i(sum_{k != i} |S_ik| -
+    S_ii) (when positive), which makes S + jI diagonally dominant; the
+    shifted pivots are clamped to the floor, so every output is finite.
+    This is not the repair of ops.kalman._chol_small_batched (jitter
+    times the mean diagonal). Returns (S^-1 [N, ny, ny], logdet [N],
+    bad [N] bool, L^-1 [N, ny, ny] lower triangular).
+    """
+    ny = S.shape[-1]
+    if not 1 <= ny <= 3:
+        raise ValueError(f"spd_inv_logdet supports 1 <= ny <= 3, got {ny}")
+    S = S.to(torch.float32)
+    zero = torch.zeros_like(S[:, 0, 0])
+    if ny == 1:
+        s = S[:, 0, 0]
+        scale = torch.clamp(s, min=1.0)
+        bad = s <= 1e-30 * scale
+        j = torch.where(bad, jitter * scale + torch.clamp(-s, min=0.0), zero)
+        ssh = torch.maximum(s + j, 1e-30 * scale)
+        return ((1.0 / ssh)[:, None, None], torch.log(ssh), bad,
+                torch.rsqrt(ssh)[:, None, None])
+
+    s11, s21, s22 = S[:, 0, 0], S[:, 1, 0], S[:, 1, 1]
+    s31, s32, s33 = (S[:, 2, 0], S[:, 2, 1], S[:, 2, 2]) if ny == 3 \
+        else (None, None, None)
+    tr = s11 + s22 + (s33 if ny == 3 else 0.0)
+    scale = torch.clamp(tr / ny, min=1.0)
+    floor = 1e-30 * scale
+
+    def chol(a11, a22, a33):
+        """Pivots and entries of the ny <= 3 recursion (as in the kernel,
+        sqrt of a pivot clamped at 1e-30 for the next entries)."""
+        l11 = torch.sqrt(torch.clamp(a11, min=1e-30))
+        l21 = s21 / l11
+        p2 = a22 - l21 * l21
+        if ny == 2:
+            return (a11, p2)
+        l31 = s31 / l11
+        l22 = torch.sqrt(torch.clamp(p2, min=1e-30))
+        l32 = (s32 - l31 * l21) / l22
+        return (a11, p2, a33 - l31 * l31 - l32 * l32)
+
+    bad = torch.zeros_like(s11, dtype=torch.bool)
+    for p in chol(s11, s22, s33):
+        bad = bad | (p <= floor)
+    if ny == 2:
+        g = torch.maximum(s21.abs() - s11, s21.abs() - s22)
+    else:
+        g = torch.maximum(
+            s21.abs() + s31.abs() - s11,
+            torch.maximum(s21.abs() + s32.abs() - s22,
+                          s31.abs() + s32.abs() - s33),
+        )
+    j = torch.where(bad, jitter * scale + torch.clamp(g, min=0.0), zero)
+    pivs = [torch.maximum(p, floor)
+            for p in chol(s11 + j, s22 + j, s33 + j if ny == 3 else None)]
+    logdet = sum(torch.log(p) for p in pivs)
+    l11 = torch.sqrt(pivs[0])
+    l21 = s21 / l11
+    l22 = torch.sqrt(pivs[1])
+    m11, m22 = 1.0 / l11, 1.0 / l22
+    m21 = -l21 * m11 * m22
+    if ny == 2:
+        Linv = torch.stack([torch.stack([m11, zero], -1),
+                            torch.stack([m21, m22], -1)], -2)
+    else:
+        l31 = s31 / l11
+        l32 = (s32 - l31 * l21) / l22
+        l33 = torch.sqrt(pivs[2])
+        m33 = 1.0 / l33
+        m32 = -l32 * m22 * m33
+        m31 = (l21 * l32 - l31 * l22) * m11 * m22 * m33
+        Linv = torch.stack([torch.stack([m11, zero, zero], -1),
+                            torch.stack([m21, m22, zero], -1),
+                            torch.stack([m31, m32, m33], -1)], -2)
+    Sinv = torch.einsum("pki,pkj->pij", Linv, Linv)
+    return Sinv, logdet, bad, Linv
+
+
+def block_gather_plain(ai, C, e, xl_gathered, P_all, R, jitter: float):
+    """Plain version of K5: the dense KF update of every particle on its
+    ancestor's covariance P_all[ai], with the reference's rounding points
+    (kf_update.py:_block_update_math):
+
+        CP  = round_P(C) P[ai]            accumulated in float32
+        S   = CP C^T + R                  C in float32
+        logw = -1/2 e^T S^-1 e - 1/2 log|S| - ny/2 log 2 pi
+        K3  = S^-1 CP;  xl' = xl + e^T K3
+        P'  = P[ai] - round_P(round_P(CP)^T round_P(K3))   storage dtype
+
+    C [N, ny, nl] and e [N, ny] float32; P_all [n_all, nl, nl] float32 or
+    bfloat16. Returns (xl' [N, nl] f32, P' [N, nl, nl], logw [N], bad [N]).
+    """
+    f32 = torch.float32
+    P = P_all[ai.long()]
+    CP = torch.einsum("pij,pjk->pik", C.to(P.dtype).to(f32), P.to(f32))
+    S = torch.einsum("pik,pjk->pij", CP, C.to(f32)) + R.to(f32)[None]
+    Sinv, logdet, bad, _ = spd_inv_logdet_plain(S, jitter)
+    quad = torch.einsum("pi,pij,pj->p", e, Sinv, e)
+    ny = C.shape[1]
+    logw = -0.5 * quad - 0.5 * logdet - 0.5 * ny * _LOG2PI
+    K3 = torch.einsum("pij,pjk->pik", Sinv, CP)
+    xl_new = xl_gathered.to(f32) + torch.einsum("pi,pik->pk", e, K3)
+    dd = torch.einsum("pir,pic->prc", CP.to(P.dtype).to(f32),
+                      K3.to(P.dtype).to(f32))
+    return xl_new, P - dd.to(P.dtype), logw, bad
+
+
+def kf_update_block_gather(ai, C, xl_gathered, P_all, y, R,
+                           jitter: float = 1e-3):
+    """Gathered dense KF update (K5; replaces rbslam_tpu/kernels/
+    kf_update.py:_kernel_block_gather): one read of each particle's
+    ancestor covariance and one write of P'.
+
+    ai [N] int32 ancestor indices into P_all [n_all, nl, nl] (the
+    covariances BEFORE resampling, float32 or bfloat16); C [N, ny, nl]
+    Jacobians at the propagated particles, ny <= 3, nl a multiple of 128
+    (pad upstream); xl_gathered [N, nl] the resampled maps; y [ny];
+    R [ny, ny]. Returns (xl' [N, nl] f32, P' [N, nl, nl] in P_all's dtype,
+    logw [N], retried [N] bool): the contract of
+    ops.kalman.kalman_update_dense_batched with symmetrize_out=False, up
+    to the repair and the rounding points. P' is always a new tensor.
+    """
+    if C.dim() != 3:
+        raise ValueError(f"C must be [N, ny, nl], got {tuple(C.shape)}")
+    n, ny, nl = C.shape
+    if not 1 <= ny <= 3:
+        raise ValueError(
+            f"the block KF update supports 1 <= ny <= 3, got {ny}")
+    if nl % 128:
+        raise ValueError(f"nl={nl} must be a multiple of 128 (pad upstream)")
+    if ai.dtype != torch.int32 or tuple(ai.shape) != (n,):
+        raise TypeError(f"ai must be an int32 tensor of shape ({n},)")
+    if P_all.dtype not in _STORAGE or P_all.dim() != 3 \
+            or tuple(P_all.shape[1:]) != (nl, nl):
+        raise TypeError(f"P_all must be float32 or bfloat16 [n_all, {nl}, "
+                        f"{nl}], got {P_all.dtype} {tuple(P_all.shape)}")
+    if tuple(xl_gathered.shape) != (n, nl) or tuple(y.shape) != (ny,) \
+            or tuple(R.shape) != (ny, ny):
+        raise ValueError(f"xl_gathered must be [{n}, {nl}], y [{ny}] and R "
+                         f"[{ny}, {ny}]")
+    devices = {x.device for x in (ai, C, xl_gathered, P_all, y, R)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    f32 = torch.float32
+    Cf = C.to(f32)
+    xl = xl_gathered.to(f32)
+    e = y[None, :].to(f32) - torch.einsum("pij,pj->pi", Cf, xl)
+    Rf = R.to(f32)
+    if _on_cpu(P_all):
+        return block_gather_plain(ai, Cf, e, xl, P_all, Rf, jitter)
+    if not P_all.is_contiguous():
+        raise ValueError("P_all must be contiguous")
+    Cf, e, xl, Rf = (x.contiguous() for x in (Cf, e, xl, Rf))
+    P_new = torch.empty((n, nl, nl), dtype=P_all.dtype, device=P_all.device)
+    xl_new = torch.empty((n, nl), dtype=f32, device=P_all.device)
+    logw = torch.empty((n,), dtype=f32, device=P_all.device)
+    bad = torch.empty((n,), dtype=torch.bool, device=P_all.device)
+    if n == 0:
+        return xl_new, P_new, logw, bad   # nothing to launch, nothing counted
+    code = _lib.lib().rbs_block_gather(
+        ai.data_ptr(), Cf.data_ptr(), e.data_ptr(), xl.data_ptr(),
+        P_all.data_ptr(), Rf.data_ptr(), P_new.data_ptr(), xl_new.data_ptr(),
+        logw.data_ptr(), bad.data_ptr(), n, P_all.shape[0], ny, nl,
+        float(jitter), int(P_all.dtype == torch.bfloat16), _lib.stream_ptr(),
+    )
+    _lib.check(code, "block_gather")
+    return xl_new, P_new, logw, bad

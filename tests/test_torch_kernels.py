@@ -1,4 +1,4 @@
-"""Kernels K1-K4 of the port.
+"""Kernels K1-K5 of the port.
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas entry points (interpret mode on the CPU)
@@ -20,11 +20,13 @@ torch = pytest.importorskip("torch")
 
 from rbslam_tpu_torch.basis import hypercube_basis  # noqa: E402
 from rbslam_tpu_torch.kernels import (  # noqa: E402
+    block_gather_plain,
     gather_cp,
     gather_cp_plain,
     grad_basis,
     grad_basis_plain,
     kf_rebase,
+    kf_update_block_gather,
     kf_update_lowrank,
     launch_counts,
     mag3d_jacobian_rows,
@@ -223,8 +225,13 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     pos, q = map(t, _points(6))
     grad_basis(consts, pos)
     mag3d_jacobian_rows(consts, pos, q, 128)
+    bidx, C, xl, Wt, P_base, y, R = map(t, _factored(3, N=4))
+    kf_update_lowrank(bidx, C, xl, Wt, P_base, y, R)
+    kf_rebase(bidx, Wt, P_base)
+    kf_update_block_gather(bidx, C, xl, P_base, y, R)
     assert launch_counts() == {"grad_basis": 0, "jac3d_rows": 0,
-                               "gather_cp": 0, "rebase": 0}
+                               "gather_cp": 0, "rebase": 0,
+                               "block_gather": 0}
 
 
 @pytest.fixture
@@ -299,6 +306,55 @@ class TestOnCard:
                     rebase_plain(bidx, Wt, P_base), dtype)
         torch.cuda.synchronize()
 
+    @staticmethod
+    def _block_inputs(card, n, ny, nl, dtype, seed):
+        g = torch.Generator(device=card).manual_seed(seed)
+        B = torch.randn((n, nl, nl), generator=g, device=card)
+        P = (0.05 * (B + B.transpose(1, 2))
+             + 2 * torch.eye(nl, device=card)).to(dtype)
+        del B
+        C = 0.3 * torch.randn((n, ny, nl), generator=g, device=card)
+        xl = torch.randn((n, nl), generator=g, device=card)
+        y = torch.randn((ny,), generator=g, device=card)
+        R = 0.5 * torch.eye(ny, device=card)
+        ai = torch.randint(0, n, (n,), generator=g, device=card,
+                           dtype=torch.int32)
+        return ai, C, xl, P, y, R
+
+    @staticmethod
+    def _block_plain(ai, C, xl, P, y, R):
+        e = y[None] - torch.einsum("pij,pj->pi", C, xl)
+        return block_gather_plain(ai, C, e, xl, P, R, 1e-3)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("ny,nl", [(1, 128), (3, 128), (1, 512),
+                                       (3, 512)])
+    def test_block_gather_kernel(self, card, dtype, ny, nl):
+        args = self._block_inputs(card, 256, ny, nl, dtype, nl + ny)
+        before = launch_counts()["block_gather"]
+        out = kf_update_block_gather(*args)
+        ref = self._block_plain(*args)
+        torch.cuda.synchronize()
+        assert launch_counts()["block_gather"] == before + 1
+        for a, b in zip(out[:3], ref[:3]):
+            self._check(a, b, dtype if a.dim() == 3 else torch.float32)
+        assert torch.equal(out[3], ref[3])
+
+    def test_block_gather_bad_ancestor_writes_nan(self, card):
+        """An ancestor index out of range writes NaN (P', xl', logw) for
+        that particle instead of reading out of bounds."""
+        ai, C, xl, P, y, R = self._block_inputs(card, 8, 3, 128,
+                                                torch.float32, 0)
+        ai[2] = 8
+        ai[5] = -1
+        xl_new, P_new, logw, _ = kf_update_block_gather(ai, C, xl, P, y, R)
+        torch.cuda.synchronize()
+        for i in range(8):
+            bad = i in (2, 5)
+            for out in (P_new[i], xl_new[i], logw[i]):
+                assert bool(torch.isnan(out).all()) == bad
+                assert bool(torch.isfinite(out).all()) != bad
+
     def test_empty_inputs_launch_nothing(self, card):
         """An empty ensemble returns an empty output without a launch, so
         the counters count launches only."""
@@ -314,12 +370,18 @@ class TestOnCard:
         assert mag3d_jacobian_rows(consts, pos, q, 128).shape == (0, 3, 128)
         assert gather_cp(bidx, C, Wt, P_base).shape == (0, 3, 128)
         assert kf_rebase(bidx, Wt, P_base).shape == (0, 128, 128)
+        out = kf_update_block_gather(bidx, C, torch.zeros((0, 128),
+                                                          device=card),
+                                     P_base, torch.zeros(3, device=card),
+                                     torch.eye(3, device=card))
+        assert out[1].shape == (0, 128, 128) and out[2].shape == (0,)
         assert launch_counts() == before
 
     def test_offsets_beyond_int32(self, card):
         """N=131072, nl=128: N*nl*nl = 2.1e9 elements, past 2^31. The
         kernels' last particles (reading the last ancestor rows) are
-        checked against the plain version on those particles only."""
+        checked against the plain version on those particles only: K2, K3
+        and K5."""
         n, nl, rw, ny = 131072, 128, 24, 3
         g = torch.Generator(device=card).manual_seed(1)
         P_base = torch.empty((n, nl, nl), dtype=torch.bfloat16, device=card)
@@ -337,4 +399,15 @@ class TestOnCard:
         out = kf_rebase(bidx, Wt, P_base)
         self._check(out[tail], rebase_plain(bidx[tail], Wt[tail], P_base),
                     torch.bfloat16)
+        del out, Wt
+        xl = torch.randn((n, nl), generator=g, device=card)
+        y = torch.randn((ny,), generator=g, device=card)
+        R = 200 * torch.eye(ny, device=card)   # S stays PD: P_base is noise
+        C = C.float()
+        got = kf_update_block_gather(bidx, C, xl, P_base, y, R)
+        want = self._block_plain(bidx[tail], C[tail], xl[tail], P_base, y, R)
+        for a, b in zip(got[:3], want[:3]):
+            self._check(a[tail], b,
+                        torch.bfloat16 if a.dim() == 3 else torch.float32)
+        assert torch.equal(got[3][tail], want[3])
         torch.cuda.synchronize()

@@ -39,29 +39,26 @@ N_P = 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def jax_noise(T, n, seed=0):
-    """The draws JAX's lowrank filter makes: key, k0 = split(key);
-    step_keys = split(key, T-1); per step k_res, k_dyn = split(k);
-    u0 = uniform(k_res, ()), w = normal(k_dyn, (n, 6))."""
+def jax_noise(T, n, seed=0, scheme="systematic"):
+    """The draws JAX's filter makes: key, k0 = split(key); step_keys =
+    split(key, T-1); per step k_res, k_dyn = split(k); the resampling
+    uniforms uniform(k_res, ()) for systematic or uniform(k_res, (n,))
+    for multinomial and stratified; w = normal(k_dyn, (n, 6))."""
     key = jax.random.PRNGKey(seed)
     key, _ = jax.random.split(key)
-    u0, w = [], []
+    shape = () if scheme == "systematic" else (n,)
+    u, w = [], []
     for k in jax.random.split(key, T - 1):
         k_res, k_dyn = jax.random.split(k)
-        u0.append(np.asarray(jax.random.uniform(k_res, ())))
+        u.append(np.asarray(jax.random.uniform(k_res, shape)))
         w.append(np.asarray(jax.random.normal(k_dyn, (n, 6), jnp.float32)))
-    return np.stack(u0).reshape(T - 1), np.stack(w).reshape(T - 1, n, 6)
+    return (np.stack(u).reshape((T - 1,) + shape),
+            np.stack(w).reshape(T - 1, n, 6))
 
 
-def _config(cfg_cls, **kw):
-    base = dict(n_particles=N_P, resampling="systematic",
-                symmetrize_cov=False, kf_kernel="lowrank")
-    base.update(kw)
-    return cfg_cls(**base)
-
-
-@pytest.fixture(scope="module")
-def slice_run():
+def build_slice_problem():
+    """bench._build_problem(29, 16, 12, pallas_basis=True) for both
+    packages: (port Problem, JAX run_rbpf arguments before config, T)."""
     data, model, potential, k, Q, R = bench._build_problem(
         29, N_P, 12, pallas_basis=True
     )
@@ -74,7 +71,36 @@ def slice_run():
     )
     jargs = (model, data.dx, data.y, data.init_state,
              jnp.zeros(potential.n_lin), jnp.diag(k), Q, R, 0.01)
-    T = int(data.y.shape[0])
+    return prob, jargs, int(data.y.shape[0])
+
+
+def assert_runs_match(port, ref):
+    """The slice tolerances: ancestors and retry counts equal; traj_mean
+    atol 1e-3; xl_mean and P_mean 5e-3; logw and log_evidence 1e-2."""
+    np.testing.assert_array_equal(_np(port.ancestors), _np(ref.ancestors))
+    assert int(port.chol_retries) == int(ref.chol_retries)
+    np.testing.assert_allclose(_np(port.traj_mean), _np(ref.traj_mean),
+                               atol=1e-3)
+    for field in ("xl_mean", "P_mean"):
+        assert getattr(port, field).shape == getattr(ref, field).shape
+        np.testing.assert_allclose(_np(getattr(port, field)),
+                                   _np(getattr(ref, field)), atol=5e-3,
+                                   err_msg=field)
+    np.testing.assert_allclose(_np(port.logw), _np(ref.logw), atol=1e-2)
+    np.testing.assert_allclose(float(port.log_evidence),
+                               float(ref.log_evidence), atol=1e-2)
+
+
+def _config(cfg_cls, **kw):
+    base = dict(n_particles=N_P, resampling="systematic",
+                symmetrize_cov=False, kf_kernel="lowrank")
+    base.update(kw)
+    return cfg_cls(**base)
+
+
+@pytest.fixture(scope="module")
+def slice_run():
+    prob, jargs, T = build_slice_problem()
     ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs, _config(JConfig))
     noise = jax_noise(T, N_P)
     port = run_rbpf(*prob.rbpf_args(), _config(RBPFConfig), generator=None,
@@ -240,15 +266,27 @@ def test_masked_or_nan_y_rejected(slice_run):
                  device="cpu", noise=slice_run["noise"], mask=mask)
 
 
-@pytest.mark.parametrize("override", [
-    {"kf_kernel": "xla"}, {"kf_kernel": "block_gather"},
-    {"ess_threshold": 0.5}, {"resampling": "multinomial"},
-])
-def test_unported_paths_raise(slice_run, override):
+@pytest.mark.parametrize("case", ["mesh", "sparse_model", "dense_ny4"])
+def test_unported_paths_raise(slice_run, case):
+    """What the port does not have yet raises, naming its ROADMAP item:
+    a mesh, a sparse (EKF-linearized) model and the dense ny > 3 form."""
+    from rbslam_tpu.models.base import SparseModel
+
     prob = slice_run["prob"]
+    args = list(prob.rbpf_args())
+    kw = {}
+    if case == "mesh":
+        kw["mesh"] = object()
+    elif case == "sparse_model":
+        m = prob.model
+        args[0] = SparseModel(dynamics=m.dynamics, dyn_residual=None,
+                              measure=m.meas_jacobian, n_nonlin=7,
+                              n_lin=m.n_lin, ny=m.ny)
+    else:
+        args[0] = prob.model._replace(ny=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_rbpf(*prob.rbpf_args(), _config(RBPFConfig, **override),
-                 generator=None, device="cpu", noise=slice_run["noise"])
+        run_rbpf(*args, _config(RBPFConfig), generator=None, device="cpu",
+                 noise=slice_run["noise"], **kw)
 
 
 def test_unknown_kf_kernel_rejected(slice_run):
@@ -312,7 +350,8 @@ def test_port_builds_its_own_problem():
 
 
 def test_package_never_imports_jax():
-    """Import the port with JAX made unimportable and run a 2-step filter."""
+    """Import the port with JAX made unimportable and run 2-step lowrank
+    and block_gather filters."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -321,12 +360,13 @@ def test_package_never_imports_jax():
         from rbslam_tpu_torch.workloads.dense_mag import build_problem
         import rbslam_tpu_torch.kernels, rbslam_tpu_torch.data
         prob, _ = build_problem(13, 2, seed=1, m_sim=32, device="cpu")
-        res = run_rbpf(*prob.rbpf_args(),
-                       RBPFConfig(n_particles=4, resampling="systematic",
-                                  kf_kernel="lowrank"),
-                       generator=torch.Generator().manual_seed(0),
-                       device="cpu")
-        assert res.traj_mean.shape == (2, 7)
+        for kf_kernel in ("lowrank", "block_gather"):
+            res = run_rbpf(*prob.rbpf_args(),
+                           RBPFConfig(n_particles=4, resampling="systematic",
+                                      kf_kernel=kf_kernel),
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+            assert res.traj_mean.shape == (2, 7)
         assert not any(m == "jax" or m.startswith("jax.")
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
