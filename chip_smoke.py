@@ -21,13 +21,29 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     injected noise, on four paths (block_gather + systematic, xla +
     multinomial, lowrank + systematic with ESS gating at 0.7,
     block_gather + stratified with ESS gating at 0.7): equal ancestors,
-    close estimates.
+    close estimates; and the smoothers likewise (N_P=24, T=12, 3 sweeps):
+    radio run_rbps, radio run_rbps_information_form (woodbury and
+    cholesky) and mag3d run_rbps_information_form;
+ 7. the dense-radio workload at its reference size (line_3D, T=32,
+    N_P=100, m=128, m_sim=2000, multinomial resampling, 20 sweeps):
+    filter, then the CPF-AS smoother; again with the information-form
+    smoother; every Jacobian through K6;
+ 8. the information-form smoother on the mag3d model at the reference
+    bench row's size (N_P=100, m=512, T=192, 3 sweeps, systematic
+    resampling, woodbury ancestor form, f32): particle-steps/s (N_P T N_K
+    over the wall, best of 2 after a warm-up); every Jacobian through K4;
+ 9. the fused mag3d Jacobian in the transposed layout (K7) through its
+    public entry, on the smoothed trajectory of phase 8.
 
-Each filter run sets every launch count to 0 just before it and reads the
-counts just after; the counts must be exactly those of its path.
+Each run of phases 4, 5, 7, 8 and 9 sets every launch count to 0 just
+before it and reads the counts just after; the counts must be exactly
+those of its path.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches on its main path, its error and time against its plain version,
+and its bound: the larger of its bytes over 3.35 TB/s and its operations
+over the card's peak for their type); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,7 +55,13 @@ import time
 
 import torch
 
-from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
+from rbslam_tpu_torch.engines import (
+    RBPFConfig,
+    RBPSConfig,
+    run_rbpf,
+    run_rbps,
+    run_rbps_information_form,
+)
 from rbslam_tpu_torch.kernels import (
     _lib,
     block_gather_plain,
@@ -50,13 +72,20 @@ from rbslam_tpu_torch.kernels import (
     kf_rebase,
     kf_update_block_gather,
     launch_counts,
+    mag3d_jacobian,
+    mag3d_jacobian_plain,
     mag3d_jacobian_rows,
     mag3d_jacobian_rows_plain,
     pack_basis_constants,
+    phi_basis,
+    phi_basis_plain,
     rebase_plain,
     reset_launch_counts,
 )
 from rbslam_tpu_torch.basis import hypercube_basis
+from rbslam_tpu_torch.basis.laplace import domain_center
+from rbslam_tpu_torch.metrics import aligned_position_rmse
+from rbslam_tpu_torch.workloads import dense_radio
 from rbslam_tpu_torch.workloads.dense_mag import build_problem
 
 KERNELS = {
@@ -70,8 +99,29 @@ KERNELS = {
                    "rbslam_tpu/kernels/basis_eval.py:64"),
     "block_gather": ("rbslam_tpu_torch/csrc/kf_update.cu",
                      "rbslam_tpu/kernels/kf_update.py:307"),
+    "phi_basis": ("rbslam_tpu_torch/csrc/basis_eval.cu",
+                  "rbslam_tpu/kernels/basis_eval.py:52"),
+    "jac3d": ("rbslam_tpu_torch/csrc/basis_eval.cu",
+              "rbslam_tpu/kernels/basis_eval.py:84"),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s; dense FLOP/s outside the tensor
+# cores (float32) and in them (bf16)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def bound(tensors_in, tensors_out, flops, dtype):
+    """The least time the card could take: every input read once and every
+    output written once over the memory rate, or the operations over the
+    peak rate of their type, whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*tensors_in, *tensors_out))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
 
 
 def log(msg: str) -> None:
@@ -97,8 +147,11 @@ def time_ms(fn, device, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel, plain, device, dtype, shape_note):
-    """Run kernel and plain version on the same inputs; check the error
+def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
+            flop_dtype=torch.float32):
+    """Run kernel and plain version on the same inputs (``inputs``: the
+    tensors the kernel reads, ``flops``: the operations it does on them,
+    for :func:`bound`); check the error
     against the dtype's tolerance (relative to the output's max
     magnitude; in float32 also elementwise, rtol 1e-4 with an absolute
     floor of 1e-6 of that magnitude); time both. ``dtype`` names the
@@ -139,36 +192,78 @@ def compare(name, kernel, plain, device, dtype, shape_note):
             raise AssertionError(
                 f"{name} {shape_note}: elementwise error above rtol "
                 f"{TOL[torch.float32]}, atol {1e-6 * scale:.3e}")
+    bound_info = bound(inputs, outs_k, flops, flop_dtype)
     ms = time_ms(kernel, device)
     plain_ms = time_ms(plain, device)
-    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+        f"bound={bound_info['bound_ms']:.4f} ms ({bound_info['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info}
 
 
 def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                   ny=3, rw=24):
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3: each kernel against its plain version on the card. The
+    returned row of a kernel is the one at its main path's first shape.
+    Operation counts: a multiply, an add and a sin or cos count one each."""
     g = torch.Generator(device=device).manual_seed(0)
-    basis = hypercube_basis(m, [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]])
+    bounds3 = [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]]
+    basis = hypercube_basis(m, bounds3)
     consts = pack_basis_constants(basis, device)
     pos = (torch.rand((n, 3), generator=g, device=device) - 0.5) \
         * torch.tensor([36.0, 36.0, 4.0], device=device)
     quat = torch.randn((n, 4), generator=g, device=device)
     quat = quat / quat.norm(dim=-1, keepdim=True)
     rows = {}
+    # per (particle, basis function): 3 phases (2), 3 sincos (2), 3
+    # gradient rows (4), 3 rotated rows (5)
+    jac_flops = n * m * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5)
     for dt in (torch.bfloat16, torch.float32):
         r = compare(
             "jac3d_rows",
             lambda: mag3d_jacobian_rows(consts, pos, quat, nl, dt),
             lambda: mag3d_jacobian_rows_plain(consts, pos, quat, nl, dt),
             device, dt, f"N={n} m={m} nl={nl} {dt}",
+            (pos, quat, consts.packed), jac_flops,
         )
         rows.setdefault("jac3d_rows", r)
     rows["grad_basis"] = compare(
         "grad_basis", lambda: grad_basis(consts, pos),
         lambda: grad_basis_plain(consts, pos), device, torch.float32,
-        f"N={n} m={m} d=3 float32",
+        f"N={n} m={m} d=3 float32", (pos, consts.packed),
+        n * m * (3 * 2 + 3 * 2 + 3 * 4),
     )
+
+    # K7 against its plain version and against K1's float32 rows transposed
+    for nn, mm, nll in ((n, m, nl), (n_ref, nl_ref - 3, nl_ref)):
+        cc = pack_basis_constants(hypercube_basis(mm, bounds3), device)
+        pp, qq = pos[:nn], quat[:nn]
+        r = compare(
+            "jac3d", lambda: mag3d_jacobian(cc, pp, qq, nll),
+            lambda: mag3d_jacobian_plain(cc, pp, qq, nll), device,
+            torch.float32, f"N={nn} m={mm} nl={nll} float32",
+            (pp, qq, cc.packed), nn * mm * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
+        )
+        rows.setdefault("jac3d", r)
+        if not torch.equal(mag3d_jacobian(cc, pp, qq, nll),
+                           mag3d_jacobian_rows(cc, pp, qq, nll)
+                           .transpose(0, 1)):
+            raise AssertionError("jac3d differs from jac3d_rows transposed")
+        log(f"[3] jac3d N={nn} nl={nll}: bit-equal to jac3d_rows (float32) "
+            "transposed")
+
+    # K6 at the radio path's shape (N_P=100, d=2, m=128) and at large N
+    for nn, dd, mm in ((100, 2, 128), (n, 2, 128), (n, 3, 512)):
+        half = [9.0, 6.0, 2.4][:dd]
+        cc = pack_basis_constants(hypercube_basis(mm, half), device)
+        xx = (2 * torch.rand((nn, dd), generator=g, device=device) - 1) \
+            * torch.tensor(half, device=device)
+        r = compare(
+            "phi_basis", lambda: phi_basis(cc, xx),
+            lambda: phi_basis_plain(cc, xx), device, torch.float32,
+            f"N={nn} d={dd} m={mm} float32", (xx, cc.packed),
+            nn * mm * dd * 4,
+        )
+        rows.setdefault("phi_basis", r)
 
     def factored(nn, nll, dt):
         B = torch.randn((nn, nll, nll), generator=g, device=device)
@@ -186,14 +281,19 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
     for nn, nll, dt in ((n, nl, torch.bfloat16), (n_ref, nl_ref, torch.float32)):
         bidx, C, Wt, P_base = factored(nn, nll, dt)
         note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
+        # the gathered rows of P_base are read once per particle
+        gathered = P_base[:1].expand(nn, nll, nll)
         r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
                     lambda: gather_cp_plain(bidx, C, Wt, P_base),
-                    device, torch.float32 if dt == torch.float32 else dt, note)
+                    device, torch.float32 if dt == torch.float32 else dt, note,
+                    (bidx, C, Wt, gathered),
+                    2 * nn * ny * nll * (nll + 2 * rw), dt)
         rows.setdefault("gather_cp", r)
         r = compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
-                    lambda: rebase_plain(bidx, Wt, P_base), device, dt, note)
+                    lambda: rebase_plain(bidx, Wt, P_base), device, dt, note,
+                    (bidx, Wt, gathered), 2 * nn * rw * nll * nll, dt)
         rows.setdefault("rebase", r)
-        del bidx, C, Wt, P_base
+        del bidx, C, Wt, P_base, gathered
 
     def block_inputs(nn, nyy, nll, dt):
         B = torch.randn((nn, nll, nll), generator=g, device=device)
@@ -219,6 +319,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             lambda: kf_update_block_gather(ai, C, xl, P, y, R, 1e-3),
             lambda: block_gather_plain(ai, C, e, xl, P, R, 1e-3),
             device, None, f"N={nn} ny={nyy} nl={nll} {dt}",
+            (ai, C, xl, P, y, R), 4 * nn * nyy * nll * nll, dt,
         )
         rows.setdefault("block_gather", r)
         del ai, C, xl, P, y, R, e
@@ -330,7 +431,7 @@ def phase_plain_vs_kernel(device, m=125, n_particles=64, T=24):
                                      generator=None, device=dev,
                                      noise=(u.to(dev), w.to(dev)))
         sync(device)
-        k, p = out["cuda"], out["cpu"]
+        k, p = out[device.type], out["cpu"]
         note = (f"{kf_kernel} + {resampling}, ess_threshold={ess} "
                 f"(N_P={n_particles}, m={m}, T={T}, f32)")
         if not torch.equal(k.ancestors.cpu(), p.ancestors):
@@ -351,6 +452,186 @@ def phase_plain_vs_kernel(device, m=125, n_particles=64, T=24):
         if ess < 1.0 and not 0 < resampled < T - 1:
             raise AssertionError(f"{note}: the ESS gate should both skip "
                                  "and resample")
+
+
+def phase_smoothers_plain_vs_kernel(device, n_particles=24, T=12, n_sweeps=3):
+    """Phase 6, smoothers: each smoother on the card (kernels) against the
+    same smoother on the CPU (plain versions) with the same injected
+    noise: equal ancestors and kept trajectories, XNK within 1e-3, XLK
+    within 5e-3."""
+    cpu = torch.device("cpu")
+    rcfg = dense_radio.DenseRadioConfig(n_steps=T, n_particles=n_particles,
+                                        m_basis=32, m_sim=256)
+    radio = {dev.type: dense_radio.build_problem(
+        rcfg, torch.Generator().manual_seed(1), device=dev)[0]
+        for dev in (device, cpu)}
+    mag = {dev.type: build_problem(125, T, seed=1, m_sim=512, device=dev)[0]
+           for dev in (device, cpu)}
+    cases = [
+        ("radio run_rbps", run_rbps, radio, "multinomial", {}),
+        ("radio info-form woodbury", run_rbps_information_form, radio,
+         "multinomial", {"ancestor_form": "woodbury"}),
+        ("radio info-form cholesky", run_rbps_information_form, radio,
+         "multinomial", {"ancestor_form": "cholesky"}),
+        ("mag3d info-form woodbury", run_rbps_information_form, mag,
+         "systematic", {"ancestor_form": "woodbury"}),
+    ]
+    gen = torch.Generator(device=device).manual_seed(11)
+    for tag, fn, problems, resampling, kw in cases:
+        n_noise = problems["cpu"].model.n_noise
+        u_shape = (n_sweeps, T - 1) if resampling == "systematic" \
+            else (n_sweeps, T - 1, n_particles)
+        noise = (
+            torch.rand(u_shape, generator=gen, device=device),
+            torch.randn((n_sweeps, T - 1, n_particles, n_noise),
+                        generator=gen, device=device),
+            torch.rand((n_sweeps, T - 1), generator=gen, device=device),
+            torch.rand((n_sweeps,), generator=gen, device=device),
+        )
+        cfg = RBPSConfig(n_particles=n_particles, n_sweeps=n_sweeps,
+                         resampling=resampling, **kw)
+        out = {}
+        for dev in (device, cpu):
+            out[dev.type] = fn(*problems[dev.type].rbpf_args(), cfg,
+                               generator=None, device=dev,
+                               noise=tuple(a.to(dev) for a in noise))
+        sync(device)
+        k, p = out[device.type], out["cpu"]
+        if not (torch.equal(k.ancestors.cpu(), p.ancestors)
+                and torch.equal(k.kept.cpu(), p.kept)):
+            raise AssertionError(f"{tag}: ancestors or kept trajectories "
+                                 "differ between card and cpu")
+        d_xn = float((k.XNK.cpu() - p.XNK).abs().max())
+        d_xl = float((k.XLK.cpu() - p.XLK).abs().max())
+        log(f"[6] {tag} (N_P={n_particles}, T={T}, {n_sweeps} sweeps, "
+            f"{resampling}): card (kernels) vs cpu (plain versions): "
+            f"ancestors and kept trajectories equal, max|d XNK|={d_xn:.3e} "
+            f"(tol 1e-3), max|d XLK|={d_xl:.3e} (tol 5e-3)")
+        if not (d_xn <= 1e-3 and d_xl <= 5e-3):
+            raise AssertionError(f"{tag}: card and cpu disagree")
+
+
+def check_tf32_off():
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("matmul.allow_tf32 must stay off: the "
+                             "smoothers maintain W by cancellation")
+
+
+def phase_radio(device, card, zero):
+    """Phase 7: the dense-radio workload at its reference size through its
+    entry point, with each smoother. K6 launches: the filter T=32 times; a
+    smoother T times per sweep plus once per sweep after the first for
+    the reference trajectory's Jacobians, 20 * 32 + 19 = 659. Returns the
+    launch counts of the last run."""
+    check_tf32_off()
+    for smoother in ("cpf_as", "info_form"):
+        cfg = dense_radio.DenseRadioConfig(smoother=smoother)
+        expect = {**zero, "phi_basis": cfg.n_steps
+                  + cfg.n_sweeps * cfg.n_steps + cfg.n_sweeps - 1}
+        reset_launch_counts()
+        out = dense_radio.run(cfg, device=device)
+        sync(device)
+        counts = launch_counts()
+        log(f"[7] dense-radio {cfg.traj_type} T={cfg.n_steps} "
+            f"N_P={cfg.n_particles} m={cfg.m_basis} m_sim={cfg.m_sim} "
+            f"{cfg.resampling} {cfg.n_sweeps} sweeps, smoother={smoother}: "
+            f"launches {counts}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        sweeps = out["rmse_smoother_per_sweep"]
+        log(f"[7] {smoother}: aligned RMSE filter max/mean "
+            f"{out['rmse_filter_max_mean']} m; per sweep "
+            f"{[round(r, 4) for r in sweeps]} m; filter "
+            f"{out['times_s']['filter_s']:.3f} s, smoother "
+            f"{out['times_s']['smoother_s']:.3f} s (one run, first use "
+            f"included) on {card}")
+        values = out["rmse_filter_max_mean"] + sweeps
+        if not all(v == v and abs(v) != float("inf") for v in values):
+            raise AssertionError(f"{smoother}: non-finite RMSE")
+        if not min(sweeps[1:]) < 0.6:
+            raise AssertionError(f"{smoother}: best sweep {min(sweeps[1:])} "
+                                 "m is not under 0.6 m")
+    return counts
+
+
+def phase_mag_smoother(device, card, zero, m=512, T=192, n_particles=100,
+                       n_sweeps=3):
+    """Phase 8: run_rbps_information_form at the reference bench row's
+    size. K4 launches: T per sweep, plus once per sweep after the first
+    for the reference trajectory, 3 * 192 + 2 = 578."""
+    check_tf32_off()
+    problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
+    cfg = RBPSConfig(n_particles=n_particles, n_sweeps=n_sweeps,
+                     resampling="systematic", ancestor_form="woodbury")
+    gen = torch.Generator(device=device)
+
+    def run(seed):
+        gen.manual_seed(seed)
+        res = run_rbps_information_form(*problem.rbpf_args(), cfg,
+                                        generator=gen, device=device)
+        sync(device)
+        return res
+
+    expect = {**zero, "grad_basis": n_sweeps * T + n_sweeps - 1}
+    reset_launch_counts()
+    res = run(0)
+    counts = launch_counts()
+    log(f"[8] launches in one run: {counts}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    n_lin = problem.model.n_lin
+    for field, shape in (("XNK", (n_sweeps, T, 7)), ("XLK", (n_sweeps, n_lin)),
+                         ("PK", (n_sweeps, n_lin, n_lin)),
+                         ("ess", (n_sweeps, T))):
+        v = getattr(res, field)
+        if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{field}: shape {tuple(v.shape)} or "
+                                 "non-finite values")
+    rmse = [float(aligned_position_rmse(data.pos, res.XNK[k, :, :3]))
+            for k in range(n_sweeps)]
+    log(f"[8] aligned position RMSE per sweep {[round(r, 4) for r in rmse]} "
+        f"m; chol_retries {res.chol_retries.tolist()}")
+    best = float("inf")
+    for i in range(2):
+        t0 = time.perf_counter()
+        run(i + 1)
+        best = min(best, time.perf_counter() - t0)
+    rate = n_particles * T * n_sweeps / best
+    log(f"[8] info-form smoother N_P={n_particles} m={m} (n_lin={n_lin}) "
+        f"T={T} {n_sweeps} sweeps woodbury f32 systematic: best of 2 "
+        f"{best:.4f} s = {rate:.1f} particle-steps/s "
+        f"({best / (T * n_sweeps) * 1e3:.4f} ms/step) on {card}")
+    return counts, problem, data, res
+
+
+def phase_jac3d_entry(device, zero, problem, data, res):
+    """Phase 9: K7 through its public entry, on the last sweep's
+    trajectory: Ct [3, T, nl_pad] = R(q)^T [I | grad phi(p)] per step."""
+    basis = problem.potential.basis
+    consts = pack_basis_constants(basis, device)
+    center = torch.as_tensor(domain_center(data.LL), dtype=torch.float32,
+                             device=device)
+    xnk = res.XNK[-1]
+    nl_pad = -(-problem.model.n_lin // 128) * 128
+    reset_launch_counts()
+    Ct = mag3d_jacobian(consts, (xnk[:, :3] - center).contiguous(),
+                        xnk[:, 3:7].contiguous(), nl_pad)
+    sync(device)
+    counts = launch_counts()
+    if counts != {**zero, "jac3d": 1}:
+        raise AssertionError(f"launch counts {counts}")
+    if tuple(Ct.shape) != (3, xnk.shape[0], nl_pad) \
+            or not bool(torch.isfinite(Ct).all()):
+        raise AssertionError("jac3d: wrong shape or non-finite values")
+    # the model's own Jacobian (K4 and a plain rotation) on the same states
+    C = problem.model.meas_jacobian_batch(xnk)
+    err = float((Ct[:, :, :C.shape[-1]].transpose(0, 1) - C).abs().max())
+    log(f"[9] mag3d_jacobian on the smoothed trajectory: Ct "
+        f"{tuple(Ct.shape)}, max|Ct - model Jacobian|={err:.3e} "
+        f"(tol 1e-4 of {float(C.abs().max()):.3f}); launches {counts}")
+    if not err <= 1e-4 * float(C.abs().max()):
+        raise AssertionError("jac3d disagrees with the model's Jacobian")
+    return counts
 
 
 def main() -> int:
@@ -399,6 +680,15 @@ def main() -> int:
              {**zero, "grad_basis": 192})
     counts["block_gather"] = counts_block["block_gather"]
     phase_plain_vs_kernel(device)
+    phase_smoothers_plain_vs_kernel(device)
+    counts["phi_basis"] = phase_radio(device, card, zero)["phi_basis"]
+    counts_s, problem, data, res = phase_mag_smoother(device, card, zero)
+    log(f"[8] grad_basis launches on the filter's lowrank path "
+        f"{counts['grad_basis']}, on the smoother's path "
+        f"{counts_s['grad_basis']}")
+    counts["grad_basis"] = counts_s["grad_basis"]
+    counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
+                                        res)["jac3d"]
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

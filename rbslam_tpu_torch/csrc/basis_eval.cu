@@ -3,12 +3,19 @@
 // K4 grad_basis  replaces rbslam_tpu/kernels/basis_eval.py:_grad_kernel
 //     out[p, i, b] = scale * fac_ib cos(a_ib) prod_{j != i} sin(a_jb),
 //     a_jb = freq_jb * x_pj + phase_jb                 ([N, 3] -> [N, 3, m] f32)
-// K1 jac3d_rows  replaces rbslam_tpu/kernels/basis_eval.py:_jac3d_rows_kernel
+// K1 jac3d_rows  replaces rbslam_tpu/kernels/basis_eval.py:_jac3d_kernel
 //     C[p, k, col] = sum_i R(q_p)[i, k] g_i[col],  g = [I_3 | grad phi(x_p) | 0]
 //     ([N, 3] positions + [N, 4] quaternions -> [N, 3, nl_pad] f32 or bf16)
+// K6 phi_basis   replaces rbslam_tpu/kernels/basis_eval.py:_phi_kernel
+//     out[p, b] = scale * prod_j sin(a_jb)              ([N, d] -> [N, m] f32)
+// K7 jac3d       replaces rbslam_tpu/kernels/basis_eval.py:_jac3d_kernel
+//     K1's C in the transposed layout [3, N, nl_pad], f32 only
+// K4 and K6 serve d in {1, 2, 3}.
 //
-// Bound: transcendental/ALU throughput (3 sincosf per (particle, basis
-// function)); the output write is 3 * nl_pad elements per particle.
+// Bound: transcendental/ALU throughput (d sincosf or sinf per (particle,
+// basis function)); the output write is d * m (K4), 3 * nl_pad (K1, K7)
+// or m (K6) elements per particle. At the smoothers' ensemble sizes
+// (N = 100) the launch itself is the floor.
 // Design: one thread per (particle, column); adjacent threads take
 // adjacent columns, so constant loads and output stores coalesce, and
 // the three sin/cos pairs of a column are shared by the three gradient
@@ -66,8 +73,30 @@ __global__ void grad_basis_kernel(const float* __restrict__ x,
   }
 }
 
-template <typename OutT>
-__global__ void jac3d_rows_kernel(const float* __restrict__ pos,
+// K6: the accumulator starts at scale and takes the sines left to right,
+// as the plain version and the reference kernel do.
+template <int D>
+__global__ void phi_basis_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ consts,
+                                 float scale, float* __restrict__ out,
+                                 long long n, int m) {
+  const long long p = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const int col = blockIdx.y * blockDim.x + threadIdx.x;
+  if (p >= n || col >= m) return;
+  float acc = scale;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float a = phase(x[p * D + j], __ldg(consts + (long long)j * m + col),
+                          __ldg(consts + (long long)(D + j) * m + col));
+    acc = __fmul_rn(acc, sinf(a));
+  }
+  out[p * m + col] = acc;
+}
+
+// K1 and K7 share this kernel; kTransposed selects the store index:
+// rows layout [N, 3, nl_pad] (K1) or [3, N, nl_pad] (K7).
+template <typename OutT, bool kTransposed>
+__global__ void jac3d_kernel(const float* __restrict__ pos,
                                   const float* __restrict__ quat,
                                   const float* __restrict__ consts,
                                   float scale, OutT* __restrict__ out,
@@ -129,7 +158,8 @@ __global__ void jac3d_rows_kernel(const float* __restrict__ pos,
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    out[(p * 3 + k) * nl_pad + col] = from_float<OutT>(C[k]);
+    const long long row = kTransposed ? (long long)k * n + p : p * 3 + k;
+    out[row * nl_pad + col] = from_float<OutT>(C[k]);
   }
 }
 
@@ -138,12 +168,36 @@ __global__ void jac3d_rows_kernel(const float* __restrict__ pos,
 extern "C" int rbs_grad_basis(const void* x, const void* consts, float scale,
                               void* out, long long n, int m, int d,
                               void* stream) {
-  if (d != 3) return (int)cudaErrorInvalidValue;
   const dim3 block(kCols, kRows);
   const dim3 grid((unsigned)((n + kRows - 1) / kRows), (m + kCols - 1) / kCols);
-  grad_basis_kernel<3><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(consts), scale,
-      static_cast<float*>(out), n, m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(consts);
+  float* of = static_cast<float*>(out);
+  switch (d) {
+    case 1: grad_basis_kernel<1><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    case 2: grad_basis_kernel<2><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    case 3: grad_basis_kernel<3><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rbs_phi_basis(const void* x, const void* consts, float scale,
+                             void* out, long long n, int m, int d,
+                             void* stream) {
+  const dim3 block(kCols, kRows);
+  const dim3 grid((unsigned)((n + kRows - 1) / kRows), (m + kCols - 1) / kCols);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* cf = static_cast<const float*>(consts);
+  float* of = static_cast<float*>(out);
+  switch (d) {
+    case 1: phi_basis_kernel<1><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    case 2: phi_basis_kernel<2><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    case 3: phi_basis_kernel<3><<<grid, block, 0, s>>>(xf, cf, scale, of, n, m); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -158,11 +212,24 @@ extern "C" int rbs_jac3d_rows(const void* pos, const void* quat,
   const float* qf = static_cast<const float*>(quat);
   const float* cf = static_cast<const float*>(consts);
   if (out_bf16) {
-    jac3d_rows_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+    jac3d_kernel<__nv_bfloat16, false><<<grid, block, 0, s>>>(
         pf, qf, cf, scale, static_cast<__nv_bfloat16*>(out), n, m, nl_pad);
   } else {
-    jac3d_rows_kernel<float><<<grid, block, 0, s>>>(
+    jac3d_kernel<float, false><<<grid, block, 0, s>>>(
         pf, qf, cf, scale, static_cast<float*>(out), n, m, nl_pad);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rbs_jac3d(const void* pos, const void* quat, const void* consts,
+                         float scale, void* out, long long n, int m,
+                         int nl_pad, void* stream) {
+  const dim3 block(kCols, kRows);
+  const dim3 grid((unsigned)((n + kRows - 1) / kRows), (nl_pad + kCols - 1) / kCols);
+  jac3d_kernel<float, true>
+      <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(pos), static_cast<const float*>(quat),
+          static_cast<const float*>(consts), scale, static_cast<float*>(out),
+          n, m, nl_pad);
   return (int)cudaGetLastError();
 }

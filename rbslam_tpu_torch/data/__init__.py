@@ -1,9 +1,15 @@
-from .fields import PotentialFieldDraw, draw_scalar_potential_field
+from .fields import (
+    PotentialFieldDraw,
+    ScalarFieldDraw,
+    draw_scalar_field,
+    draw_scalar_potential_field,
+)
 from .simulate import DenseDataset, simulate_dense_dataset
 from .trajectories import TRAJECTORY_TYPES, Trajectory, generate_trajectory
 
 __all__ = [
-    "PotentialFieldDraw", "draw_scalar_potential_field",
+    "PotentialFieldDraw", "ScalarFieldDraw", "draw_scalar_field",
+    "draw_scalar_potential_field",
     "DenseDataset", "simulate_dense_dataset",
     "TRAJECTORY_TYPES", "Trajectory", "generate_trajectory",
 ]

@@ -1,5 +1,6 @@
-"""Random curl-free GP field draws for simulation (port of
-rbslam_tpu/data/fields.py; tools/gp_rnd_scalar_potential_fast.m).
+"""Random GP field draws for simulation (port of rbslam_tpu/data/fields.py;
+tools/gp_rnd_SE1D_fast.m: scalar SE field, f = Phi diag(sqrt k) z; and
+tools/gp_rnd_scalar_potential_fast.m: curl-free 3D field).
 
 Inputs are shifted to the centered domain here. The standard-normal
 draws come from ``generator`` unless given explicitly.
@@ -14,7 +15,13 @@ import torch
 
 from ..basis.laplace import domain_center, hypercube_basis
 from ..basis.potential import ScalarPotentialBasis
-from ..basis.spectral import linear_plus_se_spectral
+from ..basis.spectral import linear_plus_se_spectral, se_spectral_density
+
+
+class ScalarFieldDraw(NamedTuple):
+    f: torch.Tensor        # [n] field values
+    y: torch.Tensor        # [n] noisy observations
+    weights: torch.Tensor  # [m] basis weights of the drawn field
 
 
 class PotentialFieldDraw(NamedTuple):
@@ -22,6 +29,43 @@ class PotentialFieldDraw(NamedTuple):
     df: torch.Tensor       # [n, 3] gradient (the field)
     y: torch.Tensor        # [n, 3] noisy gradient observations
     weights: torch.Tensor  # [3 + m] weights (linear + basis)
+
+
+def _normal(z, shape, generator, like: torch.Tensor) -> torch.Tensor:
+    """The standard-normal draw ``z`` as a tensor like ``like``, drawn from
+    ``generator`` when not given."""
+    if z is None:
+        return torch.randn(shape, generator=generator, dtype=like.dtype)
+    if isinstance(z, np.ndarray):
+        z = np.array(z)
+    return torch.as_tensor(z, dtype=like.dtype, device=like.device)
+
+
+def draw_scalar_field(x, m: int, LL, theta, *,
+                      generator: Optional[torch.Generator] = None,
+                      z_w=None, z_n=None) -> ScalarFieldDraw:
+    """Scalar SE-kernel GP draw at points x [n, d].
+
+    theta = [lengthScale, magnSigma2, sigma2] (gp_rnd_SE1D_fast.m:73-85).
+    ``z_w`` [m] and ``z_n`` [n] are the standard-normal draws for the
+    weights and the measurement noise; each is drawn from ``generator``
+    when not given.
+    """
+    LL = np.asarray(LL, dtype=np.float64)
+    x = torch.as_tensor(x)
+    x = x - torch.as_tensor(domain_center(LL), dtype=x.dtype, device=x.device)
+    basis = hypercube_basis(m, LL)
+    length_scale, magn_sigma2, sigma2 = (float(t) for t in theta)
+    k = se_spectral_density(
+        torch.as_tensor(np.sqrt(basis.eigenvalues), dtype=x.dtype,
+                        device=x.device),
+        length_scale, magn_sigma2, basis.d,
+    )
+    w = torch.sqrt(k) * _normal(z_w, (m,), generator, x)
+    f = basis.phi(x) @ w
+    y = f + float(np.sqrt(np.float32(sigma2))) * _normal(
+        z_n, (x.shape[0],), generator, x)
+    return ScalarFieldDraw(f=f, y=y, weights=w)
 
 
 def draw_scalar_potential_field(x, m: int, LL, theta, *,
@@ -44,14 +88,8 @@ def draw_scalar_potential_field(x, m: int, LL, theta, *,
                         device=x.device),
         lin_sigma2, length_scale, magn_sigma2, sp.basis.d,
     )
-    if z_w is None:
-        z_w = torch.randn((sp.n_lin,), generator=generator, dtype=x.dtype)
-    if z_n is None:
-        z_n = torch.randn((x.shape[0], 3), generator=generator, dtype=x.dtype)
-    z_w = torch.as_tensor(np.array(z_w) if isinstance(z_w, np.ndarray)
-                          else z_w, dtype=x.dtype, device=x.device)
-    z_n = torch.as_tensor(np.array(z_n) if isinstance(z_n, np.ndarray)
-                          else z_n, dtype=x.dtype, device=x.device)
+    z_w = _normal(z_w, (sp.n_lin,), generator, x)
+    z_n = _normal(z_n, (x.shape[0], 3), generator, x)
     w = torch.sqrt(k) * z_w
     f = sp.potential_row(x) @ w
     df = torch.einsum("nij,j->ni", sp.grad_blocks(x), w)

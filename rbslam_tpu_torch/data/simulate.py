@@ -1,17 +1,20 @@
-"""Dense-workload dataset simulation, 6-D branch (port of
+"""Dense-workload dataset simulation, 6-D and heading families (port of
 rbslam_tpu/data/simulate.py; examples/slam-dense-radio/generateData_dense.m).
 
 1. ground-truth trajectory (data/trajectories.py);
 2. domain LL = trajectory bounds padded by nLL * lengthScale (:226-231);
-3. curl-free field draw with m_sim basis functions at the trajectory
-   points, rotated per step to the body frame (:252-257);
+3. GP field draw with m_sim basis functions at the trajectory points: 6-D
+   trajectories get the curl-free field rotated per step to the body
+   frame (:252-257), heading ones a scalar SE field;
 4. odometry corruption (:294-323): run the model's own sampled dynamics
-   forward from the initial state; the odometry is the differenced noisy
-   path plus the noisy quaternion increments actually applied (:303-309).
+   forward from the initial state, then rebuild the increments per family:
+   6-D: the differenced noisy path plus the noisy quaternion increments
+   actually applied (:303-309); heading families (line_3D, square_3D):
+   clean position increments + differenced noisy heading (:317-319).
 
 Host-side float32 torch; the random draws come from one CPU
-``torch.Generator``. The visualization grid of the reference package is
-not ported.
+``torch.Generator`` or are given. The visualization grid of the reference
+package and the fully planar families are not ported.
 """
 
 from __future__ import annotations
@@ -22,70 +25,115 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..basis.laplace import domain_center, hypercube_basis
 from ..math.quaternions import quat_to_rmat
-from .fields import draw_scalar_potential_field
+from .fields import draw_scalar_field, draw_scalar_potential_field
 from .trajectories import generate_trajectory
 
 
 @dataclass
 class DenseDataset:
-    dx: torch.Tensor             # noisy odometry [T-1, 7]
-    init_state: torch.Tensor     # [7]
-    y: torch.Tensor              # body-frame measurements [T, 3]
-    pos: np.ndarray              # ground-truth positions [T, 3]
-    quat: np.ndarray             # ground-truth quaternions [T, 4]
-    LL: np.ndarray               # domain bounds [2, 3]
-    Q: torch.Tensor              # process noise used [T-1, 6, 6]
-    odometry_path: np.ndarray    # noisy integrated path [T, 7]
+    dx: torch.Tensor             # noisy odometry [T-1, n_u]
+    init_state: torch.Tensor     # [n_nonlin]
+    y: torch.Tensor              # measurements [T, ny]
+    pos: np.ndarray              # ground-truth positions [T, 2|3]
+    quat: Optional[np.ndarray]   # ground-truth quaternions [T, 4] (6-D only)
+    LL: np.ndarray               # domain bounds [2, d]
+    Q: torch.Tensor              # process noise used [T-1, nw, nw]
+    odometry_path: np.ndarray    # noisy integrated path [T, n_nonlin]
     field_weights: torch.Tensor  # true field basis weights (m_sim basis)
 
 
-def _domain_bounds(pos, length_scale, n_ll):
+def _domain_bounds(pos, length_scale, n_ll, three_d: bool):
     lo = pos.min(0) - n_ll * length_scale
     hi = pos.max(0) + n_ll * length_scale
-    return np.stack([[lo[0], lo[1], -n_ll * length_scale],
-                     [hi[0], hi[1], n_ll * length_scale]])
+    if three_d:
+        return np.stack([[lo[0], lo[1], -n_ll * length_scale],
+                         [hi[0], hi[1], n_ll * length_scale]])
+    return np.stack([lo[:2], hi[:2]])
+
+
+_HEADING_FAMILIES = ("line_3D", "square_3D")
 
 
 def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
                            dynamics: Callable, m_sim: int = 2000,
                            n_ll: float = 2.0,
-                           traj_kwargs: Optional[dict] = None, *,
-                           generator: torch.Generator) -> DenseDataset:
-    """Simulate one 6-D dense dataset.
+                           traj_kwargs: Optional[dict] = None,
+                           field_weights=None, *,
+                           generator: Optional[torch.Generator] = None,
+                           normals=None) -> DenseDataset:
+    """Simulate one dense dataset.
 
-    ``dynamics(w, xn, u, dt, Q) -> (xn', dq)`` with w a standard-normal
-    [6] draw (models.mag3d.dynamics_with_increment). Draw order from
-    ``generator``: field weights, measurement noise, then one [6] draw per
-    odometry step.
+    ``dynamics(w, xn, u, dt, Q)`` with w a standard-normal [nw] draw
+    returns ``(xn', dq)`` for 6-D families
+    (models.mag3d.dynamics_with_increment) and ``xn'`` for heading
+    families. ``field_weights`` reuses a previously drawn scalar field (new
+    measurement and odometry noise only: the nMC > 1 path,
+    run_dense2D_withHeading.m:156-161). The standard normals are
+    ``normals = (z_w, z_n, w_odo)``: field weights [m_sim] (3 + m_sim for
+    6-D; unused with ``field_weights``), measurement noise [T] ([T, 3]),
+    odometry [T-1, nw]; entries that are None, or all of them without
+    ``normals``, are drawn from ``generator`` in that order.
     """
     traj = generate_trajectory(traj_type, **(traj_kwargs or {}))
-    if traj.quat is None:
+    is_6d = traj.quat is not None
+    if not is_6d and traj_type not in _HEADING_FAMILIES:
         raise NotImplementedError(
-            "planar dataset families are not ported yet (ROADMAP queue 1 "
-            "item 11)"
-        )
+            f"the planar dataset family {traj_type!r} is not ported")
+    z_w, z_n, w_odo = normals if normals is not None else (None, None, None)
     f32 = torch.float32
     T = traj.n_steps
-    LL = _domain_bounds(traj.pos, float(theta[1]), n_ll)
     pts = torch.as_tensor(traj.pos, dtype=f32)
-    draw = draw_scalar_potential_field(pts, m_sim, LL, theta,
-                                       generator=generator)
-    Rn = quat_to_rmat(torch.as_tensor(traj.quat, dtype=f32))
-    y = torch.einsum("tij,tj->ti", Rn.transpose(-1, -2), draw.y[:T])
+    if is_6d:
+        LL = _domain_bounds(traj.pos, float(theta[1]), n_ll, three_d=True)
+        draw = draw_scalar_potential_field(pts, m_sim, LL, theta,
+                                           generator=generator, z_w=z_w,
+                                           z_n=z_n)
+        Rn = quat_to_rmat(torch.as_tensor(traj.quat, dtype=f32))
+        y = torch.einsum("tij,tj->ti", Rn.transpose(-1, -2), draw.y[:T])
+        weights = draw.weights
+    else:
+        LL = _domain_bounds(traj.pos, float(theta[0]), n_ll, three_d=False)
+        if field_weights is not None:
+            # keep the same field, redraw the measurement noise
+            basis = hypercube_basis(m_sim, LL)
+            weights = torch.as_tensor(field_weights, dtype=f32)
+            f = basis.phi(pts - torch.as_tensor(domain_center(LL),
+                                                dtype=f32)) @ weights
+            if z_n is None:
+                z_n = torch.randn((T,), generator=generator, dtype=f32)
+            y = f + float(np.sqrt(np.float32(theta[2]))) \
+                * torch.as_tensor(z_n, dtype=f32)
+        else:
+            draw_s = draw_scalar_field(pts, m_sim, LL, theta,
+                                       generator=generator, z_w=z_w, z_n=z_n)
+            y, weights = draw_s.y, draw_s.weights
+        y = y[:, None]
 
+    # --- odometry corruption via the model's own dynamics ---
     Q = torch.as_tensor(Q, dtype=f32)
     Qt = Q.expand((T - 1,) + Q.shape) if Q.dim() == 2 else Q
     dx_clean = torch.as_tensor(traj.dx, dtype=f32)
     x = torch.as_tensor(traj.init_state, dtype=f32)
-    w = torch.randn((T - 1, 6), generator=generator, dtype=f32)
+    if w_odo is None:
+        w_odo = torch.randn((T - 1, Qt.shape[-1]), generator=generator,
+                            dtype=f32)
+    w_odo = torch.as_tensor(w_odo, dtype=f32)
     path, dqs = [x], []
     for t in range(T - 1):
-        x, dq = dynamics(w[t], x, dx_clean[t], dt, Qt[t])
+        x = dynamics(w_odo[t], x, dx_clean[t], dt, Qt[t])
+        if is_6d:
+            x, dq = x
+            dqs.append(dq)
         path.append(x)
-        dqs.append(dq)
     path = torch.stack(path)
-    dx = torch.cat([torch.diff(path[:, :3], dim=0), torch.stack(dqs)], dim=-1)
+    if is_6d:
+        dx = torch.cat([torch.diff(path[:, :3], dim=0), torch.stack(dqs)],
+                       dim=-1)
+    else:
+        dx = torch.cat([dx_clean[:, :2],
+                        torch.diff(path[:, 2], dim=0)[:, None]], dim=-1)
     return DenseDataset(
         dx=dx,
         init_state=path[0],
@@ -95,5 +143,5 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
         LL=LL,
         Q=Qt,
         odometry_path=path.numpy(),
-        field_weights=draw.weights,
+        field_weights=weights,
     )

@@ -3,7 +3,8 @@ examples/slam-dense-radio/generateData_dense.m:67-214).
 
 Deterministic geometry computed with numpy on the host; the quaternion
 steps run in float32 torch, as the reference computes them in float32.
-Only the 6-D bean family of the flagship workload is ported.
+Ported: the 6-D bean family of the dense-mag workload and the heading
+families (line, square) of the dense-radio workload.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from ..math.quaternions import qinv, qmul, rmat_to_quat
 
 @dataclass(frozen=True)
 class Trajectory:
-    """Ground truth: positions [T, 3], quaternions [T, 4], initial full
-    state, and noiseless odometry increments [T-1, 7]."""
+    """Ground truth: positions [T, 2|3], optional quaternions [T, 4],
+    initial full state, and noiseless odometry increments [T-1, ...]."""
 
     pos: np.ndarray
     quat: Optional[np.ndarray]
@@ -61,6 +62,48 @@ def _bean_curve(n_laps, n_per_lap, a):
     return r * np.cos(psi) - 0.3, r * np.sin(psi) - 0.3
 
 
+def square_3d(n=48, side=2.0) -> Trajectory:
+    q = n // 4
+    pos = np.stack(
+        [
+            np.concatenate(
+                [np.zeros(q), np.linspace(0, side, q), side * np.ones(q),
+                 np.linspace(side, 0, q)]
+            ),
+            np.concatenate(
+                [np.linspace(0, side, q), side * np.ones(q),
+                 np.linspace(side, 0, q), np.zeros(q)]
+            ),
+        ],
+        axis=-1,
+    )
+    pos = pos - pos.mean(0)
+    init = np.append(pos[0], 0.0)
+    dx = np.concatenate([np.diff(pos, axis=0), np.zeros((n - 1, 1))], axis=-1)
+    return Trajectory(pos, None, init, dx)
+
+
+def line_path(n=32, length=3.0, with_heading=True) -> Trajectory:
+    pos = np.stack(
+        [
+            np.zeros(n),
+            np.concatenate(
+                [np.linspace(0, length, n // 2),
+                 np.linspace(length, 0, n - n // 2)]
+            ),
+        ],
+        axis=-1,
+    )
+    pos = pos - pos.mean(0)
+    dx = np.diff(pos, axis=0)
+    if with_heading:
+        init = np.append(pos[0], 0.0)
+        dx = np.concatenate([dx, np.zeros((n - 1, 1))], axis=-1)
+    else:
+        init = pos[0].copy()
+    return Trajectory(pos, None, init, dx)
+
+
 def bean_6d(n_laps=3, n_per_lap=64, a=15.0) -> Trajectory:
     u, v = _bean_curve(n_laps, n_per_lap, a)
     th = _heading_from_diffs(u, v)
@@ -76,7 +119,11 @@ def bean_6d(n_laps=3, n_per_lap=64, a=15.0) -> Trajectory:
     return Trajectory(pos, quat, init, dx)
 
 
-TRAJECTORY_TYPES = {"bean_6D": bean_6d}
+TRAJECTORY_TYPES = {
+    "square_3D": square_3d,
+    "line_3D": lambda **kw: line_path(with_heading=True, **kw),
+    "bean_6D": bean_6d,
+}
 
 
 def generate_trajectory(traj_type: str, **kwargs) -> Trajectory:

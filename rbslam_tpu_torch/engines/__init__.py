@@ -1,3 +1,8 @@
 from .rbpf import RBPFConfig, RBPFResult, reconstruct_trajectories, run_rbpf
+from .rbps import RBPSConfig, RBPSResult, run_rbps
+from .rbps_info import run_rbps_information_form
 
-__all__ = ["RBPFConfig", "RBPFResult", "reconstruct_trajectories", "run_rbpf"]
+__all__ = [
+    "RBPFConfig", "RBPFResult", "reconstruct_trajectories", "run_rbpf",
+    "RBPSConfig", "RBPSResult", "run_rbps", "run_rbps_information_form",
+]

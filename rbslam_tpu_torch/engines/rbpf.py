@@ -31,8 +31,10 @@ skips the state and covariance gathers and accumulates the log-weights.
 
 Randomness enters through one seam: per step the resampling uniforms
 (one ``u0`` for systematic, N for multinomial and stratified) and one
-[N, 6] standard normal for the dynamics, drawn from ``generator`` or
-taken from ``noise``.
+[N, model.n_noise] standard normal for the dynamics, drawn from
+``generator`` or taken from ``noise``. Every size comes from the model
+(``n_nonlin``, ``n_noise``, ``ny``), so the same loop serves the mag3d and
+radio2d families.
 """
 
 from __future__ import annotations
@@ -146,6 +148,55 @@ def _pad_last(x, n):
     return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
 
 
+def _broadcast_time(Q, dt, T, device):
+    """Q [nw, nw] or [T-1, nw, nw] and dt scalar or [T-1] as float32
+    tensors on ``device`` with a leading time axis (views, no copies)."""
+    Q = _as(Q, device)
+    if Q.dim() == 2:
+        Q = Q.expand((T - 1,) + Q.shape)
+    dt = _as(dt, device)
+    if dt.dim() == 0:
+        dt = dt.expand(T - 1)
+    return Q, dt
+
+
+def _init_linear(x0_lin, P0_lin, n_particles, device):
+    """The ensemble's initial map: x0_lin [n_lin] broadcast, or per-particle
+    [N_P, n_lin] as given; P0_lin [n_lin, n_lin] (not yet expanded)."""
+    x0_lin = _as(x0_lin, device)
+    xl = x0_lin.expand(n_particles, -1) if x0_lin.dim() == 1 else x0_lin
+    return xl, _as(P0_lin, device)
+
+
+def _jacobian_batch(model, xn):
+    """Whole-ensemble measurement Jacobian [N, ny, n_lin]: the model's
+    fused-kernel hook when it has one, else the per-particle Jacobian
+    stacked."""
+    if model.meas_jacobian_batch is not None:
+        return model.meas_jacobian_batch(xn)
+    return torch.stack([model.meas_jacobian(x) for x in xn])
+
+
+def _dynamics_batch(model, w, xn, u, dt, Q):
+    """Whole-ensemble transition from w [N, n_noise] standard normals."""
+    if model.dynamics_batch is not None:
+        return model.dynamics_batch(w, xn, u, dt, Q)
+    return torch.stack([model.dynamics(w[i], xn[i], u, dt, Q)
+                        for i in range(xn.shape[0])])
+
+
+def _check_noise(noise, T, n_p, n_noise, resampling, extra=()):
+    """Shapes of injected draws: u [T-1] (systematic) or [T-1, N], w
+    [T-1, N, n_noise], then ``extra`` shapes for any further entries."""
+    u_shape = () if resampling == "systematic" else (n_p,)
+    want = [(T - 1,) + u_shape, (T - 1, n_p, n_noise), *extra]
+    got = [tuple(a.shape) for a in noise]
+    if got != want:
+        raise ValueError(
+            f"injected noise has shapes {got}, expected {want} for "
+            f"{resampling} resampling")
+
+
 def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
              config: RBPFConfig, *, generator: Optional[torch.Generator],
              device, noise=None, mask=None, mesh=None) -> RBPFResult:
@@ -155,7 +206,8 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     [T-1, nw, nw]; dt scalar or [T-1]. ``generator`` (a torch.Generator
     on ``device``) supplies every random draw unless ``noise = (u, w)`` is
     given: u [T-1] (systematic) or [T-1, N] (multinomial, stratified) the
-    resampling uniforms, w [T-1, N, 6] the dynamics' standard normals. On
+    resampling uniforms, w [T-1, N, model.n_noise] the dynamics' standard
+    normals. On
     a CUDA device every kernel wrapper launches its kernel; on the CPU the
     wrappers run their plain versions.
 
@@ -189,30 +241,21 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             )
     y = torch.nan_to_num(y)
     dx = _as(dx, device)
-    Q = _as(Q, device)
-    if Q.dim() == 2:
-        Q = Q.expand((T - 1,) + Q.shape)
-    dt = _as(dt, device)
-    if dt.dim() == 0:
-        dt = dt.expand(T - 1)
+    Q, dt = _broadcast_time(Q, dt, T, device)
     R = _as(R, device)
+    dn, n_noise = model.n_nonlin, model.n_noise
     u_shape = () if config.resampling == "systematic" else (n_p,)
     if noise is None and generator is None:
         raise ValueError("give a torch.Generator or injected noise")
     if noise is not None:
         u_all, w_all = (_as(a, device) for a in noise)
-        if (u_all.shape != (T - 1,) + u_shape
-                or w_all.shape != (T - 1, n_p, 6)):
-            raise ValueError(
-                f"noise must be (u {[T - 1, *u_shape]}, w [{T - 1}, {n_p}, "
-                f"6]) for {config.resampling} resampling"
-            )
+        _check_noise((u_all, w_all), T, n_p, n_noise, config.resampling)
 
     def draw(t):
         if noise is not None:
             return u_all[t], w_all[t]
         u = torch.rand(u_shape, generator=generator, device=device)
-        w = torch.randn((n_p, 6), generator=generator, device=device)
+        w = torch.randn((n_p, n_noise), generator=generator, device=device)
         return u, w
 
     gated = config.ess_threshold < 1.0
@@ -227,8 +270,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         return ai.to(torch.int32)
 
     xn0 = _as(x0_nonlin, device).expand(n_p, -1).contiguous()
-    x0_lin = _as(x0_lin, device)
-    xl0 = x0_lin.expand(n_p, -1) if x0_lin.dim() == 1 else x0_lin
+    xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
     n_lin = xl0.shape[-1]
     cov_dtype = _DTYPES[config.cov_dtype]
     if (not lowrank and cov_dtype == torch.bfloat16 and n_lin > 256
@@ -238,7 +280,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             "per-step filter paths; use float32, kf_kernel='lowrank' (T > "
             "1), or allow_bf16_large_nl=True"
         )
-    P0 = _as(P0_lin, device).to(cov_dtype)
+    P0 = P0_lin.to(cov_dtype)
     nl_pad = n_lin
     if block_gather or lowrank:
         # zero-pad the map to a multiple of 128 (zero rows and columns
@@ -250,7 +292,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     P0 = P0.expand((n_p,) + P0.shape)
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
-    C0 = _pad_last(model.meas_jacobian_batch(xn0), nl_pad)
+    C0 = _pad_last(_jacobian_batch(model, xn0), nl_pad)
     xl, P, logw1, retried0 = kalman_update_dense_batched(
         C0, P0, xl0, y[0], R, config.jitter, config.joseph,
         symmetrize_out=block_gather or lowrank or config.symmetrize_cov,
@@ -264,11 +306,11 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     n_steps = T - 1
     ar = torch.arange(n_p, dtype=torch.int32, device=device)
     ancestors = torch.empty((n_steps, n_p), dtype=torch.int32, device=device)
-    traj_max_t = torch.empty((n_steps, 7), device=device)
-    traj_mean_t = torch.empty((n_steps, 7), device=device)
+    traj_max_t = torch.empty((n_steps, dn), device=device)
+    traj_mean_t = torch.empty((n_steps, dn), device=device)
     ess_t = torch.empty((n_steps,), device=device)
     logz_t = torch.empty((n_steps,), device=device)
-    xn_hist = (torch.empty((T, n_p, 7), device=device)
+    xn_hist = (torch.empty((T, n_p, dn), device=device)
                if config.store_trajectories else None)
     if xn_hist is not None:
         xn_hist[0] = xn0
@@ -311,8 +353,12 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                     xn_a, xl_a = xn[ai], xl[ai]
                     bidx = bidx[ai]
                     Wt = Wt[ai]
-                xn = model.dynamics_batch(w_dyn, xn_a, dx[t], dt[t], Q[t])
-                C = model.meas_jacobian_batch_rows(xn, nl_pad, cov_dtype)
+                xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
+                if model.meas_jacobian_batch_rows is not None:
+                    C = model.meas_jacobian_batch_rows(xn, nl_pad, cov_dtype)
+                else:
+                    C = _pad_last(_jacobian_batch(model, xn),
+                                  nl_pad).to(cov_dtype)
                 xl, wnew, logw, bad = kf_update_lowrank(
                     bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter
                 )
@@ -330,8 +376,8 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             u, w_dyn = draw(t)
             ai = resample(u, logw_n)
             xn_a, xl_a = (xn, xl) if ai is None else (xn[ai], xl[ai])
-            xn = model.dynamics_batch(w_dyn, xn_a, dx[t], dt[t], Q[t])
-            C = _pad_last(model.meas_jacobian_batch(xn), nl_pad)
+            xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
+            C = _pad_last(_jacobian_batch(model, xn), nl_pad)
             if block_gather:
                 # K5 gathers the pre-resampling P itself
                 xl, P, logw, bad = kf_update_block_gather(

@@ -1,0 +1,358 @@
+"""Rao-Blackwellized particle smoother: conditional particle filter with
+ancestor sampling (CPF-AS; port of rbslam_tpu/engines/rbps.py, dense
+models; the paper's Alg. 2, src/particleSmoother.m).
+
+N_K sweeps of a conditional RBPF. Sweep 1 is a plain RBPF; in sweeps
+k > 1 particle N_P-1 is pinned to the reference trajectory sampled from
+the previous sweep (:92-96,110-113) and its ancestor index is sampled from
+
+    p(a) ∝ w_a · p(x'_t | x_a) · p(y_{t:T} | map_a)        (:171-233)
+
+where the future-measurement likelihood evaluates the reference
+trajectory's future observations against each particle's map posterior.
+The stacked future system (:188-193) is built at fixed width
+[T*ny, T*ny] with a time mask (rows ti < t neutralized exactly), batched
+over the ensemble as one [N, T*ny, T*ny] factorization per step.
+
+Randomness enters through one seam. Per step: the resampling uniforms,
+one [N, model.n_noise] standard normal for the dynamics, and one uniform
+for the pinned particle's ancestor; per sweep: one uniform for the
+trajectory that is kept. They come from ``generator`` or from ``noise =
+(u, w, u_anc, u_pick)`` with a leading sweep axis: u [N_K, T-1] (systematic)
+or [N_K, T-1, N], w [N_K, T-1, N, n_noise], u_anc [N_K, T-1], u_pick [N_K].
+
+Sparse models (the information-form future weights of the EKF-linearized
+path), per-sweep checkpoints and a device mesh are not ported: they raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..math.linalg import (
+    gaussian_logpdf_chol,
+    logsumexp_normalize,
+    psd_cholesky,
+    tril_solve,
+)
+from ..models.base import DenseModel
+from ..ops.kalman import kalman_update_dense_batched
+from ..ops.resampling import _SCHEMES, resample_indices, sample_categorical
+from .rbpf import (
+    _DTYPES,
+    _as,
+    _broadcast_time,
+    _check_noise,
+    _dynamics_batch,
+    _init_linear,
+    _jacobian_batch,
+    reconstruct_trajectories,
+)
+
+
+class RBPSConfig(NamedTuple):
+    n_particles: int
+    n_sweeps: int
+    resampling: str = "multinomial"
+    jitter: float = 1e-2              # src/particleSmoother.m:70
+    joseph: bool = False
+    cov_dtype: str = "float32"        # bf16 covariance carry
+    symmetrize_cov: bool = True       # see RBPFConfig.symmetrize_cov
+    # info-form ancestor weights: "woodbury" maintains
+    # W = (Imat+ImatAdd)^-1 and its log-det via exact rank-ny
+    # updates/downdates (O(nl^2 ny) per particle-step, no factorization
+    # in the loop); "cholesky" factorizes Imat+ImatAdd per particle per
+    # step (the reference's structure, O(nl^3))
+    ancestor_form: str = "woodbury"
+    # precompute the suffix information pairs for all t as one reverse
+    # cumulative sum per sweep ([T, nl, nl] memory on the cholesky form);
+    # False carries and downdates them instead (:194-201)
+    suffix_precompute: bool = True
+
+
+class RBPSResult(NamedTuple):
+    XNK: torch.Tensor   # [N_K, T, n_nonlin] sampled trajectories
+    XLK: torch.Tensor   # [N_K, n_lin] sampled map means
+    PK: torch.Tensor    # [N_K, n_lin, n_lin] sampled map covariances
+    ess: torch.Tensor   # [N_K, T]
+    chol_retries: torch.Tensor  # [N_K]
+    ancestors: torch.Tensor     # [N_K, T-1, N_P] int32, as sampled per sweep
+    kept: torch.Tensor          # [N_K] index of the trajectory kept per sweep
+
+
+class SweepDraws(NamedTuple):
+    """The random draws of one sweep: ``step(i)`` -> (u_res, w_dyn, u_anc)
+    for transition i -> i+1, ``pick()`` -> the uniform that selects the
+    kept trajectory (called once, after the last step)."""
+
+    step: Callable
+    pick: Callable
+
+
+class SweepOut(NamedTuple):
+    xnk: torch.Tensor       # [T, n_nonlin] kept trajectory
+    xlk: torch.Tensor       # [n_lin]
+    Pk: torch.Tensor        # [n_lin, n_lin] float32
+    ess: torch.Tensor       # [T]
+    retries: torch.Tensor   # scalar
+    ancestors: torch.Tensor  # [T-1, N_P] int32
+    kept: torch.Tensor      # scalar int64
+
+
+def _euclidean_residual(xn_ref, xn, u, dt, Q):
+    """Default whitened dynamics residual (src/particleSmoother.m:175-180);
+    xn [..., dn]."""
+    L = torch.linalg.cholesky_ex(dt * Q)[0]     # no host-side error check
+    e = xn_ref - xn - u[: xn.shape[-1]]
+    return tril_solve(L, e[..., None])[..., 0]
+
+
+def _dyn_log_weights(model, xnk_t, xn, u, dt_t, Q_t):
+    """-0.5 ||e_dyn||^2 per particle (:175-182), the residual evaluated on
+    the whole ensemble xn [N, dn] at once."""
+    res = model.dyn_residual or _euclidean_residual
+    e = res(xnk_t, xn, u, dt_t, Q_t)
+    return -0.5 * torch.sum(e * e, dim=-1)
+
+
+def _dense_future_log_weights(C_stack, y_stack, t_idx, xl, P, R, T, ny,
+                              jitter):
+    """log N(y_{t:T}; C xl, C P C' + I⊗R) at fixed width with a time mask,
+    for the whole ensemble.
+
+    C_stack [T*ny, n_lin] Jacobians along the reference; y_stack [T*ny];
+    xl [N, n_lin]; P [N, n_lin, n_lin]. Rows with ti < t are neutralized
+    (zero row, unit diagonal, zero innovation), exactly equivalent to the
+    reference's dynamic slice (src/particleSmoother.m:163-193). Returns
+    (logw [N], retried [N]).
+    """
+    f32 = torch.float32
+    step_ids = torch.arange(T, device=C_stack.device).repeat_interleave(ny)
+    rmask = (step_ids >= t_idx).to(C_stack.dtype)            # [T*ny]
+    Cm = C_stack * rmask[:, None]
+    R_blk = torch.kron(torch.eye(T, dtype=C_stack.dtype,
+                                 device=C_stack.device), R)
+    outer = rmask[:, None] * rmask[None, :]
+    CP = torch.einsum("ai,pij->paj", Cm, P.to(f32))
+    S = torch.einsum("paj,bj->pab", CP, Cm) + R_blk * outer \
+        + torch.diag(1.0 - rmask)
+    e = (y_stack[None, :] - xl.to(f32) @ Cm.T) * rmask[None, :]
+    L, retried = psd_cholesky(S, jitter)
+    return gaussian_logpdf_chol(e, L, n_obs=torch.sum(rmask)), retried
+
+
+def _ess(logw_n):
+    return torch.exp(-torch.logsumexp(2.0 * logw_n, dim=-1))
+
+
+def _cpf_as_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R,
+                  dt, config: RBPSConfig, xnk, is_first: bool,
+                  draws: SweepDraws) -> SweepOut:
+    """One conditional-particle-filter sweep over tensors already on the
+    run's device; Q [T-1, nw, nw], dt [T-1]; xnk [T, n_nonlin] the
+    reference trajectory (ignored if ``is_first``)."""
+    n_p = config.n_particles
+    T, ny = y.shape
+    device = y.device
+    xn = x0_nonlin.expand(n_p, -1).clone()
+    if not is_first:
+        xn[n_p - 1] = xnk[0]                               # pin (:92-96)
+    xl0, P0 = _init_linear(x0_lin, P0_lin, n_p, device)
+    P0 = P0.to(_DTYPES[config.cov_dtype]).expand((n_p,) + P0.shape)
+
+    if not is_first:
+        C_ref = _jacobian_batch(model, xnk)     # [T, ny, n_lin] (:119-121)
+        C_stack = C_ref.reshape(T * ny, C_ref.shape[-1])
+        y_stack = y.reshape(T * ny)
+
+    # --- t = 0: importance weights + KF update only ---
+    xl, P, logw1, retried0 = kalman_update_dense_batched(
+        _jacobian_batch(model, xn), P0, xl0, y[0], R, config.jitter,
+        config.joseph, config.symmetrize_cov,
+    )
+    retries = retried0.sum()
+    _, logw_n, _ = logsumexp_normalize(logw1)
+
+    xn_hist = torch.empty((T, n_p, xn.shape[-1]), device=device)
+    xn_hist[0] = xn
+    ancestors = torch.empty((T - 1, n_p), dtype=torch.int32, device=device)
+    ess = torch.empty((T,), device=device)
+    ess[0] = _ess(logw_n)
+
+    for t in range(1, T):
+        i = t - 1
+        u_res, w_dyn, u_anc = draws.step(i)
+        ai = resample_indices(u_res, torch.exp(logw_n), n_p,
+                              config.resampling)
+        if not is_first:
+            # ancestor sampling for the pinned particle (:159-244)
+            logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i], dt[i], Q[i])
+            logw_meas, retried = _dense_future_log_weights(
+                C_stack, y_stack, t, xl, P, R, T, ny, config.jitter
+            )
+            pa, _, _ = logsumexp_normalize(logw_n + logw_dyn + logw_meas)
+            ai[n_p - 1] = sample_categorical(u_anc, pa)
+            retries = retries + retried.sum()
+
+        xn = _dynamics_batch(model, w_dyn, xn[ai], dx[i], dt[i], Q[i])
+        if not is_first:
+            xn[n_p - 1] = xnk[t]                  # keep the reference state
+        xl, P, logw, retried_kf = kalman_update_dense_batched(
+            _jacobian_batch(model, xn), P[ai], xl[ai], y[t], R,
+            config.jitter, config.joseph, config.symmetrize_cov,
+        )
+        _, logw_n, _ = logsumexp_normalize(logw)
+        retries = retries + retried_kf.sum()
+        xn_hist[t] = xn
+        ancestors[i] = ai
+        ess[t] = _ess(logw_n)
+
+    return _finish_sweep(xn_hist, ancestors, logw_n, xl, P, ess, retries,
+                         draws)
+
+
+def _finish_sweep(xn_hist, ancestors, logw_f, xl_f, P_f, ess, retries,
+                  draws: SweepDraws) -> SweepOut:
+    """Rebuild the trajectories and sample the one that is kept, with its
+    map (:346-354)."""
+    xn_traj = reconstruct_trajectories(xn_hist, ancestors)
+    ak = sample_categorical(draws.pick(), torch.exp(logw_f)).reshape(1)
+    return SweepOut(
+        xnk=xn_traj.index_select(1, ak)[:, 0],
+        xlk=xl_f.index_select(0, ak)[0],
+        Pk=P_f.index_select(0, ak)[0].to(torch.float32),
+        ess=ess, retries=retries, ancestors=ancestors, kept=ak[0],
+    )
+
+
+def _check_supported(model, config: RBPSConfig, checkpoint_dir, mesh) -> None:
+    if not isinstance(model, DenseModel):
+        raise NotImplementedError(
+            "sparse models (the information-form future weights of the "
+            "EKF-linearized path, rbslam_tpu/engines/rbps.py:136-187) are "
+            "not ported yet (ROADMAP queue 1 item 13)"
+        )
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "per-sweep checkpoints are not ported yet (ROADMAP queue 1 "
+            "item 14)"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded smoothing is not ported yet (ROADMAP queue 1 "
+            "item 15)"
+        )
+    if model.ny > 3:
+        raise NotImplementedError(
+            "dense models with ny > 3 need the lax-form update "
+            "(rbslam_tpu/ops/kalman.py:292-324), not ported yet (ROADMAP "
+            "queue 1 item 4)"
+        )
+    if config.resampling not in _SCHEMES:
+        raise ValueError(f"unknown resampling scheme {config.resampling!r}; "
+                         f"options: {sorted(_SCHEMES)}")
+    if config.cov_dtype not in _DTYPES:
+        raise ValueError(f"cov_dtype must be one of {sorted(_DTYPES)}")
+    if config.ancestor_form not in ("woodbury", "cholesky"):
+        raise ValueError(
+            f"unknown ancestor_form {config.ancestor_form!r}: expected "
+            "'woodbury' or 'cholesky'"
+        )
+
+
+def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                config: RBPSConfig, generator, device, noise) -> RBPSResult:
+    """Shared sweep loop: moves the inputs to ``device`` once, then runs
+    ``config.n_sweeps`` sweeps, each conditioned on the trajectory the
+    previous one kept."""
+    device = torch.device(device)
+    y = torch.nan_to_num(_as(y, device))
+    T = y.shape[0]
+    dx = _as(dx, device)
+    Q, dt = _broadcast_time(Q, dt, T, device)
+    R = _as(R, device)
+    x0_nonlin = _as(x0_nonlin, device)
+    n_p, n_noise = config.n_particles, model.n_noise
+    u_shape = () if config.resampling == "systematic" else (n_p,)
+    if noise is None and generator is None:
+        raise ValueError("give a torch.Generator or injected noise")
+    if noise is not None:
+        noise = tuple(_as(a, device) for a in noise)
+        if len(noise) != 4 or any(a.shape[0] != config.n_sweeps
+                                  for a in noise):
+            raise ValueError(
+                "smoother noise is (u, w, u_anc, u_pick), each with a "
+                f"leading axis of n_sweeps={config.n_sweeps}"
+            )
+        _check_noise([a[0] for a in noise], T, n_p, n_noise,
+                     config.resampling, extra=((T - 1,), ()))
+
+    def draws_of(k: int) -> SweepDraws:
+        if noise is not None:
+            u, w, u_anc, u_pick = (a[k] for a in noise)
+            return SweepDraws(step=lambda i: (u[i], w[i], u_anc[i]),
+                              pick=lambda: u_pick)
+
+        def step(i):
+            return (
+                torch.rand(u_shape, generator=generator, device=device),
+                torch.randn((n_p, n_noise), generator=generator,
+                            device=device),
+                torch.rand((), generator=generator, device=device),
+            )
+
+        return SweepDraws(
+            step=step,
+            pick=lambda: torch.rand((), generator=generator, device=device),
+        )
+
+    xnk = torch.zeros((T, model.n_nonlin), device=device)
+    outs = []
+    for k in range(config.n_sweeps):
+        out = sweep_fn(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                       config, xnk, k == 0, draws_of(k))
+        xnk = out.xnk
+        outs.append(out)
+    stack = {f: torch.stack([getattr(o, f) for o in outs])
+             for f in SweepOut._fields}
+    return RBPSResult(
+        XNK=stack["xnk"], XLK=stack["xlk"], PK=stack["Pk"], ess=stack["ess"],
+        chol_retries=stack["retries"], ancestors=stack["ancestors"],
+        kept=stack["kept"],
+    )
+
+
+def run_rbps(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+             config: RBPSConfig, *, generator: Optional[torch.Generator],
+             device, noise=None, mask=None,
+             checkpoint_dir: Optional[str] = None, mesh=None) -> RBPSResult:
+    """Run N_K CPF-AS sweeps on ``device`` (src/particleSmoother.m:88).
+
+    dx [T-1, n_u]; y [T, ny] (NaN becomes 0; ``mask`` is ignored for dense
+    models, as in the reference package); Q [nw, nw] or [T-1, nw, nw]; dt
+    scalar or [T-1]. See the module docstring for ``generator`` and
+    ``noise``.
+
+    COST WARNING: the naive ancestor weights factorize the full
+    fixed-width [T*ny, T*ny] masked stacked system per particle per step,
+    O(N_K N_T N_P (T ny)^3) in total, the cost the information form exists
+    to remove (src/particleSmoother.m:221-229). Beyond small T (e.g. the
+    dense-mag T=192, ny=3 config) use
+    :func:`rbslam_tpu_torch.engines.rbps_info.run_rbps_information_form`.
+    """
+    del mask
+    _check_supported(model, config, checkpoint_dir, mesh)
+    n_stack = int(torch.as_tensor(y).shape[0]) * model.ny
+    if n_stack > 256:
+        warnings.warn(
+            f"run_rbps dense ancestor weights factorize a [{n_stack}]^2 "
+            "stacked system per particle per step (O((T ny)^3)); use "
+            "run_rbps_information_form at this scale",
+            stacklevel=2,
+        )
+    return _run_sweeps(_cpf_as_sweep, model, dx, y, x0_nonlin, x0_lin,
+                       P0_lin, Q, R, dt, config, generator, device, noise)

@@ -1,11 +1,13 @@
-"""Hand-written CUDA kernels of the filter's hot path, with their plain
-PyTorch versions (port of rbslam_tpu/kernels/).
+"""Hand-written CUDA kernels of the filters' and smoothers' hot paths,
+with their plain PyTorch versions (port of rbslam_tpu/kernels/).
 
 K1 mag3d_jacobian_rows  (replaces basis_eval.py:_jac3d_rows_kernel)
 K2 gather_cp            (replaces kf_update.py:_kernel_gather_cp)
 K3 kf_rebase            (replaces kf_update.py:_kernel_rebase)
 K4 grad_basis           (replaces basis_eval.py:_grad_kernel)
 K5 kf_update_block_gather (replaces kf_update.py:_kernel_block_gather)
+K6 phi_basis            (replaces basis_eval.py:_phi_kernel)
+K7 mag3d_jacobian       (replaces basis_eval.py:_jac3d_kernel)
 """
 
 from ._lib import launch_counts, reset_launch_counts
@@ -13,9 +15,13 @@ from .basis_eval import (
     BasisConstants,
     grad_basis,
     grad_basis_plain,
+    mag3d_jacobian,
+    mag3d_jacobian_plain,
     mag3d_jacobian_rows,
     mag3d_jacobian_rows_plain,
     pack_basis_constants,
+    phi_basis,
+    phi_basis_plain,
 )
 from .kf_update import (
     block_gather_plain,
@@ -33,6 +39,8 @@ __all__ = [
     "BasisConstants", "pack_basis_constants",
     "grad_basis", "grad_basis_plain",
     "mag3d_jacobian_rows", "mag3d_jacobian_rows_plain",
+    "phi_basis", "phi_basis_plain",
+    "mag3d_jacobian", "mag3d_jacobian_plain",
     "gather_cp", "gather_cp_plain", "kf_rebase", "rebase_plain",
     "kf_update_lowrank",
     "kf_update_block_gather", "block_gather_plain", "spd_inv_logdet_plain",

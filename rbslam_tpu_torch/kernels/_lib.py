@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase",
-                "block_gather")
+                "block_gather", "phi_basis", "jac3d")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 _lib = None
 build_seconds = None
@@ -53,6 +53,10 @@ _SIGNATURES = {
     "rbs_grad_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
     # (pos, quat, consts, scale, out, n, m, nl_pad, out_bf16, stream)
     "rbs_jac3d_rows": (_P, _P, _P, _F, _P, _LL, _I, _I, _I, _P),
+    # (x, consts, scale, out, n, m, d, stream)
+    "rbs_phi_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
+    # (pos, quat, consts, scale, out, n, m, nl_pad, stream)
+    "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P),
     # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, bf16, stream)
     "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, bf16, stream)

@@ -1,7 +1,8 @@
-"""Fused Laplacian-eigenbasis evaluation: CUDA kernels K1 and K4 with their
-plain PyTorch versions (port of rbslam_tpu/kernels/basis_eval.py).
+"""Fused Laplacian-eigenbasis evaluation: CUDA kernels K1, K4, K6 and K7
+with their plain PyTorch versions (port of rbslam_tpu/kernels/basis_eval.py).
 
 Math (tools/domain_cartesian_dx.m:88-93,146-170):
+    phi_n(x) = scale * prod_j sin(a_nj),
     d phi_n / d x_i = scale * f_ni cos(a_ni) prod_{j != i} sin(a_nj),
     a_nj = freq_nj * x_j + phase_nj,
     freq_nj = f_nj = pi n_j / (2 L_j), phase_nj = pi n_j / 2,
@@ -50,16 +51,18 @@ def pack_basis_constants(basis, device) -> BasisConstants:
     )
 
 
-def _trig(consts: BasisConstants, x: torch.Tensor):
-    """sin/cos of the phase arguments, each [N, m], per dimension."""
+def _phases(consts: BasisConstants, x: torch.Tensor):
+    """The phase arguments a_j = freq_j x_j + phase_j, each [N, m]."""
     d = consts.d
     pk = consts.packed
-    sins, coss = [], []
-    for j in range(d):
-        a = x[:, j, None] * pk[j][None, :] + pk[d + j][None, :]
-        sins.append(torch.sin(a))
-        coss.append(torch.cos(a))
-    return sins, coss
+    return [x[:, j, None] * pk[j][None, :] + pk[d + j][None, :]
+            for j in range(d)]
+
+
+def _trig(consts: BasisConstants, x: torch.Tensor):
+    """sin/cos of the phase arguments, each [N, m], per dimension."""
+    a = _phases(consts, x)
+    return [torch.sin(aj) for aj in a], [torch.cos(aj) for aj in a]
 
 
 def _grad_rows(consts: BasisConstants, sins, coss):
@@ -101,13 +104,18 @@ def _on_cpu(t: torch.Tensor, consts: BasisConstants) -> bool:
     return False
 
 
+def _check_dim(consts: BasisConstants) -> None:
+    if consts.d not in (1, 2, 3):
+        raise ValueError(f"the basis kernels serve d in (1, 2, 3), got "
+                         f"d={consts.d}")
+
+
 def grad_basis(consts: BasisConstants, x: torch.Tensor) -> torch.Tensor:
-    """grad phi(x): [N, 3] float32 -> [N, 3, m] float32 for a 3-D basis
+    """grad phi(x): [N, d] float32 -> [N, d, m] float32, d in {1, 2, 3}
     (K4; replaces rbslam_tpu/kernels/basis_eval.py:_grad_kernel)."""
-    if consts.d != 3:
-        raise ValueError(f"grad_basis requires a 3-D basis, got d={consts.d}")
+    _check_dim(consts)
     n = x.shape[0]
-    _check_float32("x", x, (n, 3))
+    _check_float32("x", x, (n, consts.d))
     if _on_cpu(x, consts):
         return grad_basis_plain(consts, x)
     out = torch.empty((n, consts.d, consts.m), dtype=torch.float32,
@@ -119,6 +127,35 @@ def grad_basis(consts: BasisConstants, x: torch.Tensor) -> torch.Tensor:
         n, consts.m, consts.d, _lib.stream_ptr(),
     )
     _lib.check(code, "grad_basis")
+    return out
+
+
+def phi_basis_plain(consts: BasisConstants, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: phi(x), [N, d] -> [N, m] float32; the product
+    starts from the scale and takes the sines left to right."""
+    acc = None
+    for aj in _phases(consts, x):
+        s = torch.sin(aj)
+        acc = consts.scale * s if acc is None else acc * s
+    return acc
+
+
+def phi_basis(consts: BasisConstants, x: torch.Tensor) -> torch.Tensor:
+    """phi(x): [N, d] float32 -> [N, m] float32, d in {1, 2, 3}
+    (K6; replaces rbslam_tpu/kernels/basis_eval.py:_phi_kernel)."""
+    _check_dim(consts)
+    n = x.shape[0]
+    _check_float32("x", x, (n, consts.d))
+    if _on_cpu(x, consts):
+        return phi_basis_plain(consts, x)
+    out = torch.empty((n, consts.m), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out                      # nothing to launch, nothing counted
+    code = _lib.lib().rbs_phi_basis(
+        x.data_ptr(), consts.packed.data_ptr(), consts.scale, out.data_ptr(),
+        n, consts.m, consts.d, _lib.stream_ptr(),
+    )
+    _lib.check(code, "phi_basis")
     return out
 
 
@@ -141,6 +178,20 @@ def mag3d_jacobian_rows_plain(consts: BasisConstants, pos: torch.Tensor,
     return C.to(dtype)
 
 
+def _check_jac3d(consts: BasisConstants, pos, quat, nl_pad: int) -> int:
+    """Argument checks shared by K1 and K7; returns N."""
+    if consts.d != 3:
+        raise ValueError("the mag3d Jacobian kernels require a 3-D basis")
+    if nl_pad < 3 + consts.m:
+        raise ValueError(f"nl_pad={nl_pad} < 3 + m = {3 + consts.m}")
+    n = pos.shape[0]
+    _check_float32("pos", pos, (n, 3))
+    _check_float32("quat", quat, (n, 4))
+    if pos.device != quat.device:
+        raise ValueError("pos and quat must be on one device")
+    return n
+
+
 def mag3d_jacobian_rows(consts: BasisConstants, pos: torch.Tensor,
                         quat: torch.Tensor, nl_pad: int,
                         dtype=torch.float32) -> torch.Tensor:
@@ -151,17 +202,9 @@ def mag3d_jacobian_rows(consts: BasisConstants, pos: torch.Tensor,
     quaternions -> C [N, 3, nl_pad] in ``dtype`` (float32 or bfloat16);
     columns beyond 3 + m are zero.
     """
-    if consts.d != 3:
-        raise ValueError("mag3d_jacobian_rows requires a 3-D basis")
-    if nl_pad < 3 + consts.m:
-        raise ValueError(f"nl_pad={nl_pad} < 3 + m = {3 + consts.m}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
-    n = pos.shape[0]
-    _check_float32("pos", pos, (n, 3))
-    _check_float32("quat", quat, (n, 4))
-    if pos.device != quat.device:
-        raise ValueError("pos and quat must be on one device")
+    n = _check_jac3d(consts, pos, quat, nl_pad)
     if _on_cpu(pos, consts):
         return mag3d_jacobian_rows_plain(consts, pos, quat, nl_pad, dtype)
     out = torch.empty((n, 3, nl_pad), dtype=dtype, device=pos.device)
@@ -173,4 +216,37 @@ def mag3d_jacobian_rows(consts: BasisConstants, pos: torch.Tensor,
         int(dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "jac3d_rows")
+    return out
+
+
+def mag3d_jacobian_plain(consts: BasisConstants, pos: torch.Tensor,
+                         quat: torch.Tensor, nl_pad: int) -> torch.Tensor:
+    """Plain version of K7: K1's float32 C with the component axis
+    leading, Ct [3, N, nl_pad]."""
+    return mag3d_jacobian_rows_plain(consts, pos, quat, nl_pad) \
+        .transpose(0, 1).contiguous()
+
+
+def mag3d_jacobian(consts: BasisConstants, pos: torch.Tensor,
+                   quat: torch.Tensor, nl_pad: int) -> torch.Tensor:
+    """Fused mag3d measurement Jacobian, transposed layout (K7; replaces
+    rbslam_tpu/kernels/basis_eval.py:_jac3d_kernel).
+
+    pos [N, 3] float32 (already centered), quat [N, 4] float32 unit
+    quaternions -> Ct [3, N, nl_pad] float32 with
+    Ct[k, p, :] = (R(q_p)^T [I3 | grad phi(pos_p)])_k; columns beyond
+    3 + m are zero. Any nl_pad >= 3 + m is served.
+    """
+    n = _check_jac3d(consts, pos, quat, nl_pad)
+    if _on_cpu(pos, consts):
+        return mag3d_jacobian_plain(consts, pos, quat, nl_pad)
+    out = torch.empty((3, n, nl_pad), dtype=torch.float32, device=pos.device)
+    if out.numel() == 0:
+        return out                      # nothing to launch, nothing counted
+    code = _lib.lib().rbs_jac3d(
+        pos.data_ptr(), quat.data_ptr(), consts.packed.data_ptr(),
+        consts.scale, out.data_ptr(), n, consts.m, nl_pad,
+        _lib.stream_ptr(),
+    )
+    _lib.check(code, "jac3d")
     return out

@@ -1,7 +1,20 @@
-from .linalg import ess_from_logw, logsumexp_normalize, symmetrize
-from .quaternions import expq, qinv, qmul, quat_to_rmat, rmat_to_quat
+from .linalg import (
+    ess_from_logw,
+    gaussian_logpdf_chol,
+    half_logdet,
+    logsumexp_normalize,
+    psd_cholesky,
+    solve_psd,
+    symmetrize,
+    tril_solve,
+)
+from .procrustes import ProcrustesTransform, procrustes, procrustes_transform
+from .quaternions import expq, logq, qinv, qmul, quat_to_rmat, rmat_to_quat
 
 __all__ = [
-    "ess_from_logw", "logsumexp_normalize", "symmetrize",
-    "expq", "qinv", "qmul", "quat_to_rmat", "rmat_to_quat",
+    "ess_from_logw", "gaussian_logpdf_chol", "half_logdet",
+    "logsumexp_normalize", "psd_cholesky", "solve_psd", "symmetrize",
+    "tril_solve",
+    "ProcrustesTransform", "procrustes", "procrustes_transform",
+    "expq", "logq", "qinv", "qmul", "quat_to_rmat", "rmat_to_quat",
 ]

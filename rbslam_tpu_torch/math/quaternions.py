@@ -22,6 +22,17 @@ def expq(phi: torch.Tensor) -> torch.Tensor:
     return torch.where(q[..., :1] < 0, -q, q)
 
 
+def logq(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion logarithm S^3 -> R^3 (tools/logq.m): q [..., 4] ->
+    [..., 3]; inverse of :func:`expq` on the canonical hemisphere."""
+    q = torch.where(q[..., :1] < 0, -q, q)
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    na = torch.acos(w)
+    s = torch.sin(na)
+    scale = torch.where(na > 0, na / torch.where(s > 0, s, 1.0), 1.0)
+    return q[..., 1:] * scale
+
+
 def qmul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 ⊗ q2, broadcasting over leading axes."""
     w1, v1 = q1[..., :1], q1[..., 1:]

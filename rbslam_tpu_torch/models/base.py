@@ -14,10 +14,18 @@ from typing import Callable, NamedTuple, Optional
 class DenseModel(NamedTuple):
     """Conditionally linear measurement: y = C(xn) @ xl + r.
 
-    dynamics:      (w, xn, u, dt, Q) -> xn'     one particle, w standard normal
-    dyn_residual:  whitened dynamics residual for the smoothers (None here)
+    dynamics:      (w, xn, u, dt, Q) -> xn'     one particle, w [n_noise]
+                   standard normal
+    dyn_residual:  (xn_ref [dn], xn [..., dn], u, dt, Q) -> e [..., ne], the
+                   whitened residual of the transition xn -> xn_ref, so
+                   that log p(xn_ref | xn) = -0.5 |e|^2 + const; it
+                   broadcasts over leading axes of xn (the smoothers pass
+                   the whole ensemble). None: the Euclidean default
+                   chol(dt Q)^-1 (xn_ref - xn - u)
     meas_jacobian: (xn) -> C [ny, n_lin]
     n_nonlin, n_lin, ny: static dimensions
+    n_noise:       how many standard normals one transition takes (the
+                   width of w)
     meas_jacobian_batch:      (xn [P, dn]) -> C [P, ny, n_lin]
     dynamics_batch:           (w [P, nw], xn [P, dn], u, dt, Q) -> xn' [P, dn]
     meas_jacobian_batch_rows: (xn [P, dn], nl_pad, dtype) ->
@@ -31,6 +39,7 @@ class DenseModel(NamedTuple):
     n_nonlin: int
     n_lin: int
     ny: int
+    n_noise: int
     meas_jacobian_batch: Optional[Callable] = None
     dynamics_batch: Optional[Callable] = None
     meas_jacobian_batch_rows: Optional[Callable] = None

@@ -20,7 +20,7 @@ from ..kernels.basis_eval import (
     mag3d_jacobian_rows,
     pack_basis_constants,
 )
-from ..math.quaternions import expq, qmul, quat_to_rmat
+from ..math.quaternions import expq, logq, qinv, qmul, quat_to_rmat
 from ..ops.kalman import _chol_small_batched
 from .base import DenseModel
 
@@ -66,6 +66,17 @@ def make_mag3d_model(potential: ScalarPotentialBasis, center=None, *,
     def dynamics(w, xn, u, dt, Q):
         return dynamics_with_increment(w, xn, u, dt, Q)[0]
 
+    def dyn_residual(xn_ref, xn, u, dt, Q):
+        """Whitened residual of xn -> xn_ref (position difference and
+        quaternion-log orientation error); xn [..., 7]."""
+        e_pos = xn_ref[:3] - xn[..., :3] - u[:3]
+        q_err = qmul(qmul(qinv(u[3:7]), qinv(xn[..., 3:7])), xn_ref[3:7])
+        e = torch.cat([e_pos, logq(q_err)], dim=-1)
+        # cholesky_ex: no error check on the host, so no device sync
+        L = torch.linalg.cholesky_ex(dt * Q)[0]
+        return torch.linalg.solve_triangular(
+            L, e[..., None], upper=False)[..., 0]
+
     def meas_jacobian(xn):
         C_nav = potential.grad_blocks(xn[:3] - c)          # [3, 3+m]
         Rnb = quat_to_rmat(xn[3:7])
@@ -86,11 +97,12 @@ def make_mag3d_model(potential: ScalarPotentialBasis, center=None, *,
 
     return DenseModel(
         dynamics=dynamics,
-        dyn_residual=None,
+        dyn_residual=dyn_residual,
         meas_jacobian=meas_jacobian,
         n_nonlin=7,
         n_lin=n_lin,
         ny=3,
+        n_noise=6,
         meas_jacobian_batch=meas_jacobian_batch,
         dynamics_batch=dynamics_batch,
         meas_jacobian_batch_rows=meas_jacobian_batch_rows,

@@ -1,13 +1,17 @@
-from .kalman import kalman_update_dense_batched
+from .kalman import (
+    kalman_update_dense_batched,
+    kalman_update_dense_batched_hld,
+)
 from .resampling import (
     multinomial_resample,
     resample_indices,
+    sample_categorical,
     stratified_resample,
     systematic_resample,
 )
 
 __all__ = [
-    "kalman_update_dense_batched",
-    "multinomial_resample", "resample_indices", "stratified_resample",
-    "systematic_resample",
+    "kalman_update_dense_batched", "kalman_update_dense_batched_hld",
+    "multinomial_resample", "resample_indices", "sample_categorical",
+    "stratified_resample", "systematic_resample",
 ]

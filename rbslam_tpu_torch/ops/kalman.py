@@ -10,8 +10,11 @@ Dense path (src/particleFilter.m:137-150,181-198): per particle i,
 
 The ny x ny algebra is closed-form and elementwise over the batch. All
 contractions accumulate in float32 whatever the covariance storage
-dtype. The masked (sparse) update and the ny > 3 form come with the
-engine paths that use them.
+dtype. The downdate is a sum of ny broadcast outer products formed in
+float32 (an [N, nl, nl] float32 temporary) and subtracted in the storage
+dtype, so bf16 storage rounds where the reference rounds. The masked
+(sparse) update and the ny > 3 form come with the engine paths that use
+them.
 """
 
 from __future__ import annotations
@@ -122,6 +125,19 @@ def kalman_update_dense_batched(C, P, xl, y, R, jitter: float,
                                 symmetrize_out: bool = True):
     """Whole-ensemble dense KF update, ny <= 3: C [N,ny,nl], P [N,nl,nl]
     (any storage dtype), xl [N,nl]. Returns (xl', P', logw [N], retried [N]).
+    See :func:`kalman_update_dense_batched_hld`."""
+    return kalman_update_dense_batched_hld(
+        C, P, xl, y, R, jitter, joseph, symmetrize_out
+    )[:4]
+
+
+def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
+                                    joseph: bool = False,
+                                    symmetrize_out: bool = True):
+    """As :func:`kalman_update_dense_batched` but additionally returns
+    ``hld_S [N] = sum log diag chol(S)``, the innovation half-log-det that
+    the information-form smoother's ``halfLogDetP`` recursion consumes
+    (src/particleSmootherInformationForm.m:298).
 
     As the reference path, the contractions use P's LAST axis (exact for
     the symmetric covariance), the downdate is formed in float32 and
@@ -160,4 +176,4 @@ def kalman_update_dense_batched(C, P, xl, y, R, jitter: float,
         P_new = P - downdate.to(P.dtype)
     if symmetrize_out:
         P_new = symmetrize(P_new)
-    return xl_new, P_new.to(P.dtype), logw, retried
+    return xl_new, P_new.to(P.dtype), logw, retried, hld

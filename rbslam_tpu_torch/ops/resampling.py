@@ -20,6 +20,12 @@ def _inverse_cdf(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp(idx, 0, w.shape[0] - 1)
 
 
+def sample_categorical(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One index ~ Categorical(w) from one uniform u (0-d)
+    (tools/sample.m:30-33)."""
+    return _inverse_cdf(w, u)
+
+
 def _cumsum_1d(x: torch.Tensor) -> torch.Tensor:
     """1-D inclusive cumsum, blocked as [rows, 128] row-cumsums plus
     row offsets for large power-of-two-ish lengths — the summation order

@@ -1,3 +1,3 @@
-from .interop import Problem, problem_from_numpy
+from .interop import Problem, problem_from_numpy, radio_problem_from_numpy
 
-__all__ = ["Problem", "problem_from_numpy"]
+__all__ = ["Problem", "problem_from_numpy", "radio_problem_from_numpy"]

@@ -1,4 +1,5 @@
-"""Kernels K1-K5 of the port.
+"""Kernels K1-K5 of the port (K6, K7 and K4 at d < 3 against the JAX
+package: tests/test_torch_radio.py; all seven on the card: here).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas entry points (interpret mode on the CPU)
@@ -29,9 +30,13 @@ from rbslam_tpu_torch.kernels import (  # noqa: E402
     kf_update_block_gather,
     kf_update_lowrank,
     launch_counts,
+    mag3d_jacobian,
+    mag3d_jacobian_plain,
     mag3d_jacobian_rows,
     mag3d_jacobian_rows_plain,
     pack_basis_constants,
+    phi_basis,
+    phi_basis_plain,
     rebase_plain,
     reset_launch_counts,
 )
@@ -229,9 +234,12 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     kf_update_lowrank(bidx, C, xl, Wt, P_base, y, R)
     kf_rebase(bidx, Wt, P_base)
     kf_update_block_gather(bidx, C, xl, P_base, y, R)
+    phi_basis(consts, pos)
+    mag3d_jacobian(consts, pos, q, 128)
     assert launch_counts() == {"grad_basis": 0, "jac3d_rows": 0,
                                "gather_cp": 0, "rebase": 0,
-                               "block_gather": 0}
+                               "block_gather": 0, "phi_basis": 0,
+                               "jac3d": 0}
 
 
 @pytest.fixture
@@ -284,6 +292,47 @@ class TestOnCard:
         after = launch_counts()
         assert after["jac3d_rows"] == before["jac3d_rows"] + 1
         assert after["grad_basis"] == before["grad_basis"] + 1
+
+    @pytest.mark.parametrize("d,m,n", [(1, 17, 9), (2, 128, 100),
+                                       (2, 128, 16384), (3, 509, 4096)])
+    def test_phi_and_grad_kernels_any_dim(self, card, d, m, n):
+        """K6 and K4 at d in {1, 2, 3}, at the radio path's shapes among
+        others."""
+        g = torch.Generator(device=card).manual_seed(n + d)
+        half = torch.tensor([9.0, 6.0, 2.4][:d], device=card)
+        consts = pack_basis_constants(
+            hypercube_basis(m, half.cpu().numpy()), card)
+        x = (2 * torch.rand((n, d), generator=g, device=card) - 1) * half
+        before = launch_counts()
+        self._check(phi_basis(consts, x), phi_basis_plain(consts, x),
+                    torch.float32)
+        self._check(grad_basis(consts, x), grad_basis_plain(consts, x),
+                    torch.float32)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["phi_basis"] == before["phi_basis"] + 1
+        assert after["grad_basis"] == before["grad_basis"] + 1
+
+    @pytest.mark.parametrize("n,m,nl_pad", [(37, 61, 64), (16384, 125, 128),
+                                            (4096, 509, 512)])
+    def test_jac3d_kernel(self, card, n, m, nl_pad):
+        """K7 against its plain version, and bit-equal to K1's float32
+        output transposed."""
+        g = torch.Generator(device=card).manual_seed(n)
+        consts = pack_basis_constants(hypercube_basis(m, [[-20, -20, -2.4],
+                                                          [20, 20, 2.4]]),
+                                      card)
+        pos = 30 * (torch.rand((n, 3), generator=g, device=card) - 0.5)
+        q = torch.randn((n, 4), generator=g, device=card)
+        q = q / q.norm(dim=-1, keepdim=True)
+        before = launch_counts()["jac3d"]
+        out = mag3d_jacobian(consts, pos, q, nl_pad)
+        self._check(out, mag3d_jacobian_plain(consts, pos, q, nl_pad),
+                    torch.float32)
+        assert torch.equal(
+            out, mag3d_jacobian_rows(consts, pos, q, nl_pad).transpose(0, 1))
+        torch.cuda.synchronize()
+        assert launch_counts()["jac3d"] == before + 1
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("ny,nl,rw", [(1, 128, 8), (3, 128, 24),
@@ -367,6 +416,8 @@ class TestOnCard:
         P_base = torch.zeros((4, 128, 128), device=card)
         before = launch_counts()
         assert grad_basis(consts, pos).shape == (0, 3, consts.m)
+        assert phi_basis(consts, pos).shape == (0, consts.m)
+        assert mag3d_jacobian(consts, pos, q, 128).shape == (3, 0, 128)
         assert mag3d_jacobian_rows(consts, pos, q, 128).shape == (0, 3, 128)
         assert gather_cp(bidx, C, Wt, P_base).shape == (0, 3, 128)
         assert kf_rebase(bidx, Wt, P_base).shape == (0, 128, 128)

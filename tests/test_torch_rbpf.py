@@ -351,7 +351,7 @@ def test_port_builds_its_own_problem():
 
 def test_package_never_imports_jax():
     """Import the port with JAX made unimportable and run 2-step lowrank
-    and block_gather filters."""
+    and block_gather filters and the radio workload with both smoothers."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -367,6 +367,13 @@ def test_package_never_imports_jax():
                            generator=torch.Generator().manual_seed(0),
                            device="cpu")
             assert res.traj_mean.shape == (2, 7)
+        from rbslam_tpu_torch.workloads import dense_radio
+        for smoother in ("cpf_as", "info_form"):
+            out = dense_radio.run(
+                dense_radio.DenseRadioConfig(
+                    n_steps=6, n_particles=4, n_sweeps=2, m_basis=8,
+                    m_sim=16, smoother=smoother), device="cpu")
+            assert len(out["rmse_smoother_per_sweep"]) == 2
         assert not any(m == "jax" or m.startswith("jax.")
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
