@@ -7,7 +7,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
  2. build the CUDA kernels from rbslam_tpu_torch/csrc (one nvcc per
     source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
-    paths' shapes, and time both;
+    paths' shapes, and time both; the probes K8-K11 in bf16 at N=16384,
+    nl=128 and in f32 at N=4096, nl=512, with their cross-checks (K10
+    bit-equal to torch.index_select, K9 gather+dot to K3, K8 to K2 with
+    Wt = 0, K9 gather only to K10) and torch.index_select's time;
  4. headline run of the port's filter: bean_6D, N_P=16384, m=125 (n_lin
     128), T=192, bf16 covariance, lowrank r=8, systematic resampling;
     check finiteness, the launch counts of every kernel, position RMSE,
@@ -23,7 +26,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     block_gather + stratified with ESS gating at 0.7): equal ancestors,
     close estimates; and the smoothers likewise (N_P=24, T=12, 3 sweeps):
     radio run_rbps, radio run_rbps_information_form (woodbury and
-    cholesky) and mag3d run_rbps_information_form;
+    cholesky) and mag3d run_rbps_information_form; and the batched EKF
+    (B=3, m=64, T=24);
  7. the dense-radio workload at its reference size (line_3D, T=32,
     N_P=100, m=128, m_sim=2000, multinomial resampling, 20 sweeps):
     filter, then the CPF-AS smoother; again with the information-form
@@ -33,16 +37,24 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     resampling, woodbury ancestor form, f32): particle-steps/s (N_P T N_K
     over the wall, best of 2 after a warm-up); every Jacobian through K4;
  9. the fused mag3d Jacobian in the transposed layout (K7) through its
-    public entry, on the smoothed trajectory of phase 8.
+    public entry, on the smoothed trajectory of phase 8;
+10. the kernel-part profile (workloads/profile_kernel_parts.run) at
+    N=16384, nl=128, bf16 and N=4096, nl=512, f32: K8-K11 next to K2, K3
+    and K5 on three index patterns;
+11. the dense-mag workload at full width (m=512, n_lin 515, N_P=100,
+    T=192, theta and Q of main.m): run_comparison with disturbances 0 and
+    10, two runs each, 3 sweeps (PF and PS aligned RMSE under 0.6 m), and
+    the batched EKF alone on twenty seeds' datasets (B=20, n=521).
 
-Each run of phases 4, 5, 7, 8 and 9 sets every launch count to 0 just
-before it and reads the counts just after; the counts must be exactly
-those of its path.
+Each run of phases 4, 5, 7, 8, 9, 10 and 11 sets every launch count to 0
+just before it and reads the counts just after; the counts must be
+exactly those of its path.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on its main path, its error and time against its plain version,
-and its bound: the larger of its bytes over 3.35 TB/s and its operations
-over the card's peak for their type); the last line is
+and its bound: the larger of its bytes over 3.35 TB/s, a matrix read
+through an index counted once per distinct index, and its operations over
+the card's peak for their type); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -58,6 +70,7 @@ import torch
 from rbslam_tpu_torch.engines import (
     RBPFConfig,
     RBPSConfig,
+    run_ekf_dense_batched,
     run_rbpf,
     run_rbps,
     run_rbps_information_form,
@@ -79,14 +92,28 @@ from rbslam_tpu_torch.kernels import (
     pack_basis_constants,
     phi_basis,
     phi_basis_plain,
+    probe_block_products,
+    probe_block_products_plain,
+    probe_gather,
+    probe_gather_cp,
+    probe_gather_cp_plain,
+    probe_gather_plain,
+    probe_rebase_parts,
+    probe_rebase_parts_plain,
     rebase_plain,
     reset_launch_counts,
 )
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
 from rbslam_tpu_torch.metrics import aligned_position_rmse
-from rbslam_tpu_torch.workloads import dense_radio
+from rbslam_tpu_torch.utils import ekf_inputs
+from rbslam_tpu_torch.workloads import (
+    dense_mag,
+    dense_radio,
+    profile_kernel_parts,
+)
 from rbslam_tpu_torch.workloads.dense_mag import build_problem
+from rbslam_tpu_torch.workloads.profile_kernel_parts import bound_ms, time_ms
 
 KERNELS = {
     "jac3d_rows": ("rbslam_tpu_torch/csrc/basis_eval.cu",
@@ -103,25 +130,35 @@ KERNELS = {
                   "rbslam_tpu/kernels/basis_eval.py:52"),
     "jac3d": ("rbslam_tpu_torch/csrc/basis_eval.cu",
               "rbslam_tpu/kernels/basis_eval.py:84"),
+    "probe_gather_cp": ("rbslam_tpu_torch/csrc/probes.cu",
+                        "scripts/profile_gather_cp.py:23"),
+    "probe_rebase_parts": ("rbslam_tpu_torch/csrc/probes.cu",
+                           "scripts/profile_rebase_parts.py:22"),
+    "probe_gather": ("rbslam_tpu_torch/csrc/probes.cu",
+                     "scripts/profile_gather_kernel.py:19"),
+    "probe_block_products": ("rbslam_tpu_torch/csrc/probes.cu",
+                             "scripts/profile_block_mxu.py:77"),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s; dense FLOP/s outside the tensor
-# cores (float32) and in them (bf16)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
-def bound(tensors_in, tensors_out, flops, dtype):
-    """The least time the card could take: every input read once and every
-    output written once over the memory rate, or the operations over the
-    peak rate of their type, whichever is larger."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*tensors_in, *tensors_out))
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None}
+def bound(reads, tensors_out, flops, dtype):
+    """The least time the card could take (``bound_ms``): every input read
+    once and every output written once over the memory rate, or the
+    operations over the peak rate of their type, whichever is larger.
+    ``reads`` holds the tensors read whole and, for a tensor read through
+    an index, the bytes that this run's index needs (see
+    :func:`gathered_bytes`)."""
+    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+                 for t in (*reads, *tensors_out))
+    ms, by = bound_ms(nbytes, flops, dtype)
+    return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+
+def gathered_bytes(index, P):
+    """Bytes of P [N, nl, nl] that a gather by ``index`` must read: one
+    matrix per distinct index, however many particles share it."""
+    return int(torch.unique(index).numel()) * P[0].numel() * P.element_size()
 
 
 def log(msg: str) -> None:
@@ -132,23 +169,8 @@ def sync(device) -> None:
     torch.cuda.synchronize(device)
 
 
-def time_ms(fn, device, reps: int = 10) -> float:
-    """Mean milliseconds per call: CUDA events around ``reps`` calls after
-    one warm-up call."""
-    fn()
-    sync(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
-
-
 def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
-            flop_dtype=torch.float32):
+            flop_dtype=torch.float32, exact=False):
     """Run kernel and plain version on the same inputs (``inputs``: the
     tensors the kernel reads, ``flops``: the operations it does on them,
     for :func:`bound`); check the error
@@ -157,7 +179,7 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
     floor of 1e-6 of that magnitude); time both. ``dtype`` names the
     tolerance; None holds each output to the tolerance of its own dtype.
     A kernel with several outputs returns a tuple; a boolean output must
-    be equal."""
+    be equal, and with ``exact`` every output."""
     outs_k = kernel()
     outs_p = plain()
     sync(device)
@@ -170,9 +192,12 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
                 f"{name}: kernel {tuple(out_k.shape)} {out_k.dtype} vs "
                 f"plain {tuple(out_p.shape)} {out_p.dtype}"
             )
-        if out_k.dtype == torch.bool:
+        if out_k.dtype == torch.bool or exact:
             if not torch.equal(out_k, out_p):
-                raise AssertionError(f"{name} {shape_note}: flags differ")
+                raise AssertionError(f"{name} {shape_note}: outputs differ")
+            if exact:
+                log(f"[3] {name} {shape_note}: output {tuple(out_k.shape)} "
+                    "bit-equal to the plain version")
             continue
         tol_dtype = out_k.dtype if dtype is None else dtype
         tol = TOL[tol_dtype]
@@ -281,8 +306,9 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
     for nn, nll, dt in ((n, nl, torch.bfloat16), (n_ref, nl_ref, torch.float32)):
         bidx, C, Wt, P_base = factored(nn, nll, dt)
         note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
-        # the gathered rows of P_base are read once per particle
-        gathered = P_base[:1].expand(nn, nll, nll)
+        gathered = gathered_bytes(bidx, P_base)
+        log(f"[3] {note}: {int(torch.unique(bidx).numel())} distinct of "
+            f"{nn} random indices")
         r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
                     lambda: gather_cp_plain(bidx, C, Wt, P_base),
                     device, torch.float32 if dt == torch.float32 else dt, note,
@@ -319,10 +345,71 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             lambda: kf_update_block_gather(ai, C, xl, P, y, R, 1e-3),
             lambda: block_gather_plain(ai, C, e, xl, P, R, 1e-3),
             device, None, f"N={nn} ny={nyy} nl={nll} {dt}",
-            (ai, C, xl, P, y, R), 4 * nn * nyy * nll * nll, dt,
+            (ai, C, xl, gathered_bytes(ai, P), y, R),
+            4 * nn * nyy * nll * nll, dt,
         )
         rows.setdefault("block_gather", r)
         del ai, C, xl, P, y, R, e
+
+    # the probes K8-K11 at the TPU scripts' shape (bf16) and at the
+    # reference shape (f32), with their cross-checks
+    for nn, nll, dt in ((n, nl, torch.bfloat16), (n_ref, nl_ref, torch.float32)):
+        bidx, C_st, Wt, P = factored(nn, nll, dt)
+        C = C_st.float()
+        note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
+        gathered = gathered_bytes(bidx, P)
+        log(f"[3] {note}: {int(torch.unique(bidx).numel())} distinct of "
+            f"{nn} random indices")
+        tol_dt = torch.float32 if dt == torch.float32 else dt
+        r = compare("probe_gather_cp", lambda: probe_gather_cp(bidx, C, P),
+                    lambda: probe_gather_cp_plain(bidx, C, P), device, tol_dt,
+                    note, (bidx, C, gathered), 2 * nn * ny * nll * nll, dt)
+        rows.setdefault("probe_gather_cp", r)
+        for do_gather, do_dot in ((True, True), (True, False), (False, True),
+                                  (False, False)):
+            r = compare(
+                "probe_rebase_parts",
+                lambda: probe_rebase_parts(bidx, Wt, P, do_gather, do_dot),
+                lambda: probe_rebase_parts_plain(bidx, Wt, P, do_gather,
+                                                 do_dot),
+                device, dt, f"{note} gather={do_gather} dot={do_dot}",
+                (*((bidx, gathered) if do_gather else ()),
+                 *((Wt,) if do_dot else ())),
+                2 * nn * rw * nll * nll if do_dot else 0, dt)
+            rows.setdefault("probe_rebase_parts", r)      # the full variant
+        r = compare("probe_gather", lambda: probe_gather(bidx, P),
+                    lambda: probe_gather_plain(bidx, P), device, dt, note,
+                    (bidx, gathered), 0, dt, exact=True)
+        bidx64 = bidx.long()
+        r["library_ms"] = time_ms(
+            lambda: torch.index_select(P, 0, bidx64), device)
+        log(f"[3] probe_gather {note}: torch.index_select "
+            f"{r['library_ms']:.4f} ms")
+        rows.setdefault("probe_gather", r)
+        r = compare("probe_block_products",
+                    lambda: probe_block_products(C, P),
+                    lambda: probe_block_products_plain(C, P), device, dt, note,
+                    (C, P), 4 * nn * ny * nll * nll, dt)
+        rows.setdefault("probe_block_products", r)
+        checks = [
+            ("K10 = torch.index_select",
+             lambda: probe_gather(bidx, P),
+             lambda: torch.index_select(P, 0, bidx64)),
+            ("K9(gather, dot) = K3 kf_rebase",
+             lambda: probe_rebase_parts(bidx, Wt, P, True, True),
+             lambda: kf_rebase(bidx, Wt, P)),
+            ("K8 = K2 gather_cp with Wt = 0",
+             lambda: probe_gather_cp(bidx, C, P),
+             lambda: gather_cp(bidx, C_st, torch.zeros_like(Wt), P)),
+            ("K9(gather, no dot) = K10",
+             lambda: probe_rebase_parts(bidx, Wt, P, True, False),
+             lambda: probe_gather(bidx, P)),
+        ]
+        for what, fa, fb in checks:
+            if not torch.equal(fa(), fb()):
+                raise AssertionError(f"cross-check failed at {note}: {what}")
+            log(f"[3] cross-check {note}: {what}: bit-equal")
+        del bidx, C_st, C, Wt, P, gathered, checks
     return rows
 
 
@@ -511,6 +598,143 @@ def phase_smoothers_plain_vs_kernel(device, n_particles=24, T=12, n_sweeps=3):
             raise AssertionError(f"{tag}: card and cpu disagree")
 
 
+def phase_ekf_plain_vs_card(device, B=3, m=64, T=24):
+    """Phase 6, EKF: the batched EKF on the card against the same call on
+    the CPU, on B seeds' datasets: x_traj within 1e-3, q_traj 1e-4."""
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        built = [build_problem(m, T, seed=1 + i, m_sim=256, device=dev)
+                 for i in range(B)]
+        problem, data = built[0]
+        x0, q0, P0 = ekf_inputs(problem, domain_center(data.LL))
+        out[dev.type] = run_ekf_dense_batched(
+            problem.potential, torch.stack([b[0].dx for b in built]),
+            torch.stack([b[0].y for b in built]), x0, q0, P0, problem.Q,
+            problem.R, problem.dt, device=dev)
+    sync(device)
+    k, p = out[device.type], out["cpu"]
+    d_x = float((k.x_traj.cpu() - p.x_traj).abs().max())
+    d_q = float((k.q_traj.cpu() - p.q_traj).abs().max())
+    log(f"[6] batched EKF (B={B}, m={m}, n={6 + 3 + m}, T={T}): card vs cpu: "
+        f"max|d x_traj|={d_x:.3e} (tol 1e-3), max|d q_traj|={d_q:.3e} "
+        f"(tol 1e-4), chol_retries {k.chol_retries.tolist()} / "
+        f"{p.chol_retries.tolist()}")
+    if not (d_x <= 1e-3 and d_q <= 1e-4
+            and torch.equal(k.chol_retries.cpu(), p.chol_retries)):
+        raise AssertionError("batched EKF: card and cpu disagree")
+
+
+def phase_kernel_parts(device, zero, reps=10):
+    """Phase 10: the kernel-part profile at both shapes. Each timed
+    function is launched once to warm up and ``reps`` times between the
+    events. Per index pattern (three): K10, K8, K2, K3 and K5 once each
+    and K9 twice (gather + write, gather + dot + write); without an index:
+    K9 twice (dot + write, write only) and K11; K4 once for the Jacobian
+    at the initial state. Returns the launch counts of the last shape."""
+    per = reps + 1
+    expect = {**zero, "grad_basis": 1, "probe_gather": 3 * per,
+              "probe_gather_cp": 3 * per, "gather_cp": 3 * per,
+              "probe_rebase_parts": (3 * 2 + 2) * per, "rebase": 3 * per,
+              "block_gather": 3 * per, "probe_block_products": per}
+    for shape in ("headline", "reference"):
+        reset_launch_counts()
+        out = profile_kernel_parts.run(device, shape, reps=reps)
+        sync(device)
+        counts = launch_counts()
+        profile_kernel_parts.print_table(out)
+        log(f"[10] {shape}: launches {counts}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        for r in out["rows"]:
+            if not (r["ms"] is not None and 0 < r["ms"] < float("inf")):
+                raise AssertionError(f"{r['kernel']}: no time measured")
+    return counts
+
+
+def phase_dense_mag(device, card, zero, n_sim=2, n_sweeps=3, n_ekf=20):
+    """Phase 11: the dense-mag workload at full width through its entry
+    points. K4 launches of run_comparison: per PF + PS run T = 192 (filter,
+    xla path) + n_sweeps T + n_sweeps - 1 (smoother); the EKF launches no
+    kernel (its Jacobian is plain torch, as in the JAX package)."""
+    check_tf32_off()
+    cfg = dense_mag.DenseMagConfig(n_sweeps=n_sweeps)
+    T = cfg.n_laps * cfg.n_per_lap
+    disturbances = (0.0, 10.0)
+    expect = {**zero, "grad_basis": len(disturbances) * n_sim
+              * (T + n_sweeps * T + n_sweeps - 1)}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dense_mag.run_comparison(cfg, disturbances, n_sim, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"[11] dense-mag run_comparison m={cfg.m_basis} (n_lin "
+        f"{cfg.m_basis + 3}) N_P={cfg.n_particles} T={T} m_sim={cfg.m_sim} "
+        f"{n_sweeps} sweeps, disturbances {disturbances}, n_sim={n_sim}: "
+        f"{wall:.2f} s on {card}; launches {counts}")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    for o, raw in out["raw"].items():
+        log(f"[11] o={o}: aligned position RMSE ekf "
+            f"{[round(v, 4) for v in raw['ekf']]} pf "
+            f"{[round(v, 4) for v in raw['pf']]} ps "
+            f"{[round(v, 4) for v in raw['ps']]} m; orientation RMSE pf "
+            f"{[round(v, 4) for v in raw['pf_ori_deg']]} ps "
+            f"{[round(v, 4) for v in raw['ps_ori_deg']]} deg")
+        values = [v for vs in raw.values() for v in vs]
+        if not all(v == v and abs(v) != float("inf") for v in values):
+            raise AssertionError(f"o={o}: non-finite RMSE")
+        if not max(raw["pf"] + raw["ps"]) < 0.6:
+            raise AssertionError(f"o={o}: a PF or PS position RMSE is not "
+                                 "under 0.6 m")
+
+    # the batched EKF alone on n_ekf seeds' datasets
+    t0 = time.perf_counter()
+    built = [dense_mag.build_from_config(
+        dense_mag.DenseMagConfig(seed=1 + i),
+        torch.Generator().manual_seed(1 + i), device=device)
+        for i in range(n_ekf)]
+    t_build = time.perf_counter() - t0
+    problem, data = built[0]
+    x0, q0, P0 = ekf_inputs(problem, domain_center(data.LL))
+    dx_b = torch.stack([b[0].dx for b in built])
+    y_b = torch.stack([b[0].y for b in built])
+
+    def run_ekf():
+        res = run_ekf_dense_batched(problem.potential, dx_b, y_b, x0, q0, P0,
+                                    problem.Q, problem.R, problem.dt,
+                                    device=device)
+        sync(device)
+        return res
+
+    reset_launch_counts()
+    res = run_ekf()
+    if launch_counts() != zero:
+        raise AssertionError(f"the EKF launched kernels: {launch_counts()}")
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_ekf()
+        best = min(best, time.perf_counter() - t0)
+    n = x0.shape[0]
+    if tuple(res.x_traj.shape) != (n_ekf, T, n) \
+            or tuple(res.P_final.shape) != (n_ekf, n, n) \
+            or not bool(torch.isfinite(res.x_traj).all()) \
+            or not bool(torch.isfinite(res.P_final).all()):
+        raise AssertionError("batched EKF: wrong shape or non-finite values")
+    rmse = [float(aligned_position_rmse(built[i][1].pos,
+                                        res.x_traj[i, :, :3]))
+            for i in range(n_ekf)]
+    log(f"[11] run_ekf_dense_batched B={n_ekf} n={n} T={T}: best of 2 "
+        f"{best:.4f} s ({best / T * 1e3:.4f} ms/step) on {card}; datasets "
+        f"built in {t_build:.2f} s; chol_retries {res.chol_retries.tolist()}")
+    log(f"[11] EKF aligned position RMSE per member "
+        f"{[round(v, 4) for v in rmse]} m")
+    if not all(v == v and v < float("inf") for v in rmse):
+        raise AssertionError("batched EKF: non-finite RMSE")
+    return counts
+
+
 def check_tf32_off():
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("matmul.allow_tf32 must stay off: the "
@@ -681,6 +905,7 @@ def main() -> int:
     counts["block_gather"] = counts_block["block_gather"]
     phase_plain_vs_kernel(device)
     phase_smoothers_plain_vs_kernel(device)
+    phase_ekf_plain_vs_card(device)
     counts["phi_basis"] = phase_radio(device, card, zero)["phi_basis"]
     counts_s, problem, data, res = phase_mag_smoother(device, card, zero)
     log(f"[8] grad_basis launches on the filter's lowrank path "
@@ -689,6 +914,14 @@ def main() -> int:
     counts["grad_basis"] = counts_s["grad_basis"]
     counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
                                         res)["jac3d"]
+    del problem, data, res
+    counts_p = phase_kernel_parts(device, zero)
+    for name in ("probe_gather_cp", "probe_rebase_parts", "probe_gather",
+                 "probe_block_products"):
+        counts[name] = counts_p[name]
+    counts_m = phase_dense_mag(device, card, zero)
+    log(f"[11] grad_basis launches on the dense-mag comparison "
+        f"{counts_m['grad_basis']} (the kernels line keeps phase 8's)")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

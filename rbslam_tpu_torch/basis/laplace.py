@@ -86,6 +86,31 @@ class LaplaceBasis:
             rows.append(scale * fac[:, i] * prod)
         return torch.stack(rows, dim=-2)
 
+    def hess_phi(self, x: torch.Tensor) -> torch.Tensor:
+        """Second derivatives d^2 phi / (dx_i dx_j): [..., d, d, m], the
+        pose block of the dense EKF's measurement Jacobian
+        (tools/JacobianPhi3D.m:43-64)."""
+        a, NN, L = self._args(x)
+        scale = torch.prod(1.0 / torch.sqrt(L))
+        s = torch.sin(a)
+        c = torch.cos(a)
+        fac = math.pi * NN / (2.0 * L)
+        rows = []
+        for i in range(self.d):
+            cols = []
+            for j in range(self.d):
+                if i == j:
+                    val = -(fac[:, i] ** 2) * torch.prod(s, dim=-1)
+                else:
+                    prod = c[..., i] * c[..., j]
+                    for k in range(self.d):
+                        if k != i and k != j:
+                            prod = prod * s[..., k]
+                    val = fac[:, i] * fac[:, j] * prod
+                cols.append(scale * val)
+            rows.append(torch.stack(cols, dim=-2))
+        return torch.stack(rows, dim=-3)
+
 
 def hypercube_basis(m: int, LL) -> LaplaceBasis:
     """Basis from half-widths ``[d]`` or bounds ``[2, d]`` (rows min, max;

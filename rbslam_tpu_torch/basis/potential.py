@@ -36,3 +36,12 @@ class ScalarPotentialBasis:
     def potential_row(self, x: torch.Tensor) -> torch.Tensor:
         """[x | phi(x)] row of the potential itself: [..., 3+m]."""
         return torch.cat([x, self.basis.phi(x)], dim=-1)
+
+    def hess_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """d C / d x: [..., 3, 3, 3+m], the Hessian of the field with
+        respect to position: zero for the three linear columns, the basis
+        Hessian for the others (run_dense3D_magfield.m:292-296)."""
+        H = self.basis.hess_phi(x)
+        zeros = torch.zeros(H.shape[:-1] + (3,), dtype=x.dtype,
+                            device=x.device)
+        return torch.cat([zeros, H], dim=-1)

@@ -1,8 +1,10 @@
+from .ekf import EKFResult, run_ekf_dense, run_ekf_dense_batched
 from .rbpf import RBPFConfig, RBPFResult, reconstruct_trajectories, run_rbpf
 from .rbps import RBPSConfig, RBPSResult, run_rbps
 from .rbps_info import run_rbps_information_form
 
 __all__ = [
+    "EKFResult", "run_ekf_dense", "run_ekf_dense_batched",
     "RBPFConfig", "RBPFResult", "reconstruct_trajectories", "run_rbpf",
     "RBPSConfig", "RBPSResult", "run_rbps", "run_rbps_information_form",
 ]

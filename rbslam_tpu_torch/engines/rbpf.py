@@ -9,8 +9,10 @@ marginal innovation likelihood (:126-151), (3) log-sum-exp normalize
 once at the end; ``P_mean`` is the correct weighted accumulation (the
 reference assigns inside its loop, :228-230).
 
-Three Kalman-update paths (``RBPFConfig.kf_kernel``), dense models with
-ny <= 3:
+Three Kalman-update paths (``RBPFConfig.kf_kernel``) for dense models;
+the two kernel paths take ny <= 3, and a model with more observation rows
+runs the xla path (with the ny > 3 form of the update) whatever the
+config names:
 
 - ``"xla"`` (the JAX package's default): per step, gather P[ai] and run
   the dense small-ny update (ops/kalman.py) in plain torch; the Jacobian
@@ -40,6 +42,7 @@ radio2d families.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -132,12 +135,6 @@ def _check_supported(model, config: RBPFConfig, mesh) -> None:
         raise NotImplementedError(
             "sparse models are not ported yet (ROADMAP queue 1 item 13)"
         )
-    if model.ny > 3:
-        raise NotImplementedError(
-            "dense models with ny > 3 need the lax-form update "
-            "(rbslam_tpu/ops/kalman.py:292-324), not ported yet (ROADMAP "
-            "queue 1 item 4)"
-        )
 
 
 def _as(x, device, dtype=torch.float32):
@@ -213,8 +210,8 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
 
     The kernel paths (block_gather, lowrank) reject NaN or masked y. On
     the xla path NaN becomes 0 and the mask is ignored, as the JAX
-    package's dense update does. Sparse models, dense ny > 3 and ``mesh``
-    raise NotImplementedError naming the ROADMAP item that ports them.
+    package's dense update does. Sparse models and ``mesh`` raise
+    NotImplementedError naming the ROADMAP item that ports them.
     """
     _check_supported(model, config, mesh)
     device = torch.device(device)
@@ -222,9 +219,18 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     f32 = torch.float32
     y = _as(y, device)
     T = y.shape[0]
-    block_gather = config.kf_kernel == "block_gather"
+    # the kernels take ny <= 3: a larger ny runs the xla path whatever
+    # kf_kernel says, as in the JAX package
+    if config.kf_kernel != "xla" and model.ny > 3:
+        warnings.warn(
+            f"kf_kernel={config.kf_kernel!r} takes ny <= 3; this model has "
+            f"ny={model.ny} and runs the 'xla' path, which launches none of "
+            "the Kalman update kernels",
+            stacklevel=2,
+        )
+    block_gather = config.kf_kernel == "block_gather" and model.ny <= 3
     # T == 1 has no steps: the lowrank config runs step 0 as the xla path
-    lowrank = config.kf_kernel == "lowrank" and T > 1
+    lowrank = config.kf_kernel == "lowrank" and model.ny <= 3 and T > 1
     if config.kf_kernel != "xla":
         # the kernel paths have no observation-mask support: NaN-masked
         # measurements would enter the update as y=0 observations

@@ -246,12 +246,6 @@ def _check_supported(model, config: RBPSConfig, checkpoint_dir, mesh) -> None:
             "mesh-sharded smoothing is not ported yet (ROADMAP queue 1 "
             "item 15)"
         )
-    if model.ny > 3:
-        raise NotImplementedError(
-            "dense models with ny > 3 need the lax-form update "
-            "(rbslam_tpu/ops/kalman.py:292-324), not ported yet (ROADMAP "
-            "queue 1 item 4)"
-        )
     if config.resampling not in _SCHEMES:
         raise ValueError(f"unknown resampling scheme {config.resampling!r}; "
                          f"options: {sorted(_SCHEMES)}")

@@ -8,6 +8,13 @@ K4 grad_basis           (replaces basis_eval.py:_grad_kernel)
 K5 kf_update_block_gather (replaces kf_update.py:_kernel_block_gather)
 K6 phi_basis            (replaces basis_eval.py:_phi_kernel)
 K7 mag3d_jacobian       (replaces basis_eval.py:_jac3d_kernel)
+
+and the kernel-part probes (replace the profiling kernels of scripts/):
+
+K8  probe_gather_cp      (profile_gather_cp.py:_kernel_gcp)
+K9  probe_rebase_parts   (profile_rebase_parts.py:make_kernel)
+K10 probe_gather         (profile_gather_kernel.py:_gather_kernel)
+K11 probe_block_products (profile_block_mxu.py:_kernel)
 """
 
 from ._lib import launch_counts, reset_launch_counts
@@ -33,6 +40,16 @@ from .kf_update import (
     rebase_plain,
     spd_inv_logdet_plain,
 )
+from .probes import (
+    probe_block_products,
+    probe_block_products_plain,
+    probe_gather,
+    probe_gather_cp,
+    probe_gather_cp_plain,
+    probe_gather_plain,
+    probe_rebase_parts,
+    probe_rebase_parts_plain,
+)
 
 __all__ = [
     "launch_counts", "reset_launch_counts",
@@ -44,4 +61,8 @@ __all__ = [
     "gather_cp", "gather_cp_plain", "kf_rebase", "rebase_plain",
     "kf_update_lowrank",
     "kf_update_block_gather", "block_gather_plain", "spd_inv_logdet_plain",
+    "probe_gather_cp", "probe_gather_cp_plain",
+    "probe_rebase_parts", "probe_rebase_parts_plain",
+    "probe_gather", "probe_gather_plain",
+    "probe_block_products", "probe_block_products_plain",
 ]

@@ -32,14 +32,16 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("basis_eval.cu", "kf_update.cu")
+SOURCES = ("basis_eval.cu", "kf_update.cu", "probes.cu")
+HEADERS = ("kf_common.cuh",)     # included by kf_update.cu and probes.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase",
-                "block_gather", "phi_basis", "jac3d")
+                "block_gather", "phi_basis", "jac3d", "probe_gather_cp",
+                "probe_rebase_parts", "probe_gather", "probe_block_products")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 _lib = None
 build_seconds = None
@@ -65,6 +67,15 @@ _SIGNATURES = {
     #  jitter, bf16, stream)
     "rbs_block_gather": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                          _I, _I, _F, _I, _P),
+    # (bidx, C, P, CP, n, n_base, ny, nl, bf16, stream)
+    "rbs_probe_gather_cp": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
+    # (bidx, Wt, P, out, n, n_base, rw, nl, do_gather, do_dot, bf16, stream)
+    "rbs_probe_rebase_parts": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                               _P),
+    # (ai, P, out, n, n_all, nl, bf16, stream)
+    "rbs_probe_gather": (_P, _P, _P, _LL, _LL, _I, _I, _P),
+    # (C, P, out, n, ny, nl, bf16, stream)
+    "rbs_probe_block_products": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 
 
@@ -83,7 +94,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

@@ -9,12 +9,22 @@ from .linalg import (
     tril_solve,
 )
 from .procrustes import ProcrustesTransform, procrustes, procrustes_transform
-from .quaternions import expq, logq, qinv, qmul, quat_to_rmat, rmat_to_quat
+from .quaternions import (
+    expq,
+    logq,
+    mcross,
+    qinv,
+    qmul,
+    quat_to_euler,
+    quat_to_rmat,
+    rmat_to_quat,
+)
 
 __all__ = [
     "ess_from_logw", "gaussian_logpdf_chol", "half_logdet",
     "logsumexp_normalize", "psd_cholesky", "solve_psd", "symmetrize",
     "tril_solve",
     "ProcrustesTransform", "procrustes", "procrustes_transform",
-    "expq", "logq", "qinv", "qmul", "quat_to_rmat", "rmat_to_quat",
+    "expq", "logq", "mcross", "qinv", "qmul", "quat_to_euler", "quat_to_rmat",
+    "rmat_to_quat",
 ]

@@ -7,7 +7,24 @@ trailing axis; canonical sign has a nonnegative scalar part
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def mcross(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix [v x] (tools/mcross.m:33-42):
+    v [..., 3] -> [..., 3, 3] with (M @ w) == cross(v, w)."""
+    v1, v2, v3 = v[..., 0], v[..., 1], v[..., 2]
+    z = torch.zeros_like(v1)
+    return torch.stack(
+        [
+            torch.stack([z, -v3, v2], dim=-1),
+            torch.stack([v3, z, -v1], dim=-1),
+            torch.stack([-v2, v1, z], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def expq(phi: torch.Tensor) -> torch.Tensor:
@@ -104,3 +121,17 @@ def rmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cand, -2, idx)[..., 0, :]
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> [yaw, pitch, roll] in degrees (tools/quat2euler.m:32-34)."""
+    q0, q1, q2, q3 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    e = torch.stack(
+        [
+            torch.atan2(2 * (q2 * q3 - q0 * q1), 2 * (q0**2 + q3**2) - 1.0),
+            -torch.asin(torch.clamp(2 * (q1 * q3 + q0 * q2), -1.0, 1.0)),
+            torch.atan2(2 * (q1 * q2 - q0 * q3), 2 * (q0**2 + q1**2) - 1.0),
+        ],
+        dim=-1,
+    )
+    return e * (180.0 / math.pi)

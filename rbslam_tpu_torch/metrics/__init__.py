@@ -1,3 +1,3 @@
-from .rmse import aligned_position_rmse, rms
+from .rmse import aligned_position_rmse, orientation_rmse_deg, rms
 
-__all__ = ["aligned_position_rmse", "rms"]
+__all__ = ["aligned_position_rmse", "orientation_rmse_deg", "rms"]

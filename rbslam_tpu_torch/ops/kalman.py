@@ -1,5 +1,5 @@
-"""Batched per-particle Kalman measurement updates, small-ny form (port of
-rbslam_tpu/ops/kalman.py:107-289).
+"""Batched per-particle Kalman measurement updates, dense models (port of
+rbslam_tpu/ops/kalman.py:107-324).
 
 Dense path (src/particleFilter.m:137-150,181-198): per particle i,
 
@@ -8,13 +8,13 @@ Dense path (src/particleFilter.m:137-150,181-198): per particle i,
     K_i = P_i C_i' S_i^{-1}
     xl_i += K_i e_i ;  P_i -= K_i S_i K_i'
 
-The ny x ny algebra is closed-form and elementwise over the batch. All
-contractions accumulate in float32 whatever the covariance storage
-dtype. The downdate is a sum of ny broadcast outer products formed in
-float32 (an [N, nl, nl] float32 temporary) and subtracted in the storage
-dtype, so bf16 storage rounds where the reference rounds. The masked
-(sparse) update and the ny > 3 form come with the engine paths that use
-them.
+For ny <= 3 the ny x ny algebra is closed-form and elementwise over the
+batch (the "small" form); for ny > 3 it goes through
+``torch.linalg`` (the "lax" form). All contractions accumulate in float32
+whatever the covariance storage dtype. The downdate is formed in float32
+(an [N, nl, nl] float32 temporary) and subtracted in the storage dtype,
+so bf16 storage rounds where the reference rounds. The masked (sparse)
+update comes with the engine path that uses it.
 """
 
 from __future__ import annotations
@@ -23,7 +23,13 @@ import math
 
 import torch
 
-from ..math.linalg import symmetrize
+from ..math.linalg import (
+    gaussian_logpdf_chol,
+    half_logdet,
+    psd_cholesky,
+    solve_psd,
+    symmetrize,
+)
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -123,8 +129,8 @@ def _inv_from_chol_small_batched(L: torch.Tensor) -> torch.Tensor:
 def kalman_update_dense_batched(C, P, xl, y, R, jitter: float,
                                 joseph: bool = False,
                                 symmetrize_out: bool = True):
-    """Whole-ensemble dense KF update, ny <= 3: C [N,ny,nl], P [N,nl,nl]
-    (any storage dtype), xl [N,nl]. Returns (xl', P', logw [N], retried [N]).
+    """Whole-ensemble dense KF update: C [N,ny,nl], P [N,nl,nl] (any
+    storage dtype), xl [N,nl]. Returns (xl', P', logw [N], retried [N]).
     See :func:`kalman_update_dense_batched_hld`."""
     return kalman_update_dense_batched_hld(
         C, P, xl, y, R, jitter, joseph, symmetrize_out
@@ -137,18 +143,40 @@ def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
     """As :func:`kalman_update_dense_batched` but additionally returns
     ``hld_S [N] = sum log diag chol(S)``, the innovation half-log-det that
     the information-form smoother's ``halfLogDetP`` recursion consumes
-    (src/particleSmootherInformationForm.m:298).
+    (src/particleSmootherInformationForm.m:298). ny <= 3 takes the small
+    form, ny > 3 the lax form.
 
-    As the reference path, the contractions use P's LAST axis (exact for
-    the symmetric covariance), the downdate is formed in float32 and
-    subtracted in P's storage dtype, and a float32 C against a bf16 P is
-    promoted to float32.
+    The downdate is formed in float32 and subtracted in P's storage dtype,
+    and a float32 C against a bf16 P is promoted to float32.
     """
-    if C.shape[1] > 3:
-        raise NotImplementedError(
-            "ny > 3 dense update (the lax form, rbslam_tpu/ops/kalman.py:"
-            "292-324) is ROADMAP queue 1 item 4"
-        )
+    if C.shape[1] <= 3:
+        return _kalman_update_dense_batched_small(
+            C, P, xl, y, R, jitter, joseph, symmetrize_out)
+    return _kalman_update_dense_batched_lax(
+        C, P, xl, y, R, jitter, joseph, symmetrize_out)
+
+
+def _finish(K, Cf, P, R, downdate, joseph, symmetrize_out):
+    """P' from the gain: the Joseph form, or P minus the float32
+    ``downdate()`` rounded to P's dtype; then the optional symmetrization."""
+    f32 = torch.float32
+    if joseph:
+        n = P.shape[-1]
+        IKC = torch.eye(n, dtype=f32, device=P.device) - K @ Cf
+        P_new = torch.einsum("pij,pjk,plk->pil", IKC, P.to(f32), IKC) \
+            + K @ R @ K.transpose(-1, -2)
+    else:
+        P_new = P - downdate().to(P.dtype)
+    if symmetrize_out:
+        P_new = symmetrize(P_new)
+    return P_new.to(P.dtype)
+
+
+def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
+                                       symmetrize_out=True):
+    """The ny <= 3 form: closed-form ny x ny algebra. As the reference
+    path, the contractions use P's LAST axis (exact for the symmetric
+    covariance)."""
     f32 = torch.float32
     Cf = C.to(f32)
     e = y[None, :] - torch.einsum("pij,pj->pi", Cf, xl.to(f32))
@@ -162,18 +190,36 @@ def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
     Sinv = _inv_from_chol_small_batched(L)
     K = torch.einsum("pji,pjk->pik", CP, Sinv)              # [N, nl, ny]
     xl_new = xl + torch.einsum("pij,pj->pi", K, e)
-    if joseph:
-        n = P.shape[-1]
-        IKC = torch.eye(n, dtype=f32, device=P.device) - K @ Cf
-        P_new = torch.einsum("pij,pjk,plk->pil", IKC, P.to(f32), IKC) \
-            + K @ R @ K.transpose(-1, -2)
-    else:
+
+    def downdate():
         # P - K S K' == P - (CP)' Sinv (CP): rank-ny sum of broadcasts
         X = torch.einsum("pij,pjk->pik", Sinv, CP)
-        downdate = sum(
-            CP[:, j][:, :, None] * X[:, j][:, None, :] for j in range(ny)
-        )
-        P_new = P - downdate.to(P.dtype)
-    if symmetrize_out:
-        P_new = symmetrize(P_new)
-    return xl_new, P_new.to(P.dtype), logw, retried, hld
+        return sum(CP[:, j][:, :, None] * X[:, j][:, None, :]
+                   for j in range(ny))
+
+    P_new = _finish(K, Cf, P, R, downdate, joseph, symmetrize_out)
+    return xl_new, P_new, logw, retried, hld
+
+
+def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
+                                     symmetrize_out=True):
+    """The ny > 3 form (rbslam_tpu/ops/kalman.py:292-324): the innovation
+    covariance is factored by :func:`psd_cholesky` (per-particle jitter
+    retry and Gershgorin repair) and the gain comes from two triangular
+    solves. As written there, C P contracts P's FIRST matrix axis
+    ('pij,pjk'), where the small form contracts its last; the two agree
+    for a symmetric P."""
+    f32 = torch.float32
+    Cf = C.to(f32)
+    e = y[None, :] - torch.einsum("pij,pj->pi", Cf, xl.to(f32))
+    CP = torch.einsum("pij,pjk->pik", Cf, P.to(f32))
+    S = torch.einsum("pik,pjk->pij", CP, Cf) + R
+    L, retried = psd_cholesky(S, jitter)
+    logw = gaussian_logpdf_chol(e, L)
+    hld = half_logdet(L)
+    K = solve_psd(L, CP).transpose(-1, -2)                  # [N, nl, ny]
+    xl_new = xl + torch.einsum("pij,pj->pi", K, e)
+    P_new = _finish(
+        K, Cf, P, R, lambda: torch.einsum("pij,pjk,plk->pil", K, S, K),
+        joseph, symmetrize_out)
+    return xl_new, P_new, logw, retried, hld

@@ -1,3 +1,9 @@
-from .interop import Problem, problem_from_numpy, radio_problem_from_numpy
+from .interop import (
+    Problem,
+    ekf_inputs,
+    problem_from_numpy,
+    radio_problem_from_numpy,
+)
 
-__all__ = ["Problem", "problem_from_numpy", "radio_problem_from_numpy"]
+__all__ = ["Problem", "ekf_inputs", "problem_from_numpy",
+           "radio_problem_from_numpy"]

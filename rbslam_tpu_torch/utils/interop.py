@@ -82,3 +82,18 @@ def radio_problem_from_numpy(NN, L, eigenvalues, center, k, Q, R, dt, dx, y,
         _basis_from_numpy(NN, L, eigenvalues),
         center=np.array(center, np.float32), device=device)
     return _problem(model, None, k, Q, R, dt, dx, y, init_state, device)
+
+
+def ekf_inputs(problem: Problem, center):
+    """(x0 [6 + n_lin], q0 [4], P0 [n, n]) of the dense EKF
+    (engines.run_ekf_dense) on a dense-mag problem: the initial position
+    relative to the domain ``center`` [3], zero orientation error and map,
+    and the prior covariance on the map block only."""
+    device = problem.y.device
+    center = torch.as_tensor(np.asarray(center, np.float32), device=device)
+    n_lin = problem.model.n_lin
+    x0 = torch.cat([problem.x0_nonlin[:3] - center,
+                    torch.zeros(3 + n_lin, device=device)])
+    P0 = torch.zeros((6 + n_lin, 6 + n_lin), device=device)
+    P0[6:, 6:] = problem.P0_lin
+    return x0, problem.x0_nonlin[3:7], P0

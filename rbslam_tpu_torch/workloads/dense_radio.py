@@ -15,8 +15,6 @@ Run on the GPU:  python -m rbslam_tpu_torch.workloads.dense_radio --quick
 from __future__ import annotations
 
 import argparse
-import json
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +33,7 @@ from ..engines import (
 from ..metrics import aligned_position_rmse
 from ..models import make_radio2d_model
 from ..utils.interop import Problem, radio_problem_from_numpy
+from .common import Timer, report
 
 
 @dataclass(frozen=True)
@@ -96,11 +95,6 @@ def build_problem(cfg: DenseRadioConfig, generator: torch.Generator,
     return problem, data
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(cfg: DenseRadioConfig, *, device) -> dict:
     """Filter, then ``cfg.n_sweeps`` smoother sweeps, ``cfg.n_mc`` times on
     one field; Procrustes-aligned position RMSE of each."""
@@ -114,15 +108,14 @@ def run(cfg: DenseRadioConfig, *, device) -> dict:
                                       device=device)
         field_weights = data.field_weights
 
-        t0 = time.perf_counter()
-        res = run_rbpf(
-            *problem.rbpf_args(),
-            RBPFConfig(n_particles=cfg.n_particles,
-                       resampling=cfg.resampling),
-            generator=gen, device=device,
-        )
-        _sync(device)
-        times.setdefault("filter_s", []).append(time.perf_counter() - t0)
+        with Timer(device) as t_f:
+            res = run_rbpf(
+                *problem.rbpf_args(),
+                RBPFConfig(n_particles=cfg.n_particles,
+                           resampling=cfg.resampling),
+                generator=gen, device=device,
+            )
+        times.setdefault("filter_s", []).append(t_f.elapsed)
         rmse_filter.append([
             float(aligned_position_rmse(data.pos, res.traj_max[:, :2])),
             float(aligned_position_rmse(data.pos, res.traj_mean[:, :2])),
@@ -131,17 +124,15 @@ def run(cfg: DenseRadioConfig, *, device) -> dict:
         if cfg.n_sweeps > 0:
             smoother = (run_rbps_information_form
                         if cfg.smoother == "info_form" else run_rbps)
-            t0 = time.perf_counter()
-            res_s = smoother(
-                *problem.rbpf_args(),
-                RBPSConfig(n_particles=cfg.n_particles,
-                           n_sweeps=cfg.n_sweeps,
-                           resampling=cfg.resampling),
-                generator=gen, device=device,
-            )
-            _sync(device)
-            times.setdefault("smoother_s", []).append(
-                time.perf_counter() - t0)
+            with Timer(device) as t_s:
+                res_s = smoother(
+                    *problem.rbpf_args(),
+                    RBPSConfig(n_particles=cfg.n_particles,
+                               n_sweeps=cfg.n_sweeps,
+                               resampling=cfg.resampling),
+                    generator=gen, device=device,
+                )
+            times.setdefault("smoother_s", []).append(t_s.elapsed)
             rmse_smoother.append([
                 float(aligned_position_rmse(data.pos, res_s.XNK[s, :, :2]))
                 for s in range(cfg.n_sweeps)
@@ -200,7 +191,7 @@ def main(argv=None):
         smoother=args.smoother,
         seed=args.seed,
     )
-    print(json.dumps(run(cfg, device=args.device)))
+    report(run(cfg, device=args.device))
 
 
 if __name__ == "__main__":

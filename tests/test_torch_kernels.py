@@ -236,10 +236,10 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     kf_update_block_gather(bidx, C, xl, P_base, y, R)
     phi_basis(consts, pos)
     mag3d_jacobian(consts, pos, q, 128)
-    assert launch_counts() == {"grad_basis": 0, "jac3d_rows": 0,
-                               "gather_cp": 0, "rebase": 0,
-                               "block_gather": 0, "phi_basis": 0,
-                               "jac3d": 0}
+    counts = launch_counts()
+    assert {"grad_basis", "jac3d_rows", "gather_cp", "rebase",
+            "block_gather", "phi_basis", "jac3d"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 @pytest.fixture

@@ -1,0 +1,295 @@
+"""The kernel-part probes K8-K11 of the port.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against the jnp expression that the probe's TPU script itself uses as its
+reference (scripts/profile_gather_cp.py, profile_rebase_parts.py,
+profile_gather_kernel.py, profile_block_mxu.py), evaluated with JAX on the
+CPU on the same numpy inputs. The scripts run on import and pass no
+interpret flag, so the expressions are written out here. ``TestOnCard``
+(marker ``gpu``) compares each CUDA kernel with its plain version, repeats
+the cross-checks on the kernels, and skips without a card; it needs no JAX.
+
+Tolerances: float32 1e-5 of the output's scale; bf16 one bf16 rounding
+(2^-8) of the scale; the bare gather exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rbslam_tpu_torch.kernels import (  # noqa: E402
+    gather_cp,
+    kf_rebase,
+    launch_counts,
+    probe_block_products,
+    probe_block_products_plain,
+    probe_gather,
+    probe_gather_cp,
+    probe_gather_cp_plain,
+    probe_gather_plain,
+    probe_rebase_parts,
+    probe_rebase_parts_plain,
+    reset_launch_counts,
+)
+
+TDTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 1e-5, "bfloat16": 2.0**-8}
+SHAPES = [(32, 16), (32, 24)]          # (N, nl)
+VARIANTS = [(True, False), (False, True), (True, True), (False, False)]
+
+
+def _inputs(n, nl, rw=8, ny=3, seed=0):
+    """bidx/ai (with duplicates), C, Wt, P as float32 numpy arrays."""
+    rng = np.random.default_rng(seed + 17 * nl)
+    P = rng.normal(size=(n, nl, nl)).astype(np.float32)
+    Wt = (0.1 * rng.normal(size=(n, rw, nl))).astype(np.float32)
+    C = (0.3 * rng.normal(size=(n, ny, nl))).astype(np.float32)
+    idx = np.sort(rng.integers(0, n, size=n)).astype(np.int32)
+    return idx, C, Wt, P
+
+
+def _t(a, dtype=None):
+    x = torch.tensor(np.asarray(a))
+    return x if dtype is None else x.to(dtype)
+
+
+def _close(port, ref, dtype):
+    """port (torch) against ref (a JAX array), both shown in float32."""
+    a = port.float().numpy()
+    b = np.asarray(ref.astype("float32"))
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= TOL[dtype] * max(np.abs(b).max(), 1e-30)
+
+
+@pytest.fixture(scope="module")
+def jnp():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    return jnp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,nl", SHAPES)
+def test_gather_cp_probe_matches_jax(jnp, n, nl, dtype):
+    import jax
+
+    bidx, C, _, P = _inputs(n, nl)
+    Pj = jnp.asarray(P).astype(dtype)
+    # the script's reference (profile_gather_cp.py:86-88), with its gather
+    ref = jax.lax.dot_general(
+        jnp.asarray(C).astype(dtype), jnp.take(Pj, bidx, axis=0),
+        (((2,), (1,)), ((0,), (0,))), preferred_element_type=jnp.float32)
+    out = probe_gather_cp(_t(bidx), _t(C), _t(P, TDTYPE[dtype]))
+    assert out.dtype == torch.float32
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("do_gather,do_dot", VARIANTS)
+@pytest.mark.parametrize("n,nl", SHAPES)
+def test_rebase_parts_probe_matches_jax(jnp, n, nl, do_gather, do_dot, dtype):
+    import jax
+
+    bidx, _, Wt, P = _inputs(n, nl)
+    Pj = jnp.asarray(P).astype(dtype)
+    Wj = jnp.asarray(Wt).astype(dtype)
+    src = jnp.take(Pj, bidx, axis=0) if do_gather else jnp.zeros_like(Pj)
+    if do_dot:
+        dd = jax.lax.dot_general(Wj, Wj, (((1,), (1,)), ((0,), (0,))),
+                                 preferred_element_type=jnp.float32)
+        ref = src - dd.astype(Pj.dtype)
+    else:
+        ref = src
+    td = TDTYPE[dtype]
+    out = probe_rebase_parts(_t(bidx), _t(Wt, td), _t(P, td), do_gather,
+                             do_dot)
+    assert out.dtype == td
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,nl", SHAPES)
+def test_gather_probe_equals_jnp_take(jnp, n, nl, dtype):
+    ai, _, _, P = _inputs(n, nl)
+    Pj = jnp.asarray(P).astype(dtype)
+    ref = np.asarray(jnp.take(Pj, ai, axis=0).astype("float32"))
+    out = probe_gather(_t(ai), _t(P, TDTYPE[dtype]))
+    assert out.dtype == TDTYPE[dtype]
+    assert np.array_equal(out.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,nl", SHAPES)
+def test_block_products_probe_matches_jax(jnp, n, nl, dtype):
+    import jax
+
+    _, C, _, P = _inputs(n, nl)
+    Pj = jnp.asarray(P).astype(dtype)
+    # _kernel with _products_batched (profile_block_mxu.py:45-56, 77-81)
+    Pf = Pj.astype(jnp.float32)
+    Cf = jnp.asarray(C)
+    CP = jax.lax.dot_general(Cf, Pf, (((2,), (1,)), ((0,), (0,))),
+                             preferred_element_type=jnp.float32)
+    dd = jax.lax.dot_general(CP, 0.7 * CP, (((1,), (1,)), ((0,), (0,))),
+                             preferred_element_type=jnp.float32)
+    ref = (Pf - dd).astype(Pj.dtype)
+    out = probe_block_products(_t(C), _t(P, TDTYPE[dtype]))
+    assert out.dtype == TDTYPE[dtype]
+    _close(out, ref, dtype)
+
+
+def _cross_checks(device, dtype, n, nl, rw=8):
+    """The four identities that tie the probes to K2, K3 and to each other,
+    through the wrappers (plain versions on the CPU, kernels on a card)."""
+    bidx, C, Wt, P = _inputs(n, nl, rw=rw)
+    td = TDTYPE[dtype]
+    bidx = _t(bidx).to(device)
+    P = _t(P, td).to(device)
+    Wt = _t(Wt, td).to(device)
+    C_st = _t(C, td).to(device)            # C already in P's dtype
+    # K10 against the one PyTorch call that computes it
+    g = probe_gather(bidx, P)
+    assert torch.equal(g, torch.index_select(P, 0, bidx.long()))
+    # K9(gather, no dot) is K10
+    assert torch.equal(probe_rebase_parts(bidx, Wt, P, True, False), g)
+    # K9(gather, dot) is K3
+    assert torch.equal(probe_rebase_parts(bidx, Wt, P, True, True),
+                       kf_rebase(bidx, Wt, P))
+    # K8 is K2 with Wt = 0
+    assert torch.equal(probe_gather_cp(bidx, C_st.float(), P),
+                       gather_cp(bidx, C_st, torch.zeros_like(Wt), P))
+    # write only is zeros, dot + write is the negated rounded product
+    assert not bool(probe_rebase_parts(bidx, Wt, P, False, False).any())
+    assert torch.equal(
+        probe_rebase_parts(bidx, Wt, P, False, True),
+        probe_rebase_parts(bidx, Wt, torch.zeros_like(P), True, True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,nl", SHAPES)
+def test_cross_checks_hold_on_plain_versions(n, nl, dtype):
+    _cross_checks("cpu", dtype, n, nl)
+
+
+def test_cpu_tensors_take_plain_version_and_count_nothing():
+    reset_launch_counts()
+    bidx, C, Wt, P = map(_t, _inputs(8, 16))
+    assert torch.equal(probe_gather_cp(bidx, C, P),
+                       probe_gather_cp_plain(bidx, C, P))
+    assert torch.equal(probe_rebase_parts(bidx, Wt, P),
+                       probe_rebase_parts_plain(bidx, Wt, P))
+    assert torch.equal(probe_gather(bidx, P), probe_gather_plain(bidx, P))
+    assert torch.equal(probe_block_products(C, P),
+                       probe_block_products_plain(C, P))
+    assert set(launch_counts().values()) == {0}
+
+
+def test_wrappers_reject_bad_inputs():
+    bidx, C, Wt, P = map(_t, _inputs(8, 16))
+    with pytest.raises(TypeError, match="int32"):
+        probe_gather(bidx.long(), P)
+    with pytest.raises(TypeError, match="int32"):
+        probe_gather_cp(bidx[:4], C, P)
+    with pytest.raises(TypeError, match="float32"):
+        probe_gather_cp(bidx, C.bfloat16(), P)
+    with pytest.raises(ValueError, match="ny <= 3"):
+        probe_block_products(torch.zeros(8, 4, 16), P)
+    with pytest.raises(TypeError, match="Wt must be"):
+        probe_rebase_parts(bidx, Wt.bfloat16(), P)
+    with pytest.raises(TypeError, match="P must be"):
+        probe_gather(bidx, P.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_gather(bidx, P.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        probe_gather(bidx.to("meta"), P.to("meta"))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90a): the CUDA kernels have "
+                    "no CPU mode; their plain versions are tested above")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+class TestOnCard:
+    """Each probe kernel against its plain version on the card: f32 1e-4
+    of the output's max magnitude and elementwise rtol 1e-4 with a floor
+    of 1e-6 of that magnitude; bf16 2e-2 of the max magnitude; the gather
+    exact."""
+
+    @staticmethod
+    def _check(kernel_out, plain_out, dtype):
+        assert kernel_out.shape == plain_out.shape
+        assert kernel_out.dtype == plain_out.dtype
+        a, b = kernel_out.float(), plain_out.float()
+        assert bool(torch.isfinite(a).all())
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= tol * scale
+        if dtype == "float32":
+            assert torch.allclose(a, b, rtol=tol, atol=1e-6 * scale)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,nl,rw", [(32, 16, 8), (32, 24, 8),
+                                         (256, 128, 24), (64, 512, 21)])
+    def test_probe_kernels(self, card, dtype, n, nl, rw):
+        bidx, C, Wt, P = _inputs(n, nl, rw=rw)
+        td = TDTYPE[dtype]
+        bidx, C = _t(bidx).to(card), _t(C).to(card)
+        Wt, P = _t(Wt, td).to(card), _t(P, td).to(card)
+        before = launch_counts()
+        self._check(probe_gather_cp(bidx, C, P),
+                    probe_gather_cp_plain(bidx, C, P), dtype)
+        for do_gather, do_dot in VARIANTS:
+            self._check(
+                probe_rebase_parts(bidx, Wt, P, do_gather, do_dot),
+                probe_rebase_parts_plain(bidx, Wt, P, do_gather, do_dot),
+                dtype)
+        assert torch.equal(probe_gather(bidx, P), probe_gather_plain(bidx, P))
+        self._check(probe_block_products(C, P),
+                    probe_block_products_plain(C, P), dtype)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        grew = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert grew == {"probe_gather_cp": 1, "probe_rebase_parts": 4,
+                        "probe_gather": 1, "probe_block_products": 1}
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,nl", [(32, 16), (256, 128), (64, 512)])
+    def test_cross_checks_hold_on_kernels(self, card, dtype, n, nl):
+        _cross_checks(card, dtype, n, nl)
+
+    def test_bad_index_writes_nan(self, card):
+        bidx, C, Wt, P = _inputs(8, 16)
+        bidx = _t(bidx).to(card)
+        bidx[2], bidx[5] = -1, 8
+        C, Wt, P = (_t(a).to(card) for a in (C, Wt, P))
+        good = torch.ones(8, dtype=torch.bool, device=card)
+        good[2] = good[5] = False
+        for out in (probe_gather(bidx, P), probe_gather_cp(bidx, C, P),
+                    probe_rebase_parts(bidx, Wt, P),
+                    probe_rebase_parts(bidx, Wt, P, True, False)):
+            flat = out.reshape(8, -1)
+            assert bool(torch.isnan(flat[~good]).all())
+            assert bool(torch.isfinite(flat[good]).all())
+        # without the gather the index is never read
+        assert bool(torch.isfinite(
+            probe_rebase_parts(bidx, Wt, P, False, True)).all())
+
+    def test_empty_inputs_launch_nothing(self, card):
+        before = launch_counts()
+        e_i = torch.zeros(0, dtype=torch.int32, device=card)
+        P = torch.zeros((4, 16, 16), device=card)
+        assert probe_gather(e_i, P).shape == (0, 16, 16)
+        assert probe_gather_cp(e_i, torch.zeros((0, 3, 16), device=card),
+                               P).shape == (0, 3, 16)
+        assert probe_rebase_parts(e_i, torch.zeros((0, 8, 16), device=card),
+                                  P).shape == (0, 16, 16)
+        assert probe_block_products(
+            torch.zeros((0, 3, 16), device=card), P[:0]).shape == (0, 16, 16)
+        assert launch_counts() == before

@@ -74,9 +74,10 @@ def build_slice_problem():
     return prob, jargs, int(data.y.shape[0])
 
 
-def assert_runs_match(port, ref):
+def assert_runs_match(port, ref, map_rtol=0.0):
     """The slice tolerances: ancestors and retry counts equal; traj_mean
-    atol 1e-3; xl_mean and P_mean 5e-3; logw and log_evidence 1e-2."""
+    atol 1e-3; xl_mean and P_mean 5e-3 (plus ``map_rtol`` of the value);
+    logw and log_evidence 1e-2."""
     np.testing.assert_array_equal(_np(port.ancestors), _np(ref.ancestors))
     assert int(port.chol_retries) == int(ref.chol_retries)
     np.testing.assert_allclose(_np(port.traj_mean), _np(ref.traj_mean),
@@ -85,7 +86,7 @@ def assert_runs_match(port, ref):
         assert getattr(port, field).shape == getattr(ref, field).shape
         np.testing.assert_allclose(_np(getattr(port, field)),
                                    _np(getattr(ref, field)), atol=5e-3,
-                                   err_msg=field)
+                                   rtol=map_rtol, err_msg=field)
     np.testing.assert_allclose(_np(port.logw), _np(ref.logw), atol=1e-2)
     np.testing.assert_allclose(float(port.log_evidence),
                                float(ref.log_evidence), atol=1e-2)
@@ -266,10 +267,68 @@ def test_masked_or_nan_y_rejected(slice_run):
                  device="cpu", noise=slice_run["noise"], mask=mask)
 
 
-@pytest.mark.parametrize("case", ["mesh", "sparse_model", "dense_ny4"])
+def ny4_problem(prob, jargs):
+    """A dense model with four observation rows for both packages: the
+    mag3d rows and the mean of the first two as a fourth, y and R
+    extended to match. Returns (port run_rbpf arguments, JAX arguments)."""
+    def extend(C, cat):
+        return cat([C, 0.5 * (C[..., 0:1, :] + C[..., 1:2, :])], -2)
+
+    jmodel = jargs[0]
+    jmodel4 = jmodel._replace(
+        ny=4, meas_jacobian_batch=None,
+        meas_jacobian=lambda xn: extend(jmodel.meas_jacobian(xn),
+                                        jnp.concatenate))
+    tmodel = prob.model
+    tmodel4 = tmodel._replace(
+        ny=4, meas_jacobian_batch=None, meas_jacobian_batch_rows=None,
+        meas_jacobian=lambda xn: extend(tmodel.meas_jacobian(xn), torch.cat))
+    y = np.asarray(jargs[2])
+    y4 = np.concatenate([y, 0.5 * (y[:, 0:1] + y[:, 1:2]) + 0.1], axis=-1)
+    R4 = np.diag([10.0, 10.0, 10.0, 5.0]).astype(np.float32)
+    targs = list(prob.rbpf_args())
+    targs[0], targs[2], targs[7] = tmodel4, torch.tensor(y4), torch.tensor(R4)
+    jargs4 = list(jargs)
+    jargs4[0], jargs4[2], jargs4[7] = jmodel4, jnp.asarray(y4), jnp.asarray(R4)
+    return targs, jargs4
+
+
+@pytest.mark.parametrize("kf_kernel", ["xla", "block_gather", "lowrank"])
+@pytest.mark.parametrize("symmetrize_cov", [True, False])
+def test_dense_ny4_filter_matches_jax(slice_run, kf_kernel, symmetrize_cov,
+                                      monkeypatch, recwarn):
+    """A dense model with ny = 4 runs the lax-form update on the xla path,
+    whatever kf_kernel names (the kernels take ny <= 3), as in the JAX
+    package: none of the Kalman update wrappers (K1-K3 through
+    kf_update_lowrank and kf_rebase, K5) is called, and a kernel path that
+    was asked for says so in a warning."""
+    from rbslam_tpu_torch.engines import rbpf as rbpf_module
+
+    def not_on_this_path(*args, **kwargs):
+        raise AssertionError("a Kalman update kernel wrapper was called")
+
+    for name in ("kf_update_block_gather", "kf_update_lowrank", "kf_rebase"):
+        monkeypatch.setattr(rbpf_module, name, not_on_this_path)
+    targs, jargs4 = ny4_problem(slice_run["prob"], slice_run["jargs"])
+    kw = dict(kf_kernel=kf_kernel, symmetrize_cov=symmetrize_cov)
+    ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs4, _config(JConfig, **kw))
+    recwarn.clear()
+    port = run_rbpf(*targs, _config(RBPFConfig, **kw), generator=None,
+                    device="cpu", noise=slice_run["noise"])
+    said = [str(w.message) for w in recwarn.list
+            if "runs the 'xla' path" in str(w.message)]
+    assert len(said) == (0 if kf_kernel == "xla" else 1)
+    assert all(repr(kf_kernel) in msg and "ny=4" in msg for msg in said)
+    assert port.P.shape == (N_P, 32, 32)
+    # P_mean entries of magnitude 400 differ by 2.6e-5 of their value (the
+    # LAPACK factor-and-solve of S against XLA's, in float32): rtol 1e-4
+    assert_runs_match(port, ref, map_rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["mesh", "sparse_model"])
 def test_unported_paths_raise(slice_run, case):
     """What the port does not have yet raises, naming its ROADMAP item:
-    a mesh, a sparse (EKF-linearized) model and the dense ny > 3 form."""
+    a mesh and a sparse (EKF-linearized) model."""
     from rbslam_tpu.models.base import SparseModel
 
     prob = slice_run["prob"]
@@ -277,13 +336,11 @@ def test_unported_paths_raise(slice_run, case):
     kw = {}
     if case == "mesh":
         kw["mesh"] = object()
-    elif case == "sparse_model":
+    else:
         m = prob.model
         args[0] = SparseModel(dynamics=m.dynamics, dyn_residual=None,
                               measure=m.meas_jacobian, n_nonlin=7,
                               n_lin=m.n_lin, ny=m.ny)
-    else:
-        args[0] = prob.model._replace(ny=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_rbpf(*args, _config(RBPFConfig), generator=None, device="cpu",
                  noise=slice_run["noise"], **kw)
@@ -351,7 +408,8 @@ def test_port_builds_its_own_problem():
 
 def test_package_never_imports_jax():
     """Import the port with JAX made unimportable and run 2-step lowrank
-    and block_gather filters and the radio workload with both smoothers."""
+    and block_gather filters, the radio workload with both smoothers, the
+    dense-mag workload (EKF included) and the kernel-part profile."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -374,7 +432,15 @@ def test_package_never_imports_jax():
                     n_steps=6, n_particles=4, n_sweeps=2, m_basis=8,
                     m_sim=16, smoother=smoother), device="cpu")
             assert len(out["rmse_smoother_per_sweep"]) == 2
+        from rbslam_tpu_torch.workloads import dense_mag, profile_kernel_parts
+        out = dense_mag.run(dense_mag.DenseMagConfig(
+            n_particles=4, n_sweeps=1, m_basis=8, m_sim=16, n_laps=1,
+            n_per_lap=6), device="cpu")
+        assert out["n_steps"] == 6 and "rmse_ekf_pos" in out
+        prof = profile_kernel_parts.run("cpu", (4, 5, "float32"), reps=1)
+        assert len(prof["rows"]) == 27
         assert not any(m == "jax" or m.startswith("jax.")
+                       or m == "rbslam_tpu" or m.startswith("rbslam_tpu.")
                        for m, v in sys.modules.items() if v is not None)
         print("ok")
     """)

@@ -543,9 +543,37 @@ def test_generator_draws_are_reproducible(mag):
     assert bool(torch.isfinite(runs[0].XLK).all())
 
 
+@pytest.mark.parametrize("ancestor_form", ["woodbury", "cholesky"])
+def test_dense_ny4_info_form_matches_jax(mag, mag_noise, ancestor_form):
+    """A dense model with ny = 4: the lax-form update in the filter pass and
+    psd_cholesky in the rank-ny inverse maintenance."""
+    from test_torch_rbpf import ny4_problem
+
+    targs, jargs4 = ny4_problem(mag["prob"], mag["jargs"])
+    kw = dict(ancestor_form=ancestor_form)
+    ref = jrun_info(jax.random.PRNGKey(0), *jargs4,
+                    _mag_config(JSConfig, **kw))
+    port = run_rbps_information_form(
+        *targs, _mag_config(RBPSConfig, **kw), generator=None, device="cpu",
+        noise=mag_noise)
+    assert_smoothers_match(port, ref)
+
+
+def test_dense_ny4_cpf_as_matches_jax(mag):
+    from test_torch_rbpf import ny4_problem
+
+    targs, jargs4 = ny4_problem(mag["prob"], mag["jargs"])
+    noise = smoother_noise(jax.random.PRNGKey(0), N_K, T_STEPS, N_P, 6,
+                           "systematic", info_form=False)
+    ref = jrbps.run_rbps(jax.random.PRNGKey(0), *jargs4,
+                         _mag_config(JSConfig))
+    port = run_rbps(*targs, _mag_config(RBPSConfig), generator=None,
+                    device="cpu", noise=noise)
+    assert_smoothers_match(port, ref)
+
+
 @pytest.mark.parametrize("entry", ["run_rbps", "run_rbps_information_form"])
-@pytest.mark.parametrize("case", ["sparse_model", "checkpoint_dir", "mesh",
-                                  "dense_ny4"])
+@pytest.mark.parametrize("case", ["sparse_model", "checkpoint_dir", "mesh"])
 def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
     """What the port does not have yet raises, naming its ROADMAP item."""
     from rbslam_tpu.models.base import SparseModel
@@ -560,8 +588,6 @@ def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
         args[0] = SparseModel(dynamics=m.dynamics, dyn_residual=None,
                               measure=m.meas_jacobian, n_nonlin=7,
                               n_lin=m.n_lin, ny=m.ny)
-    elif case == "dense_ny4":
-        args[0] = prob.model._replace(ny=4)
     elif case == "checkpoint_dir":
         kw["checkpoint_dir"] = "unused"
     else:
