@@ -7,10 +7,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
  2. build the CUDA kernels from rbslam_tpu_torch/csrc (one nvcc per
     source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
-    paths' shapes, and time both; the probes K8-K11 in bf16 at N=16384,
-    nl=128 and in f32 at N=4096, nl=512, with their cross-checks (K10
-    bit-equal to torch.index_select, K9 gather+dot to K3, K8 to K2 with
-    Wt = 0, K9 gather only to K10) and torch.index_select's time;
+    paths' shapes, and time both (the median of five groups of ten
+    launches, the spread beside it); K3 also at rw = 8 and 40 and at
+    nl = 136; the probes K8-K11 in bf16 at N=16384, nl=128 and in f32 at
+    N=4096, nl=512, with their cross-checks (K10 bit-equal to
+    torch.index_select, K9 gather+dot to K3, K8 to K2 with Wt = 0, K9
+    gather only to K10), and K10, K9 gather + write and torch.index_select
+    timed in turns on the same indices;
  4. headline run of the port's filter: bean_6D, N_P=16384, m=125 (n_lin
     128), T=192, bf16 covariance, lowrank r=8, systematic resampling;
     check finiteness, the launch counts of every kernel, position RMSE,
@@ -113,7 +116,13 @@ from rbslam_tpu_torch.workloads import (
     profile_kernel_parts,
 )
 from rbslam_tpu_torch.workloads.dense_mag import build_problem
-from rbslam_tpu_torch.workloads.profile_kernel_parts import bound_ms, time_ms
+from rbslam_tpu_torch.workloads.profile_kernel_parts import (
+    GROUPS,
+    bound_ms,
+    time_alternately,
+    time_ms,
+    time_stats,
+)
 
 KERNELS = {
     "jac3d_rows": ("rbslam_tpu_torch/csrc/basis_eval.cu",
@@ -218,9 +227,10 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
                 f"{name} {shape_note}: elementwise error above rtol "
                 f"{TOL[torch.float32]}, atol {1e-6 * scale:.3e}")
     bound_info = bound(inputs, outs_k, flops, flop_dtype)
-    ms = time_ms(kernel, device)
+    ms, lo, hi = time_stats(kernel, device)
     plain_ms = time_ms(plain, device)
-    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms ({lo:.4f}-{hi:.4f} "
+        f"over {GROUPS} groups of 10) plain={plain_ms:.4f} ms "
         f"bound={bound_info['bound_ms']:.4f} ms ({bound_info['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info}
 
@@ -321,6 +331,26 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         rows.setdefault("rebase", r)
         del bidx, C, Wt, P_base, gathered
 
+    # K3 at other factor widths (the zero padding of rw to 16 at bf16) and
+    # at a map width that is no power of two (ragged row blocks and items).
+    # Tolerances as everywhere (f32 1e-4, bf16 2e-2 of the scale): kernel
+    # and plain version differ in the order of the f32 sum over rw products
+    for nn, nll, rww in ((2048, 128, 8), (2048, 128, 40), (512, 512, 8),
+                         (512, 512, 40), (1024, 136, 24)):
+        for dt in (torch.bfloat16, torch.float32):
+            P_base = torch.randn((nn, nll, nll), generator=g,
+                                 device=device).to(dt)
+            Wt = (0.1 * torch.randn((nn, rww, nll), generator=g,
+                                    device=device)).to(dt)
+            bidx = torch.randint(0, nn, (nn,), generator=g, device=device,
+                                 dtype=torch.int32)
+            compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
+                    lambda: rebase_plain(bidx, Wt, P_base), device, dt,
+                    f"N={nn} rw={rww} nl={nll} {dt}",
+                    (bidx, Wt, gathered_bytes(bidx, P_base)),
+                    2 * nn * rww * nll * nll, dt)
+            del P_base, Wt, bidx
+
     def block_inputs(nn, nyy, nll, dt):
         B = torch.randn((nn, nll, nll), generator=g, device=device)
         P = (0.05 * (B + B.transpose(1, 2))
@@ -380,11 +410,19 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         r = compare("probe_gather", lambda: probe_gather(bidx, P),
                     lambda: probe_gather_plain(bidx, P), device, dt, note,
                     (bidx, gathered), 0, dt, exact=True)
+        # the three copies in turns on the same (unsorted) indices
         bidx64 = bidx.long()
-        r["library_ms"] = time_ms(
-            lambda: torch.index_select(P, 0, bidx64), device)
-        log(f"[3] probe_gather {note}: torch.index_select "
-            f"{r['library_ms']:.4f} ms")
+        copies = time_alternately({
+            "K10 probe_gather": lambda: probe_gather(bidx, P),
+            "K9 gather + write": lambda: probe_rebase_parts(bidx, Wt, P, True,
+                                                            False),
+            "torch.index_select": lambda: torch.index_select(P, 0, bidx64),
+        }, device)
+        for what, (ms, lo, hi) in copies.items():
+            log(f"[3] copies in turns, {note}: {what} {ms:.4f} ms "
+                f"({lo:.4f}-{hi:.4f} over {GROUPS} groups of 10)")
+        r["ms"] = copies["K10 probe_gather"][0]
+        r["library_ms"] = copies["torch.index_select"][0]
         rows.setdefault("probe_gather", r)
         r = compare("probe_block_products",
                     lambda: probe_block_products(C, P),
@@ -626,12 +664,12 @@ def phase_ekf_plain_vs_card(device, B=3, m=64, T=24):
 
 def phase_kernel_parts(device, zero, reps=10):
     """Phase 10: the kernel-part profile at both shapes. Each timed
-    function is launched once to warm up and ``reps`` times between the
-    events. Per index pattern (three): K10, K8, K2, K3 and K5 once each
+    function is launched once to warm up and in ``GROUPS`` groups of
+    ``reps`` between events. Per index pattern (three): K10, K8, K2, K3 and K5 once each
     and K9 twice (gather + write, gather + dot + write); without an index:
     K9 twice (dot + write, write only) and K11; K4 once for the Jacobian
     at the initial state. Returns the launch counts of the last shape."""
-    per = reps + 1
+    per = 1 + GROUPS * reps
     expect = {**zero, "grad_basis": 1, "probe_gather": 3 * per,
               "probe_gather_cp": 3 * per, "gather_cp": 3 * per,
               "probe_rebase_parts": (3 * 2 + 2) * per, "rebase": 3 * per,

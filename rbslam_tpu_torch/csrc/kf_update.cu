@@ -42,18 +42,22 @@
 //
 // K3 rebase  replaces rbslam_tpu/kernels/kf_update.py:_kernel_rebase
 //     P'[b] = P_base[bidx[b]] - round(Wt[b]^T Wt[b])                -> [N, nl, nl]
-//   Bound: one read of the gathered P_base rows plus one write of P'
-//   (2*N*nl*nl*itemsize bytes per rebase); the rank-rw product adds
-//   2*rw flops per element. Design: one block per particle with Wt[b]
-//   staged once in shared memory (f32); each thread takes items of 8 rows
-//   x 2 adjacent columns, issues the item's 8 paired loads of P_base first,
-//   forms the 16 dot products in f32 from shared memory (the column pair
-//   in one 8-byte read, the row entries broadcast across the warp), rounds
-//   them to the storage dtype and subtracts. The output is a new tensor:
-//   several particles read the same ancestor row of P_base, so it can
-//   never be updated in place.
+//   Bound: its bytes, one read of the gathered P_base rows plus one write
+//   of P' (2*N*nl*nl*itemsize per rebase); the rank-rw product adds 2*rw
+//   flops per element, which the tensor cores (bf16) or f32 FMA must hide
+//   under the copy. Design (rebase_kernel<T, true, true> of kf_common.cuh):
+//   one block per particle; a producer warp brings Wt[b] and the ancestor's
+//   matrix, in row blocks through a four-stage shared-memory ring, by
+//   asynchronous bulk copies (mbarriers); eight consumer warps
+//   form Wt^T Wt for the rows at hand, at bf16 by mma.sync.m16n8k16 with f32
+//   accumulation on operands from ldmatrix.trans, at f32 by FMA on 4 x 4
+//   register blocks (no TF32), round it to the storage dtype, subtract and
+//   store 16 bytes a thread. The output is a new tensor: several particles
+//   read the same ancestor row of P_base, so it can never be updated in
+//   place.
 //
-// nl must be a multiple of 8 (the engine pads it to a multiple of 128).
+// nl must be a multiple of 8 (the engine pads it to a multiple of 128);
+// K3 needs P_base, Wt and P_out 16-byte aligned (bulk copies).
 // All offsets are 64-bit (N*nl*nl exceeds 2^31 at 131k particles). An
 // ancestor or base index outside [0, n_base) writes NaN into that
 // particle's output instead of reading out of bounds, so a bad index shows
@@ -334,19 +338,6 @@ cudaError_t launch_gather_cp_ny(int ny, const void* bidx, const void* C,
   }
 }
 
-template <typename T>
-cudaError_t launch_rebase(const void* bidx, const void* Wt, const void* P_base,
-                          void* P_out, long long n, long long n_base, int rw,
-                          int nl, cudaStream_t s) {
-  const size_t smem = (size_t)rw * nl * sizeof(float);
-  cudaError_t err = allow_smem(rebase_kernel<T, true, true>, smem);
-  if (err != cudaSuccess) return err;
-  rebase_kernel<T, true, true><<<(unsigned)n, kRebaseThreads, smem, s>>>(
-      static_cast<const int*>(bidx), static_cast<const T*>(Wt),
-      static_cast<const T*>(P_base), static_cast<T*>(P_out), n_base, rw, nl);
-  return cudaGetLastError();
-}
-
 template <typename T, int NY>
 cudaError_t launch_block_gather(const void* ai, const void* C, const void* e,
                                 const void* xl, const void* P_all,
@@ -421,7 +412,7 @@ extern "C" int rbs_rebase(const void* bidx, const void* Wt, const void* P_base,
   if (nl % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_rebase<__nv_bfloat16>(bidx, Wt, P_base, P_out, n, n_base, rw, nl, s)
-           : launch_rebase<float>(bidx, Wt, P_base, P_out, n, n_base, rw, nl, s);
+      bf16 ? launch_rebase_kernel<__nv_bfloat16, true, true>(bidx, Wt, P_base, P_out, n, n_base, rw, nl, s)
+           : launch_rebase_kernel<float, true, true>(bidx, Wt, P_base, P_out, n, n_base, rw, nl, s);
   return (int)err;
 }

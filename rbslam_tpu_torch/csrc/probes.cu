@@ -15,11 +15,24 @@
 //   rebase_kernel of kf_common.cuh) and write only. Without the gather the
 //   kernel reads nothing of P or bidx and still writes all N*nl*nl elements.
 //   Bound: the bytes of the variant (write, plus the gathered read, plus Wt).
+//   Design: with the product, K3's (bulk-copy ring, tensor cores at bf16);
+//   without it the variant is a copy, so it runs K10's piece-major gather
+//   (gather + write) or 16-byte stores of zeros (write only).
 //
 // K10 probe_gather  replaces scripts/profile_gather_kernel.py:_gather_kernel
 //     out[b] = P[ai[b]], no arithmetic.
-//   Bound: one read and one write of N*nl*nl*itemsize. Design: one block per
-//   particle, 16-byte copies, neighbouring threads on neighbouring addresses.
+//   Bound: one read of each distinct matrix and one write of N*nl*nl*
+//   itemsize. A copy of whole matrices (one block a matrix, 16-byte register
+//   copies) already runs at the rate the memory gives a mixed read and
+//   write stream; it loses where an index repeats far from its twin,
+//   because the second read goes to memory again. Design
+//   (gather_piece of kf_common.cuh, which K9 runs too): one warp per 2 KB
+//   piece of one matrix, in by one asynchronous bulk copy (cp.async.bulk,
+//   completion on an mbarrier) and out by another, walking piece-major (all
+//   matrices' first piece, then all matrices' second, ...), so the pieces in
+//   use at a time fit L2 and a repeated index hits it wherever it stands;
+//   loads ask L2 to keep their lines, stores to drop theirs first. The
+//   indices need not be sorted.
 //
 // K11 probe_block_products  replaces scripts/profile_block_mxu.py:_kernel
 //     CP = C[b] P[b] (f32)   out[b] = round_P(P[b] - CP^T (0.7 CP))
@@ -32,7 +45,8 @@
 //   writes row by row; P stays in shared memory between the passes where it
 //   fits (nl=128), else pass 2 reads it again (nl=512 f32 is 1 MB).
 //
-// nl must be a multiple of 8. All offsets are 64-bit. An index outside
+// nl must be a multiple of 8; K9 and K10 need P, Wt and the output 16-byte
+// aligned (bulk copies). All offsets are 64-bit. An index outside
 // [0, n_base) writes NaN into that particle's output.
 
 #include "kf_common.cuh"
@@ -42,25 +56,12 @@ namespace {
 constexpr int kProbeThreads = 256;
 
 template <typename T>
-__global__ void __launch_bounds__(kProbeThreads)
+__global__ void __launch_bounds__(32)
 gather_kernel(const int* __restrict__ ai, const T* __restrict__ P,
-              T* __restrict__ out, long long n_all, int nl) {
-  const long long b = blockIdx.x;
-  const long long row = (long long)nl * nl;
-  const long long src = ai[b];
-  T* Ob = out + b * row;
-  if (src < 0 || src >= n_all) {
-    for (long long k = 2 * threadIdx.x; k < row; k += 2 * blockDim.x) {
-      store_pair(Ob + k, quiet_nan(), quiet_nan());
-    }
-    return;
-  }
-  // nl % 8 == 0: a particle's matrix is a whole number of 16-byte words
-  const uint4* s = reinterpret_cast<const uint4*>(P + src * row);
-  uint4* d = reinterpret_cast<uint4*>(Ob);
-  const int nvec = (int)(row * sizeof(T) / sizeof(uint4));
-#pragma unroll 4
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) d[i] = s[i];
+              T* __restrict__ out, long long n, long long n_all, int nl) {
+  extern __shared__ __align__(128) unsigned char gather_stage[];
+  __shared__ uint64_t full;
+  gather_piece<T>(ai, P, out, n, n_all, nl, gather_stage, &full);
 }
 
 template <typename T, int NY>
@@ -164,20 +165,6 @@ cudaError_t launch_probe_gather_cp_ny(int ny, const void* bidx, const void* C,
   }
 }
 
-template <typename T, bool kGather, bool kDot>
-cudaError_t launch_rebase_parts(const void* bidx, const void* Wt,
-                                const void* P, void* out, long long n,
-                                long long n_base, int rw, int nl,
-                                cudaStream_t s) {
-  const size_t smem = kDot ? (size_t)rw * nl * sizeof(float) : 0;
-  cudaError_t err = allow_smem(rebase_kernel<T, kGather, kDot>, smem);
-  if (err != cudaSuccess) return err;
-  rebase_kernel<T, kGather, kDot><<<(unsigned)n, kRebaseThreads, smem, s>>>(
-      static_cast<const int*>(bidx), static_cast<const T*>(Wt),
-      static_cast<const T*>(P), static_cast<T*>(out), n_base, rw, nl);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_rebase_parts_flags(int do_gather, int do_dot,
                                       const void* bidx, const void* Wt,
@@ -185,20 +172,22 @@ cudaError_t launch_rebase_parts_flags(int do_gather, int do_dot,
                                       long long n_base, int rw, int nl,
                                       cudaStream_t s) {
   if (do_gather) {
-    return do_dot ? launch_rebase_parts<T, true, true>(bidx, Wt, P, out, n, n_base, rw, nl, s)
-                  : launch_rebase_parts<T, true, false>(bidx, Wt, P, out, n, n_base, rw, nl, s);
+    return do_dot ? launch_rebase_kernel<T, true, true>(bidx, Wt, P, out, n, n_base, rw, nl, s)
+                  : launch_rebase_kernel<T, true, false>(bidx, Wt, P, out, n, n_base, rw, nl, s);
   }
-  return do_dot ? launch_rebase_parts<T, false, true>(bidx, Wt, P, out, n, n_base, rw, nl, s)
-                : launch_rebase_parts<T, false, false>(bidx, Wt, P, out, n, n_base, rw, nl, s);
+  return do_dot ? launch_rebase_kernel<T, false, true>(bidx, Wt, P, out, n, n_base, rw, nl, s)
+                : launch_rebase_kernel<T, false, false>(bidx, Wt, P, out, n, n_base, rw, nl, s);
 }
 
 template <typename T>
 cudaError_t launch_gather(const void* ai, const void* P, void* out,
                           long long n, long long n_all, int nl,
                           cudaStream_t s) {
-  gather_kernel<T><<<(unsigned)n, kProbeThreads, 0, s>>>(
+  const long long blocks = n * gather_pieces(nl, sizeof(T));
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gather_kernel<T><<<(unsigned)blocks, 32, kGatherPiece, s>>>(
       static_cast<const int*>(ai), static_cast<const T*>(P),
-      static_cast<T*>(out), n_all, nl);
+      static_cast<T*>(out), n, n_all, nl);
   return cudaGetLastError();
 }
 

@@ -85,6 +85,52 @@ def _check_factored(bidx, Wt, P_base) -> tuple[int, int, int]:
     return n, rw, nl
 
 
+def _require_aligned(**tensors) -> None:
+    """The rebase and gather kernels move P by 16-byte bulk copies: every
+    tensor they touch must start on a 16-byte boundary (a contiguous view
+    with a storage offset may not)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned, its data_ptr() "
+                             f"is {t.data_ptr():#x} (clone the view)")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _rebase_smem(rw: int, nl: int, itemsize: int, gather: bool = True,
+                 dot: bool = True) -> int:
+    """Bytes of dynamic shared memory the rebase kernel needs (the mirror
+    of ``rebase_smem_bytes`` in csrc/kf_common.cuh): without the product
+    one 2 KB piece of the gather, or nothing; with it four stages of whole row
+    blocks of P (about 8 KB each at bf16, 16 KB at f32) when P is gathered,
+    and the staged factor: Wt [rw, nl] in f32, or at bf16 Wt padded to
+    [round_up(rw, 16), round_up(nl, 16) + 8] plus eight [16, 72]
+    accumulator tiles."""
+    if not dot:
+        return 2048 if gather else 0
+    row_block, stage_bytes = (16, 8192) if itemsize == 2 else (4, 16384)
+    rows = max(stage_bytes // (nl * itemsize) // row_block * row_block,
+               row_block)
+    rows = min(rows, _round_up(nl, row_block))
+    ring = 4 * rows * nl * itemsize if gather else 0
+    if itemsize == 4:
+        return ring + 4 * rw * nl
+    return ring + 2 * _round_up(rw, 16) * (_round_up(nl, 16) + 8) \
+        + 8 * 16 * 72 * 2
+
+
+def _check_rebase_fits(name, rw, nl, itemsize, gather=True, dot=True) -> None:
+    if nl % 8:
+        raise ValueError(f"{name} kernel: nl={nl} must be a multiple of 8")
+    need = _rebase_smem(rw, nl, itemsize, gather, dot)
+    if need > _MAX_SMEM:
+        raise ValueError(
+            f"{name} kernel: Wt [{rw}, {nl}] and the ring of P's row blocks "
+            f"must fit shared memory ({need} > {_MAX_SMEM} bytes)")
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -130,14 +176,17 @@ def gather_cp(bidx, C, Wt, P_base) -> torch.Tensor:
 def kf_rebase(bidx, Wt, P_base) -> torch.Tensor:
     """P' [N, nl, nl] = P_base[bidx] - Wt^T Wt in the storage dtype (K3;
     replaces rbslam_tpu/kernels/kf_update.py:_kernel_rebase). Always a
-    new tensor: several particles may read one ancestor row of P_base."""
+    new tensor: several particles may read one ancestor row of P_base.
+    The kernel moves P by 16-byte bulk copies through shared memory: nl a
+    multiple of 8, P_base and Wt 16-byte aligned, and the ring of P's row
+    blocks plus the staged Wt [rw, nl] within a block's shared memory
+    (``_rebase_smem``), else ValueError."""
     n, rw, nl = _check_factored(bidx, Wt, P_base)
     if _on_cpu(P_base):
         return rebase_plain(bidx, Wt, P_base)
-    if nl % 8 or 4 * rw * nl > _MAX_SMEM:
-        raise ValueError(f"kf_rebase kernel: nl={nl} must be a multiple of "
-                         f"8 and Wt [{rw}, {nl}] fit shared memory")
+    _check_rebase_fits("kf_rebase", rw, nl, P_base.element_size())
     out = torch.empty((n, nl, nl), dtype=P_base.dtype, device=P_base.device)
+    _require_aligned(P_base=P_base, Wt=Wt, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
     code = _lib.lib().rbs_rebase(

@@ -10,7 +10,8 @@ beside K2, K3 and K5.
 Each wrapper takes the plain version for tensors on the CPU, launches its
 kernel (``csrc/probes.cu``) for CUDA tensors, and raises for any other
 device. An index outside [0, n_base) writes NaN into that particle's
-output.
+output. K9 and K10 move P by 16-byte bulk copies: their tensors must be
+16-byte aligned (a ValueError otherwise).
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ from __future__ import annotations
 import torch
 
 from . import _lib
-from .kf_update import _MAX_SMEM, _STORAGE, _on_cpu
+from .kf_update import (
+    _MAX_SMEM,
+    _STORAGE,
+    _check_rebase_fits,
+    _on_cpu,
+    _require_aligned,
+)
 
 
 def probe_gather_cp_plain(bidx, C, P) -> torch.Tensor:
@@ -150,11 +157,10 @@ def probe_rebase_parts(bidx, Wt, P, do_gather: bool = True,
     _check_inputs(("bidx", bidx), ("Wt", Wt), ("P", P))
     if _on_cpu(P):
         return probe_rebase_parts_plain(bidx, Wt, P, do_gather, do_dot)
-    _check_nl("probe_rebase_parts", nl)
-    if 4 * rw * nl > _MAX_SMEM:
-        raise ValueError(f"probe_rebase_parts kernel: Wt [{rw}, {nl}] must "
-                         "fit shared memory")
+    _check_rebase_fits("probe_rebase_parts", rw, nl, P.element_size(),
+                       do_gather, do_dot)
     out = torch.empty((n, nl, nl), dtype=P.dtype, device=P.device)
+    _require_aligned(P=P, Wt=Wt, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
     code = _lib.lib().rbs_probe_rebase_parts(
@@ -181,6 +187,7 @@ def probe_gather(ai, P) -> torch.Tensor:
         return probe_gather_plain(ai, P)
     _check_nl("probe_gather", nl)
     out = torch.empty((n, nl, nl), dtype=P.dtype, device=P.device)
+    _require_aligned(P=P, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
     code = _lib.lib().rbs_probe_gather(

@@ -7,8 +7,10 @@ On the dense-mag problem (C: the model's Jacobian at the initial state;
 P = diag(k) in the storage dtype for the kernels that factor the innovation,
 a random P for the others; random factor rows Wt), for three index patterns
 (identity, sorted random, systematic ancestors of softmax(2 normal)
-weights), each kernel is timed with CUDA events around ``reps`` launches
-after one warm-up, next to its bound (its bytes, with a gathered matrix
+weights), each kernel is timed as the median of five groups of ``reps``
+launches between CUDA events after one warm-up (the spread is printed; the
+bare gather, the rebase's gather + write and ``torch.index_select`` in turns
+on the same indices), next to its bound (its bytes, with a gathered matrix
 counted once per distinct index, over 3.35 TB/s, or its operations over
 the card's peak) and, for the bare gather, next to ``torch.index_select``.
 The decomposition:
@@ -66,22 +68,50 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return by_ops, "operations"
 
 
-def time_ms(fn, device, reps: int = 10):
-    """Mean milliseconds per call on a CUDA device: events around ``reps``
-    calls after one warm-up call. On the CPU the function runs once and
-    None is returned: a CPU time is no device metric."""
-    fn()
-    if device.type != "cuda":
-        return None
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+GROUPS = 5                  # timed groups of ``reps`` launches per function
+
+
+def time_alternately(fns: dict, device, reps: int = 10,
+                     groups: int = GROUPS) -> dict:
+    """Time several functions in turns on a CUDA device, so that a drift
+    of the card's clocks meets all of them alike: after one warm-up call
+    each, ``groups`` rounds in which every function in turn gets CUDA
+    events around ``reps`` calls. Returns {name: (median, least, most)}
+    milliseconds per call over the groups; the spread says how small a
+    difference the medians can decide. On the CPU every function runs
+    once and its entry is None: a CPU time is no device metric."""
+    for fn in fns.values():
         fn()
-    end.record()
+    if device.type != "cuda":
+        return dict.fromkeys(fns)
     torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
+    times = {name: [] for name in fns}
+    for _ in range(groups):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize(device)
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: (sorted(ts)[len(ts) // 2], min(ts), max(ts))
+            for name, ts in times.items()}
+
+
+def time_stats(fn, device, reps: int = 10, groups: int = GROUPS):
+    """(median, least, most) milliseconds per call of one function: see
+    :func:`time_alternately`. None on the CPU."""
+    return time_alternately({"fn": fn}, device, reps, groups)["fn"]
+
+
+def time_ms(fn, device, reps: int = 10, groups: int = GROUPS):
+    """Median milliseconds per call on a CUDA device over ``groups`` groups
+    of ``reps`` calls after one warm-up call (1 + groups * reps calls in
+    all). On the CPU the function runs once and None is returned."""
+    stats = time_stats(fn, device, reps, groups)
+    return None if stats is None else stats[0]
 
 
 def index_patterns(n: int, generator: torch.Generator, device) -> dict:
@@ -140,58 +170,68 @@ def run(device="cuda", shape="headline", *, generator=None, reps: int = 10,
              "Wt": Wt.numel() * item, "CP": n * ny * nl * 4, "idx": n * 4}
     rows = []
 
-    def add(name, pattern, fn, nbytes, flops, unique=None):
-        ms = time_ms(fn, device, reps)
+    def add(name, pattern, stats, nbytes, flops, unique=None):
+        ms, lo, hi = stats if stats is not None else (None, None, None)
         b, bound_by = bound_ms(nbytes, flops, dtype)
         rows.append({
-            "kernel": name, "pattern": pattern, "ms": ms, "bound_ms": b,
-            "bound_by": bound_by,
+            "kernel": name, "pattern": pattern, "ms": ms, "ms_min": lo,
+            "ms_max": hi, "bound_ms": b, "bound_by": bound_by,
             "bytes": nbytes, "unique_indices": unique,
             "tb_per_s": None if ms is None else nbytes / (ms * 1e-3) / 1e12,
         })
         return ms
 
+    def timed(fn):
+        return time_stats(fn, device, reps)
+
     t = {}
     for pattern, idx in patterns.items():
         u = int(torch.unique(idx).numel())
         read, write = u * mat, n * mat
+        idx64 = idx.long()
+        # the three copies in turns on the same indices
+        copies = time_alternately({
+            "probe_gather": lambda: probe_gather(idx, P_rand),
+            "gather_write": lambda: probe_rebase_parts(idx, Wt, P_rand, True,
+                                                       False),
+            "index_select": lambda: torch.index_select(P_rand, 0, idx64),
+        }, device, reps)
         t[pattern] = {
             "probe_gather": add(
-                "probe_gather (K10)", pattern,
-                lambda: probe_gather(idx, P_rand),
+                "probe_gather (K10)", pattern, copies["probe_gather"],
                 small["idx"] + read + write, 0, u),
             "index_select": add(
-                "torch.index_select", pattern,
-                lambda: torch.index_select(P_rand, 0, idx),
+                "torch.index_select", pattern, copies["index_select"],
                 small["idx"] + read + write, 0, u),
             "probe_gather_cp": add(
                 "probe_gather_cp (K8)", pattern,
-                lambda: probe_gather_cp(idx, C, P_diag),
+                timed(lambda: probe_gather_cp(idx, C, P_diag)),
                 small["idx"] + small["C"] + read + small["CP"],
                 2 * n * ny * nl * nl, u),
             "gather_cp": add(
                 "gather_cp (K2)", pattern,
-                lambda: gather_cp(idx, C_st, Wt, P_diag),
+                timed(lambda: gather_cp(idx, C_st, Wt, P_diag)),
                 small["idx"] + small["C_st"] + small["Wt"] + read
                 + small["CP"], 2 * n * ny * nl * (nl + 2 * RW), u),
             "gather_write": add(
                 "probe_rebase_parts gather+write (K9)", pattern,
-                lambda: probe_rebase_parts(idx, Wt, P_rand, True, False),
+                copies["gather_write"],
                 small["idx"] + read + write, 0, u),
             "gather_dot_write": add(
                 "probe_rebase_parts gather+dot+write (K9)", pattern,
-                lambda: probe_rebase_parts(idx, Wt, P_rand, True, True),
+                timed(lambda: probe_rebase_parts(idx, Wt, P_rand, True,
+                                                 True)),
                 small["idx"] + small["Wt"] + read + write,
                 2 * n * RW * nl * nl, u),
             "rebase": add(
                 "kf_rebase (K3)", pattern,
-                lambda: kf_rebase(idx, Wt, P_rand),
+                timed(lambda: kf_rebase(idx, Wt, P_rand)),
                 small["idx"] + small["Wt"] + read + write,
                 2 * n * RW * nl * nl, u),
             "block_gather": add(
                 "kf_update_block_gather (K5)", pattern,
-                lambda: kf_update_block_gather(idx, C, xl, P_diag, y,
-                                               problem.R, 1e-3),
+                timed(lambda: kf_update_block_gather(idx, C, xl, P_diag, y,
+                                                     problem.R, 1e-3)),
                 small["idx"] + small["C"] + 2 * xl.numel() * 4 + read + write,
                 4 * n * ny * nl * nl, u),
         }
@@ -199,15 +239,15 @@ def run(device="cuda", shape="headline", *, generator=None, reps: int = 10,
     no_gather = {
         "dot_write": add(
             "probe_rebase_parts dot+write (K9)", None,
-            lambda: probe_rebase_parts(ident, Wt, P_rand, False, True),
+            timed(lambda: probe_rebase_parts(ident, Wt, P_rand, False, True)),
             small["Wt"] + n * mat, 2 * n * RW * nl * nl),
         "write_only": add(
             "probe_rebase_parts write only (K9)", None,
-            lambda: probe_rebase_parts(ident, Wt, P_rand, False, False),
+            timed(lambda: probe_rebase_parts(ident, Wt, P_rand, False, False)),
             n * mat, 0),
         "block_products": add(
             "probe_block_products (K11)", None,
-            lambda: probe_block_products(C, P_rand),
+            timed(lambda: probe_block_products(C, P_rand)),
             small["C"] + 2 * n * mat, 4 * n * ny * nl * nl),
     }
 
@@ -233,6 +273,12 @@ def run(device="cuda", shape="headline", *, generator=None, reps: int = 10,
             "K10_over_index_select": (
                 None if tp["probe_gather"] is None
                 else tp["probe_gather"] / tp["index_select"]),
+            "K9_gather_write_over_index_select": (
+                None if tp["gather_write"] is None
+                else tp["gather_write"] / tp["index_select"]),
+            "K3_over_gather_write": (
+                None if tp["rebase"] is None
+                else tp["rebase"] / tp["gather_write"]),
         }
         for pattern, tp in t.items()
     }
@@ -241,23 +287,25 @@ def run(device="cuda", shape="headline", *, generator=None, reps: int = 10,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "n_particles": n, "m_basis": m, "nl": nl, "rw": RW,
-        "cov_dtype": cov_dtype, "reps": reps,
+        "cov_dtype": cov_dtype, "reps": reps, "groups": GROUPS,
         "rows": rows, "decomposition": decomposition,
     }
 
 
 def print_table(out: dict) -> None:
     print(f"N={out['n_particles']} nl={out['nl']} rw={out['rw']} "
-          f"{out['cov_dtype']} on {out['device']}, mean of {out['reps']} "
-          "launches")
+          f"{out['cov_dtype']} on {out['device']}, median (least-most) of "
+          f"{out['groups']} groups of {out['reps']} launches")
     print(f"{'kernel':44s} {'indices':14s} {'distinct':>8s} {'ms':>9s} "
-          f"{'bound ms':>9s} {'TB/s':>7s}")
+          f"{'spread':>15s} {'bound ms':>9s} {'TB/s':>7s}")
     for r in out["rows"]:
         ms = "-" if r["ms"] is None else f"{r['ms']:.4f}"
+        spread = "-" if r["ms"] is None \
+            else f"{r['ms_min']:.4f}-{r['ms_max']:.4f}"
         tb = "-" if r["tb_per_s"] is None else f"{r['tb_per_s']:.3f}"
         u = "-" if r["unique_indices"] is None else str(r["unique_indices"])
         print(f"{r['kernel']:44s} {r['pattern'] or '-':14s} {u:>8s} "
-              f"{ms:>9s} {r['bound_ms']:9.4f} {tb:>7s}")
+              f"{ms:>9s} {spread:>15s} {r['bound_ms']:9.4f} {tb:>7s}")
     for pattern, d in out["decomposition"].items():
         print(f"  {pattern}: " + ", ".join(
             f"{k}={'-' if v is None else format(v, '.4f')}"

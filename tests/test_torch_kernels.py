@@ -115,9 +115,9 @@ def test_grad_basis_matches_basis_gradient():
                                rtol=1e-5, atol=1e-5)
 
 
-def _factored(ny, seed=3, N=32, nl=128):
+def _factored(ny, seed=3, N=32, nl=128, rw=None):
     rng = np.random.default_rng(seed)
-    rw = 8 * ny
+    rw = 8 * ny if rw is None else rw
     A = (0.2 * rng.normal(size=(N, nl, nl))).astype(np.float32)
     P_base = A @ A.transpose(0, 2, 1) + 2.0 * np.eye(nl, dtype=np.float32)
     Wt = np.zeros((N, rw, nl), np.float32)
@@ -165,6 +165,31 @@ def test_lowrank_update_and_rebase_match_jax(jx, ny, dtype):
     assert P_new.dtype == tdt
     _scaled_close(P_new.float().numpy(),
                   np.asarray(P_ref.astype(jnp.float32)), rel)
+
+
+@pytest.mark.parametrize("rw", [8, 24, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rebase_matches_jax_at_any_factor_width(jx, rw, dtype):
+    """K3's plain version against the JAX package's kf_rebase (interpret
+    mode) with every factor row filled, at widths that are and are not
+    multiples of 16. float32 1e-4 of the scale (order of the f32 sum);
+    bf16 one bf16 rounding (8e-3) of the scale."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(rw)
+    bidx, _, _, _, P_base, _, _ = _factored(3, seed=rw, N=16, rw=rw)
+    Wt = (0.1 * rng.normal(size=(16, rw, 128))).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    Wts, Ps = (np.asarray(jnp.asarray(a).astype(jdt).astype(jnp.float32))
+               for a in (Wt, P_base))
+    P_new = kf_rebase(t(bidx), t(Wts).to(tdt), t(Ps).to(tdt))
+    P_ref = jx["rebase"](jnp.asarray(bidx), jnp.asarray(Wts).astype(jdt),
+                         jnp.asarray(Ps).astype(jdt))
+    assert P_new.dtype == tdt and P_new.shape == (16, 128, 128)
+    _scaled_close(P_new.float().numpy(),
+                  np.asarray(P_ref.astype(jnp.float32)),
+                  1e-4 if dtype == "float32" else 8e-3)
+    assert torch.equal(P_new, rebase_plain(t(bidx), t(Wts).to(tdt),
+                                           t(Ps).to(tdt)))
 
 
 def test_lowrank_jitter_retry_matches_jax(jx):
@@ -336,7 +361,8 @@ class TestOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("ny,nl,rw", [(1, 128, 8), (3, 128, 24),
-                                          (3, 512, 21)])
+                                          (3, 512, 21), (3, 128, 40),
+                                          (3, 512, 40), (3, 136, 24)])
     def test_factored_kernels(self, card, dtype, ny, nl, rw):
         g = torch.Generator(device=card).manual_seed(nl + ny)
         n = 256

@@ -88,11 +88,13 @@ def test_gather_cp_probe_matches_jax(jnp, n, nl, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("do_gather,do_dot", VARIANTS)
-@pytest.mark.parametrize("n,nl", SHAPES)
-def test_rebase_parts_probe_matches_jax(jnp, n, nl, do_gather, do_dot, dtype):
+@pytest.mark.parametrize("n,nl,rw", [(32, 16, 8), (32, 24, 8), (32, 24, 24),
+                                     (16, 136, 40)])
+def test_rebase_parts_probe_matches_jax(jnp, n, nl, rw, do_gather, do_dot,
+                                        dtype):
     import jax
 
-    bidx, _, Wt, P = _inputs(n, nl)
+    bidx, _, Wt, P = _inputs(n, nl, rw=rw)
     Pj = jnp.asarray(P).astype(dtype)
     Wj = jnp.asarray(Wt).astype(dtype)
     src = jnp.take(Pj, bidx, axis=0) if do_gather else jnp.zeros_like(Pj)
@@ -168,9 +170,10 @@ def _cross_checks(device, dtype, n, nl, rw=8):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,nl", SHAPES)
-def test_cross_checks_hold_on_plain_versions(n, nl, dtype):
-    _cross_checks("cpu", dtype, n, nl)
+@pytest.mark.parametrize("n,nl,rw", [(32, 16, 8), (32, 24, 8), (32, 24, 24),
+                                     (16, 136, 40)])
+def test_cross_checks_hold_on_plain_versions(n, nl, rw, dtype):
+    _cross_checks("cpu", dtype, n, nl, rw=rw)
 
 
 def test_cpu_tensors_take_plain_version_and_count_nothing():
@@ -206,6 +209,42 @@ def test_wrappers_reject_bad_inputs():
         probe_gather(bidx.to("meta"), P.to("meta"))
 
 
+def test_kernel_paths_need_aligned_tensors_and_a_tile_that_fits():
+    """What the wrappers check before a launch (on CPU tensors the checks
+    are called directly: a wrapper takes the plain version there): the
+    bulk copies need 16-byte aligned tensors, and the rebase's ring and
+    staged factor must fit the 227 KB a block may use."""
+    from rbslam_tpu_torch.kernels.kf_update import (
+        _check_rebase_fits,
+        _rebase_smem,
+        _require_aligned,
+    )
+
+    base = torch.zeros(4 * 16 * 16 + 2)
+    _require_aligned(P=base[:1024].view(4, 16, 16))
+    shifted = base[1:1025].view(4, 16, 16)          # 4 bytes past 16
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _require_aligned(P=shifted)
+    # the main shapes and the widest factor fit, with room for 3 and 2
+    # blocks an SM
+    assert _rebase_smem(24, 128, 2) == 59904
+    assert _rebase_smem(24, 512, 4) == 114688
+    _check_rebase_fits("kf_rebase", 40, 512, 4)
+    _check_rebase_fits("probe_rebase_parts", 40, 512, 2, False, True)
+    # without the product only the gather's 2 KB piece, or nothing
+    assert _rebase_smem(24, 512, 4, True, False) == 2048
+    assert _rebase_smem(24, 512, 4, False, False) == 0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _check_rebase_fits("kf_rebase", 8, 20, 4)
+    with pytest.raises(ValueError, match="fit shared memory"):
+        _check_rebase_fits("kf_rebase", 24, 2048, 4)
+    with pytest.raises(ValueError, match="fit shared memory"):
+        _check_rebase_fits("probe_rebase_parts", 512, 512, 2, False, True)
+    # a copy needs no room for the factor
+    _check_rebase_fits("probe_rebase_parts", 512, 512, 2, True, False)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -236,8 +275,12 @@ class TestOnCard:
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     @pytest.mark.parametrize("n,nl,rw", [(32, 16, 8), (32, 24, 8),
-                                         (256, 128, 24), (64, 512, 21)])
+                                         (256, 128, 24), (64, 512, 21),
+                                         (300, 128, 8), (40, 512, 40),
+                                         (64, 136, 40), (16, 512, 24)])
     def test_probe_kernels(self, card, dtype, n, nl, rw):
+        # (16, 512, 24) in f32: dot + write asks for exactly 48 KB of
+        # dynamic shared memory beside the kernel's static barriers
         bidx, C, Wt, P = _inputs(n, nl, rw=rw)
         td = TDTYPE[dtype]
         bidx, C = _t(bidx).to(card), _t(C).to(card)
@@ -260,15 +303,21 @@ class TestOnCard:
                         "probe_gather": 1, "probe_block_products": 1}
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("n,nl", [(32, 16), (256, 128), (64, 512)])
-    def test_cross_checks_hold_on_kernels(self, card, dtype, n, nl):
-        _cross_checks(card, dtype, n, nl)
+    @pytest.mark.parametrize("n,nl,rw", [(32, 16, 8), (256, 128, 8),
+                                         (64, 512, 8), (256, 128, 24),
+                                         (64, 136, 40)])
+    def test_cross_checks_hold_on_kernels(self, card, dtype, n, nl, rw):
+        _cross_checks(card, dtype, n, nl, rw=rw)
 
-    def test_bad_index_writes_nan(self, card):
-        bidx, C, Wt, P = _inputs(8, 16)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("nl", [16, 136, 512])
+    def test_bad_index_writes_nan(self, card, dtype, nl):
+        bidx, C, Wt, P = _inputs(8, nl)
         bidx = _t(bidx).to(card)
         bidx[2], bidx[5] = -1, 8
-        C, Wt, P = (_t(a).to(card) for a in (C, Wt, P))
+        td = TDTYPE[dtype]
+        C = _t(C).to(card)
+        Wt, P = _t(Wt, td).to(card), _t(P, td).to(card)
         good = torch.ones(8, dtype=torch.bool, device=card)
         good[2] = good[5] = False
         for out in (probe_gather(bidx, P), probe_gather_cp(bidx, C, P),
@@ -293,3 +342,44 @@ class TestOnCard:
         assert probe_block_products(
             torch.zeros((0, 3, 16), device=card), P[:0]).shape == (0, 16, 16)
         assert launch_counts() == before
+
+    def test_misaligned_tensors_raise(self, card):
+        """A contiguous view that starts 4 bytes past a 16-byte boundary:
+        the kernels' bulk copies cannot take it, the wrappers say so."""
+        bidx, _, Wt, P = _inputs(8, 16)
+        bidx, Wt = _t(bidx).to(card), _t(Wt).to(card)
+        flat = torch.zeros(8 * 16 * 16 + 1, device=card)
+        shifted = flat[1:].view(8, 16, 16)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        before = launch_counts()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            probe_gather(bidx, shifted)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            probe_rebase_parts(bidx, Wt, shifted)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            kf_rebase(bidx, Wt, shifted)
+        assert launch_counts() == before
+
+    def test_tile_that_does_not_fit_raises(self, card):
+        bidx = torch.zeros(2, dtype=torch.int32, device=card)
+        Wt = torch.zeros((2, 24, 2048), device=card)
+        P = torch.zeros((2, 2048, 2048), device=card)
+        before = launch_counts()
+        with pytest.raises(ValueError, match="fit shared memory"):
+            kf_rebase(bidx, Wt, P)
+        with pytest.raises(ValueError, match="fit shared memory"):
+            probe_rebase_parts(bidx, Wt, P)
+        # the copies need no room for the factor
+        assert torch.equal(probe_rebase_parts(bidx, Wt, P, True, False),
+                           probe_gather(bidx, P))
+        assert launch_counts()["probe_gather"] == before["probe_gather"] + 1
+
+    def test_unsorted_indices_and_many_pieces(self, card):
+        """The gather walks piece-major over all matrices: an unsorted
+        index vector with repeats, more matrices than one wave of blocks."""
+        g = torch.Generator(device=card).manual_seed(3)
+        P = torch.randn((3000, 72, 72), generator=g, device=card)
+        ai = torch.randint(0, 3000, (5000,), generator=g, device=card,
+                           dtype=torch.int32)
+        assert torch.equal(probe_gather(ai, P),
+                           torch.index_select(P, 0, ai.long()))
