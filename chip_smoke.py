@@ -8,8 +8,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
     paths' shapes, and time both (the median of five groups of ten
-    launches, the spread beside it); K3 also at rw = 8 and 40 and at
-    nl = 136; the probes K8-K11 in bf16 at N=16384, nl=128 and in f32 at
+    launches, the spread beside it); K3 also at rw = 8 and 40, at nl = 136
+    and at nl = 2048 (its wide form); K5 in each of its forms (P resident
+    in the block, streamed, two passes), each launched twice for equal
+    bits; the probes K8-K11 in bf16 at N=16384, nl=128 and in f32 at
     N=4096, nl=512, with their cross-checks (K10 bit-equal to
     torch.index_select, K9 gather+dot to K3, K8 to K2 with Wt = 0, K9
     gather only to K10), and K10, K9 gather + write and torch.index_select
@@ -106,6 +108,7 @@ from rbslam_tpu_torch.kernels import (
     rebase_plain,
     reset_launch_counts,
 )
+from rbslam_tpu_torch.kernels.kf_update import _block_plan
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
 from rbslam_tpu_torch.metrics import aligned_position_rmse
@@ -331,12 +334,14 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         rows.setdefault("rebase", r)
         del bidx, C, Wt, P_base, gathered
 
-    # K3 at other factor widths (the zero padding of rw to 16 at bf16) and
-    # at a map width that is no power of two (ragged row blocks and items).
-    # Tolerances as everywhere (f32 1e-4, bf16 2e-2 of the scale): kernel
-    # and plain version differ in the order of the f32 sum over rw products
+    # K3 at other factor widths (the zero padding of rw to 16 at bf16), at
+    # a map width that is no power of two (ragged row blocks and items) and
+    # at nl = 2048, where the ring and the staged factor do not fit a block
+    # and the wide form runs. Tolerances as everywhere (f32 1e-4, bf16 2e-2
+    # of the scale): kernel and plain version differ in the order of the
+    # f32 sum over rw products
     for nn, nll, rww in ((2048, 128, 8), (2048, 128, 40), (512, 512, 8),
-                         (512, 512, 40), (1024, 136, 24)):
+                         (512, 512, 40), (1024, 136, 24), (64, 2048, 24)):
         for dt in (torch.bfloat16, torch.float32):
             P_base = torch.randn((nn, nll, nll), generator=g,
                                  device=device).to(dt)
@@ -365,21 +370,34 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         e = y[None] - torch.einsum("pij,pj->pi", C, xl)
         return ai, C, xl, P, y, R, e
 
-    # K5 on random ancestors: the headline and reference shapes, and ny=1
+    # K5 on random ancestors in each of its forms: P resident in the block
+    # (the headline shape, and ny=1), streamed (bf16 beyond nl=128) and two
+    # passes (the reference shape, f32 nl=1024); two launches give the same
+    # bits
     for nn, nyy, nll, dt in ((n, ny, nl, torch.bfloat16),
                              (n_ref, ny, nl_ref, torch.float32),
-                             (n, 1, nl, torch.float32)):
+                             (n, 1, nl, torch.float32),
+                             (n_ref, ny, nl_ref, torch.bfloat16),
+                             (256, ny, 1024, torch.float32),
+                             (256, 1, 1024, torch.bfloat16)):
         ai, C, xl, P, y, R, e = block_inputs(nn, nyy, nll, dt)
+        form = ("two passes", "resident", "streamed")[
+            _block_plan(nyy, nll, P.element_size())[0]]
+        note = f"N={nn} ny={nyy} nl={nll} {dt} ({form})"
         r = compare(
             "block_gather",
             lambda: kf_update_block_gather(ai, C, xl, P, y, R, 1e-3),
             lambda: block_gather_plain(ai, C, e, xl, P, R, 1e-3),
-            device, None, f"N={nn} ny={nyy} nl={nll} {dt}",
-            (ai, C, xl, gathered_bytes(ai, P), y, R),
+            device, None, note, (ai, C, xl, gathered_bytes(ai, P), y, R),
             4 * nn * nyy * nll * nll, dt,
         )
         rows.setdefault("block_gather", r)
-        del ai, C, xl, P, y, R, e
+        first = kf_update_block_gather(ai, C, xl, P, y, R, 1e-3)
+        second = kf_update_block_gather(ai, C, xl, P, y, R, 1e-3)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"block_gather {note}: two launches differ")
+        log(f"[3] block_gather {note}: two launches bit-equal")
+        del ai, C, xl, P, y, R, e, first, second
 
     # the probes K8-K11 at the TPU scripts' shape (bf16) and at the
     # reference shape (f32), with their cross-checks

@@ -1,9 +1,10 @@
 // Device code shared by the Kalman update kernels (kf_update.cu) and the
-// kernel-part probes (probes.cu): storage-dtype helpers, the gathered CP
-// contraction (K2, and K8 with the factor term compiled out), the gather by
-// asynchronous bulk copies (K10, and inside K9) and the rebase (K3, and K9
-// with its gather and its product switched separately). Each translation
-// unit instantiates its own copies (anonymous namespace).
+// kernel-part probes (probes.cu): storage-dtype helpers, the row-split pass
+// C P over rows of P in shared memory (K2, K8, and K5, K11 in kf_block.cuh),
+// the gathered CP contraction (K2, and K8 with the factor term compiled
+// out), the gather by asynchronous bulk copies (K10, and inside K9) and the
+// rebase (K3, and K9 with its gather and its product switched separately).
+// Each translation unit instantiates its own copies (anonymous namespace).
 
 #pragma once
 
@@ -54,8 +55,6 @@ __device__ __forceinline__ float storage_round(float v) {
   return to_float<T>(from_float<T>(v));
 }
 
-// keep a particle's P in shared memory up to here (2 blocks/SM)
-constexpr size_t kStashBytes = 110 * 1024;
 // shared memory one block may use on Hopper
 constexpr size_t kMaxSmem = 232448;
 
@@ -68,12 +67,32 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// CP[b] = round_T(C[b]) P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]   (K2)
+// Blocks of a persistent kernel: as many as the card holds at once, at most n.
+template <typename Kernel>
+cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                              long long n, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long all = (long long)sms * per_sm;
+  *blocks = (int)(n < all ? n : all);
+  return cudaSuccess;
+}
+
+// The direct form of K2 (and K8), for map widths the staged form below
+// does not take (more than 256 16-byte units a row, or a ring and C that do
+// not fit shared memory): CP[b] = round_T(C[b]) P_base[bidx[b]] -
+// round(C[b] Wt[b]^T) Wt[b], each thread on a column pair streaming every
+// row of P from global memory, Wt read from global memory twice.
 // C is read as TC and rounded to T (the identity where TC = T); with
 // kFactor false the factor term is compiled out and Wt is never read (K8).
 // Dynamic shared memory: (NY*nl + (kFactor ? NY*rw : 0)) floats.
 template <typename T, typename TC, int NY, bool kFactor>
-__global__ void gather_cp_kernel(const int* __restrict__ bidx,
+__global__ void gather_cp_direct_kernel(const int* __restrict__ bidx,
                                  const TC* __restrict__ C,
                                  const T* __restrict__ Wt,
                                  const T* __restrict__ P_base,
@@ -317,6 +336,397 @@ __device__ void zero_run(T* __restrict__ out, long long n, int nl) {
   for (int i = threadIdx.x; i < units; i += kZeroThreads) {
     dst[i] = make_uint4(0, 0, 0, 0);
   }
+}
+
+// ---- 16-byte units, and the row-split pass C P (K2, K8, K5, K11) --------
+// A pass over the rows of a matrix P [nl, nl] held in shared memory: a
+// thread owns one 16-byte unit of columns (4 f32 or 8 bf16 values) and the
+// rows j = g, g + groups, ... of its group g, so a warp reads whole 16-byte
+// units of neighbouring columns (no bank conflicts) and each thread keeps
+// NY x 4 or NY x 8 partial sums in registers. The partial sums of the
+// groups meet in shared memory, one set per warp where a warp holds whole
+// groups (a unit count that divides 32: summed first by shuffles), else one
+// set per group; the sets are summed in one fixed order, so two runs give
+// the same bits.
+
+template <typename T>
+struct Unit {
+  static constexpr int kElems = 16 / sizeof(T);
+};
+
+__device__ __forceinline__ void unit_values(uint4 x, float (&v)[4]) {
+  v[0] = __uint_as_float(x.x);
+  v[1] = __uint_as_float(x.y);
+  v[2] = __uint_as_float(x.z);
+  v[3] = __uint_as_float(x.w);
+}
+__device__ __forceinline__ void unit_values(uint4 x, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+// 16 bytes of T at p (shared or global memory) as floats
+template <typename T>
+__device__ __forceinline__ void load_unit(const T* p, float (&v)[16 / sizeof(T)]) {
+  unit_values(*reinterpret_cast<const uint4*>(p), v);
+}
+// the same from global memory, asking L2 to keep the line (it is read again)
+template <typename T>
+__device__ __forceinline__ void load_unit_keep(const T* p, float (&v)[16 / sizeof(T)],
+                                               uint64_t policy) {
+  uint4 x;
+  asm("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+      : "l"(p), "l"(policy));
+  unit_values(x, v);
+}
+// the same, the last read of the line (L2 may drop it first)
+template <typename T>
+__device__ __forceinline__ void load_unit_last(const T* p, float (&v)[16 / sizeof(T)]) {
+  unit_values(__ldcs(reinterpret_cast<const uint4*>(p)), v);
+}
+// 16 bytes to global memory as a streaming store (L2 drops the lines first)
+__device__ __forceinline__ void store_unit_stream(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_unit_stream(__nv_bfloat16* p,
+                                                  const float (&v)[8]) {
+  uint4 x;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), x);
+}
+
+constexpr int kRowThreads = 256;   // the threads of a row-split pass
+
+inline __host__ __device__ int row_units(int nl, int itemsize) {
+  return nl * itemsize / 16;
+}
+inline __host__ __device__ int row_groups(int units) {
+  return units >= kRowThreads ? 1 : kRowThreads / units;
+}
+inline __host__ __device__ bool row_shfl(int units) {
+  return units < 32 && 32 % units == 0;
+}
+// sets of partial sums in shared memory
+inline __host__ __device__ int row_sets(int units) {
+  return row_shfl(units) ? kRowThreads / 32 : row_groups(units);
+}
+
+// A thread's place in the pass (units <= kRowThreads: the planners see to it).
+struct RowSplit {
+  int units, groups, u, g, set;
+  bool active, shfl;
+  __device__ RowSplit(int nl, int itemsize, int tid) {
+    units = row_units(nl, itemsize);
+    groups = row_groups(units);
+    shfl = row_shfl(units);
+    u = tid % units;
+    g = tid / units;
+    active = g < groups;
+    set = shfl ? tid / 32 : g;
+  }
+};
+
+// acc[i][e] += Cr[i][j] P[j][unit u, element e] over this thread's rows j of
+// [j0, j1); `rows` holds row j0 of P [., nl], Cr is [NY][ldc]. kKeep: the
+// rows lie in global memory and are read again soon (L2 keeps them).
+template <typename T, int NY, bool kKeep = false>
+__device__ __forceinline__ void cp_rows(const T* rows, int j0, int j1, int nl,
+                                        const RowSplit& rs, const float* Cr,
+                                        int ldc,
+                                        float (&acc)[NY][Unit<T>::kElems]) {
+  constexpr int E = Unit<T>::kElems;
+  if (!rs.active) return;
+  uint64_t policy = 0;
+  if constexpr (kKeep) policy = policy_evict_last();
+#pragma unroll 4
+  for (int j = j0 + ((rs.g - j0) % rs.groups + rs.groups) % rs.groups; j < j1;
+       j += rs.groups) {
+    float p[E];
+    if constexpr (kKeep) {
+      load_unit_keep(rows + (size_t)(j - j0) * nl + rs.u * E, p, policy);
+    } else {
+      load_unit(rows + (size_t)(j - j0) * nl + rs.u * E, p);
+    }
+#pragma unroll
+    for (int i = 0; i < NY; ++i) {
+      const float c = Cr[i * ldc + j];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] = fmaf(c, p[e], acc[i][e]);
+    }
+  }
+}
+
+// This thread's partial sums into its set of part [sets][NY][nl]; every
+// thread of the pass calls it (the shuffles need whole warps).
+template <int NY, int E>
+__device__ __forceinline__ void cp_partial_store(float (&acc)[NY][E],
+                                                 const RowSplit& rs,
+                                                 float* part, int nl, int lane) {
+  if (rs.shfl) {
+    for (int off = rs.units; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+        }
+      }
+    }
+    if (lane >= rs.units) return;
+  } else if (!rs.active) {
+    return;
+  }
+  float* dst = part + (size_t)rs.set * NY * nl + rs.u * E;
+#pragma unroll
+  for (int i = 0; i < NY; ++i) {
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      *reinterpret_cast<float4*>(dst + i * nl + e) =
+          make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2], acc[i][e + 3]);
+    }
+  }
+}
+
+// entry idx of the summed sets, in set order
+template <int NY>
+__device__ __forceinline__ float cp_partial_sum(const float* part, int sets,
+                                                int nl, int idx) {
+  float v = part[idx];
+  for (int s = 1; s < sets; ++s) v += part[(size_t)s * NY * nl + idx];
+  return v;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kRowThreads) : "memory");
+}
+
+// ---- the gathered C P with the factor term (K2; K8 without it) -----------
+// CP[b] = round_T(C[b]) P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]
+// Bound: the gathered read of P_base (Wt, C and CP are small beside it).
+// Design: persistent blocks (as many as the card holds at once), each with
+// a producer warp and eight consumer warps, walking the particles b =
+// blockIdx.x, + gridDim.x, ... The producer brings Wt[b] into shared memory
+// by one bulk copy, then P_base[bidx[b]] in stages of whole rows (about
+// 8 KB) through a ring of kCpStages by bulk copies on full / empty
+// mbarriers, and goes straight on to the next particle's Wt and rows as the
+// consumers free them, so the ring never drains between particles. The
+// consumers form round(C Wt^T) from the staged Wt; the factor rows enter
+// the row-split pass as rows of their own, with the coefficients
+// -round(C Wt^T), while P's stages are still landing; then the consumers
+// take each stage of P as it lands (16-byte shared loads) and release it.
+// Where Wt does not fit beside the ring it is read from global memory
+// instead (the same code: a generic pointer); at bf16, where a row has more
+// than 256 units, or where the ring does not fit, the direct form runs. At
+// f32 nl=512, rw=24 a block takes 98 KB, so two share an SM.
+constexpr int kCpStages = 4;
+constexpr int kCpMinBlocks = 4;   // caps registers at 56 a thread (3 blocks: slower)
+constexpr int kCpStageBytes = 8192;
+constexpr int kCpThreads = kRowThreads + 32;   // consumers and the producer
+constexpr size_t kSmemBudget = kMaxSmem - 1024;   // room for static barriers
+enum : int { kCpStagedW = 0, kCpStaged = 1, kCpDirect = 2 };
+
+inline __host__ __device__ int cp_stage_rows(int nl, int itemsize) {
+  int rows = kCpStageBytes / (nl * itemsize);
+  if (rows < 1) rows = 1;
+  return rows < nl ? rows : nl;
+}
+
+inline size_t gather_cp_smem(int ny, int rw, int nl, int itemsize, bool factor,
+                             bool stage_w) {
+  const int units = row_units(nl, itemsize);
+  return (size_t)kCpStages * cp_stage_rows(nl, itemsize) * nl * itemsize +
+         (factor && stage_w ? (size_t)rw * nl * itemsize : 0) +
+         4 * (size_t)ny * nl * (1 + row_sets(units)) +
+         (factor ? 4 * (size_t)ny * rw : 0);
+}
+
+// kCpStagedW, kCpStaged (Wt from global memory; always so for K8) or
+// kCpDirect. At bf16 the direct form measured faster on the H100: its small
+// blocks (2 warps at nl=128, 32 an SM) keep more particles in flight than the
+// ring's, and than 256-thread blocks that each read one particle's P 16 bytes
+// a thread (4 an SM at 64 registers: 0.27 against 0.22 ms for K8).
+inline int gather_cp_plan(int ny, int rw, int nl, int itemsize, bool factor) {
+  if (itemsize == 4 && row_units(nl, itemsize) <= kRowThreads) {
+    if (factor && gather_cp_smem(ny, rw, nl, itemsize, true, true) <= kSmemBudget)
+      return kCpStagedW;
+    if (gather_cp_smem(ny, rw, nl, itemsize, factor, false) <= kSmemBudget)
+      return kCpStaged;
+  }
+  return kCpDirect;
+}
+
+template <typename T, typename TC, int NY, bool kFactor>
+__global__ void __launch_bounds__(kCpThreads, kCpMinBlocks)
+gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
+                 const T* __restrict__ Wt, const T* __restrict__ P_base,
+                 float* __restrict__ CP, long long n, long long n_base, int rw,
+                 int nl, int stage_w) {
+  constexpr int E = Unit<T>::kElems;
+  extern __shared__ __align__(128) unsigned char cp_smem[];
+  __shared__ uint64_t full[kCpStages];
+  __shared__ uint64_t empty[kCpStages];
+  __shared__ uint64_t wfull, wempty;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = cp_stage_rows(nl, sizeof(T));
+  const int n_chunks = (nl + rows - 1) / rows;
+  const size_t stage_bytes = (size_t)rows * nl * sizeof(T);
+  const int sets = row_sets(row_units(nl, sizeof(T)));
+  unsigned char* ws = cp_smem + kCpStages * stage_bytes;
+  const bool staged_w = kFactor && stage_w;
+  float* Cr = reinterpret_cast<float*>(ws + (staged_w ? (size_t)rw * nl * sizeof(T) : 0));
+  float* part = Cr + NY * nl;
+  float* CWt = part + (size_t)sets * NY * nl;   // [NY][rw]: -round(C Wt^T)
+  if (tid == 0) {
+    for (int s = 0; s < kCpStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kRowThreads / 32);
+    }
+    mbar_init(&wfull, 1);
+    mbar_init(&wempty, kRowThreads / 32);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp == kRowThreads / 32) {
+    // producer: per particle the factor, then P's stages as the consumers
+    // free them; the ring's count k runs on across particles
+    if (lane == 0) {
+      long long k = 0;
+      int it = 0;
+      for (long long b = blockIdx.x; b < n; b += gridDim.x, ++it) {
+        const long long src = bidx[b];
+        if (staged_w) {
+          const uint32_t bytes = (uint32_t)((size_t)rw * nl * sizeof(T));
+          mbar_wait(&wempty, (it & 1) ^ 1);
+          mbar_arrive_expect_tx(&wfull, bytes);
+          if (bytes > 0) bulk_load(ws, Wt + b * (long long)rw * nl, bytes, &wfull);
+        }
+        if (src < 0 || src >= n_base) continue;
+        const T* Pb = P_base + src * (long long)nl * nl;
+        for (int c = 0; c < n_chunks; ++c, ++k) {
+          const int s = (int)(k % kCpStages);
+          const int r = min(rows, nl - c * rows);
+          const uint32_t bytes = (uint32_t)((size_t)r * nl * sizeof(T));
+          mbar_wait(&empty[s], (uint32_t)((k / kCpStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], bytes);
+          bulk_load(cp_smem + s * stage_bytes, Pb + (long long)c * rows * nl,
+                    bytes, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  const RowSplit rs(nl, sizeof(T), tid);
+  long long k = 0;
+  int it = 0;
+  for (long long b = blockIdx.x; b < n; b += gridDim.x, ++it) {
+    const long long src = bidx[b];
+    const bool ok = src >= 0 && src < n_base;
+    const TC* Cb = C + b * NY * nl;
+    for (int i = tid; i < NY * nl; i += kRowThreads) {
+      Cr[i] = storage_round<T>(to_float<TC>(Cb[i]));
+    }
+    consumer_sync();
+    float acc[NY][E];
+#pragma unroll
+    for (int i = 0; i < NY; ++i) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] = 0.0f;
+    }
+    if constexpr (kFactor) {
+      const T* Ws = staged_w ? reinterpret_cast<const T*>(ws) : Wt + b * (long long)rw * nl;
+      if (staged_w) mbar_wait(&wfull, it & 1);
+      // -round(C Wt^T) [NY, rw] while P's first stages land: a warp per
+      // factor row, lanes over the columns
+      for (int r = warp; r < rw; r += kRowThreads / 32) {
+        float cw[NY];
+#pragma unroll
+        for (int i = 0; i < NY; ++i) cw[i] = 0.0f;
+        for (int j = lane; j < nl; j += 32) {
+          const float w = to_float<T>(Ws[(size_t)r * nl + j]);
+#pragma unroll
+          for (int i = 0; i < NY; ++i) cw[i] = fmaf(Cr[i * nl + j], w, cw[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < NY; ++i) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            cw[i] += __shfl_xor_sync(0xffffffffu, cw[i], off);
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < NY; ++i) CWt[i * rw + r] = -storage_round<T>(cw[i]);
+        }
+      }
+      consumer_sync();
+      // the factor rows as rows of the pass, before P's; then the staged
+      // factor goes back to the producer for the next particle
+      cp_rows<T, NY>(Ws, 0, rw, nl, rs, CWt, rw, acc);
+      if (staged_w) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&wempty);
+      }
+    }
+    if (ok) {
+      for (int c = 0; c < n_chunks; ++c, ++k) {
+        const int s = (int)(k % kCpStages);
+        mbar_wait(&full[s], (uint32_t)((k / kCpStages) & 1));
+        cp_rows<T, NY>(reinterpret_cast<const T*>(cp_smem + s * stage_bytes),
+                       c * rows, min(nl, (c + 1) * rows), nl, rs, Cr, nl, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    cp_partial_store<NY, E>(acc, rs, part, nl, lane);
+    consumer_sync();
+    float* out = CP + b * NY * nl;
+    for (int idx = tid; idx < NY * nl; idx += kRowThreads) {
+      out[idx] = ok ? cp_partial_sum<NY>(part, sets, nl, idx) : quiet_nan();
+    }
+  }
+}
+
+// Launch K2 (kFactor) or K8 on n particles (n > 0) in the form `plan`, which
+// must be gather_cp_plan's choice (the wrapper's mirror of it).
+template <typename T, typename TC, int NY, bool kFactor>
+cudaError_t launch_gather_cp_kernel(const void* bidx, const void* C,
+                                    const void* Wt, const void* P_base,
+                                    void* CP, long long n, long long n_base,
+                                    int rw, int nl, int plan, cudaStream_t s) {
+  if (plan != gather_cp_plan(NY, rw, nl, sizeof(T), kFactor))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (plan == kCpDirect) {
+    int threads = ((nl / 2 + 31) / 32) * 32;   // one thread per column pair
+    if (threads > 256) threads = 256;
+    const size_t smem = (size_t)(NY * nl + (kFactor ? NY * rw : 0)) * sizeof(float);
+    if (smem > kSmemBudget) return cudaErrorInvalidValue;
+    err = allow_smem(gather_cp_direct_kernel<T, TC, NY, kFactor>, smem);
+    if (err != cudaSuccess) return err;
+    gather_cp_direct_kernel<T, TC, NY, kFactor><<<(unsigned)n, threads, smem, s>>>(
+        static_cast<const int*>(bidx), static_cast<const TC*>(C),
+        static_cast<const T*>(Wt), static_cast<const T*>(P_base),
+        static_cast<float*>(CP), n_base, rw, nl);
+    return cudaGetLastError();
+  }
+  const size_t smem = gather_cp_smem(NY, rw, nl, sizeof(T), kFactor, plan == kCpStagedW);
+  err = allow_smem(gather_cp_kernel<T, TC, NY, kFactor>, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = persistent_blocks(gather_cp_kernel<T, TC, NY, kFactor>, kCpThreads, smem, n, &blocks);
+  if (err != cudaSuccess) return err;
+  gather_cp_kernel<T, TC, NY, kFactor><<<(unsigned)blocks, kCpThreads, smem, s>>>(
+      static_cast<const int*>(bidx), static_cast<const TC*>(C),
+      static_cast<const T*>(Wt), static_cast<const T*>(P_base),
+      static_cast<float*>(CP), n, n_base, rw, nl, plan == kCpStagedW);
+  return cudaGetLastError();
 }
 
 // ---- the rebase ----------------------------------------------------------
@@ -650,14 +1060,114 @@ rebase_kernel(const int* __restrict__ bidx, const T* __restrict__ Wt,
   }
 }
 
-// Launch rebase_kernel<T, kGather, kDot> on n particles (n > 0).
+// ---- the rebase where the ring and the staged factor do not fit ---------
+// The same function as rebase_kernel<T, kGather, true> at any nl (nl = 2048
+// leaves no room for Wt [rw, nl] beside the ring): no shared memory; a
+// block of eight warps covers 32 rows of one particle's P', a warp 4 rows x
+// 128 columns at a time, each thread a 4 x 4 block from 4-element loads of
+// Wt (through L1 and L2: every block of a particle reads all of Wt[b]) and
+// of P_src (through registers). f32 FMA over the factor rows in order, the
+// product rounded to the storage dtype before the subtraction.
+constexpr int kWideRows = 32;
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = c.x;
+  v[3] = c.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 x;
+  *reinterpret_cast<__nv_bfloat162*>(&x.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&x.y) = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
+template <typename T, bool kGather>
+__global__ void __launch_bounds__(256)
+rebase_wide_kernel(const int* __restrict__ bidx, const T* __restrict__ Wt,
+                   const T* __restrict__ P_base, T* __restrict__ P_out,
+                   long long n_base, int rw, int nl, long long row_blocks) {
+  const long long b = blockIdx.x / row_blocks;
+  const int i0 = (int)(blockIdx.x % row_blocks) * kWideRows + (threadIdx.x >> 5) * 4;
+  const int lane = threadIdx.x & 31;
+  if (i0 >= nl) return;   // nl is a multiple of 8: rows i0 .. i0 + 3 exist
+  long long src = 0;
+  bool ok = true;
+  if constexpr (kGather) {
+    src = bidx[b];
+    ok = src >= 0 && src < n_base;
+  }
+  const T* Wb = Wt + b * (long long)rw * nl;
+  const T* Pb = P_base + (ok ? src : 0) * (long long)nl * nl;
+  T* Ob = P_out + b * (long long)nl * nl;
+  const float fill = kGather ? quiet_nan() : 0.0f;
+  for (int j = 4 * lane; j < nl; j += 128) {
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.0f;
+#pragma unroll 4
+    for (int r = 0; r < rw; ++r) {
+      float wi[4], wj[4];
+      load4(Wb + (long long)r * nl + i0, wi);
+      load4(Wb + (long long)r * nl + j, wj);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(wi[a], wj[c], acc[a][c]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float p[4] = {fill, fill, fill, fill};
+      if (kGather && ok) load4(Pb + (long long)(i0 + a) * nl + j, p);
+      float o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[c] = p[c] - storage_round<T>(acc[a][c]);
+      store4(Ob + (long long)(i0 + a) * nl + j, o);
+    }
+  }
+}
+
+// 0: rebase_kernel (bulk-copy ring, staged factor); 1: rebase_wide_kernel,
+// where the product's ring and factor do not fit shared memory
+template <typename T>
+int rebase_variant(bool gather, bool dot, int rw, int nl) {
+  return dot && rebase_smem_bytes<T>(gather, dot, rw, nl) > kMaxSmem ? 1 : 0;
+}
+
+// Launch rebase_kernel<T, kGather, kDot> (or, for variant 1,
+// rebase_wide_kernel<T, kGather>) on n particles (n > 0); `variant` must be
+// rebase_variant's choice (the wrapper's mirror of it).
 template <typename T, bool kGather, bool kDot>
 cudaError_t launch_rebase_kernel(const void* bidx, const void* Wt,
                                  const void* P_base, void* P_out, long long n,
-                                 long long n_base, int rw, int nl,
+                                 long long n_base, int rw, int nl, int variant,
                                  cudaStream_t s) {
+  if (variant != rebase_variant<T>(kGather, kDot, rw, nl)) return cudaErrorInvalidValue;
+  if (variant == 1) {
+    const long long row_blocks = (nl + kWideRows - 1) / kWideRows;
+    if (n * row_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rebase_wide_kernel<T, kGather><<<(unsigned)(n * row_blocks), 256, 0, s>>>(
+        static_cast<const int*>(bidx), static_cast<const T*>(Wt),
+        static_cast<const T*>(P_base), static_cast<T*>(P_out), n_base, rw, nl,
+        row_blocks);
+    return cudaGetLastError();
+  }
   const size_t smem = rebase_smem_bytes<T>(kGather, kDot, rw, nl);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(rebase_kernel<T, kGather, kDot>, smem);
   if (err != cudaSuccess) return err;
   const long long bytes = n * nl * nl * (long long)sizeof(T);

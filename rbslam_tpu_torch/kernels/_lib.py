@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("basis_eval.cu", "kf_update.cu", "probes.cu")
-HEADERS = ("kf_common.cuh",)     # included by kf_update.cu and probes.cu
+HEADERS = ("kf_common.cuh", "kf_block.cuh")   # included by kf_update.cu, probes.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -59,23 +59,24 @@ _SIGNATURES = {
     "rbs_phi_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
     # (pos, quat, consts, scale, out, n, m, nl_pad, stream)
     "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P),
-    # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, bf16, stream)
-    "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
-    # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, bf16, stream)
-    "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
+    # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, plan, bf16, stream)
+    "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P),
+    # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, variant, bf16, stream)
+    "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     # (ai, C, e, xl, P_all, R, P_out, xl_out, logw, bad, n, n_all, ny, nl,
-    #  jitter, bf16, stream)
+    #  jitter, plan, bf16, stream)
     "rbs_block_gather": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
-                         _I, _I, _F, _I, _P),
-    # (bidx, C, P, CP, n, n_base, ny, nl, bf16, stream)
-    "rbs_probe_gather_cp": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _P),
-    # (bidx, Wt, P, out, n, n_base, rw, nl, do_gather, do_dot, bf16, stream)
+                         _I, _I, _F, _I, _I, _P),
+    # (bidx, C, P, CP, n, n_base, ny, nl, plan, bf16, stream)
+    "rbs_probe_gather_cp": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
+    # (bidx, Wt, P, out, n, n_base, rw, nl, do_gather, do_dot, variant, bf16,
+    #  stream)
     "rbs_probe_rebase_parts": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                               _P),
+                               _I, _P),
     # (ai, P, out, n, n_all, nl, bf16, stream)
     "rbs_probe_gather": (_P, _P, _P, _LL, _LL, _I, _I, _P),
-    # (C, P, out, n, ny, nl, bf16, stream)
-    "rbs_probe_block_products": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    # (C, P, out, n, ny, nl, plan, bf16, stream)
+    "rbs_probe_block_products": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
 }
 
 

@@ -85,14 +85,12 @@ def _check_factored(bidx, Wt, P_base) -> tuple[int, int, int]:
     return n, rw, nl
 
 
-def _require_aligned(**tensors) -> None:
-    """The rebase and gather kernels move P by 16-byte bulk copies: every
-    tensor they touch must start on a 16-byte boundary (a contiguous view
-    with a storage offset may not)."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned, its data_ptr() "
-                             f"is {t.data_ptr():#x} (clone the view)")
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernels move P and Wt by 16-byte bulk copies, which need a
+    16-byte aligned start: a contiguous view with a storage offset may not
+    have one, and is copied (on its device) into a fresh tensor, which
+    does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _round_up(v: int, m: int) -> int:
@@ -121,14 +119,85 @@ def _rebase_smem(rw: int, nl: int, itemsize: int, gather: bool = True,
         + 8 * 16 * 72 * 2
 
 
-def _check_rebase_fits(name, rw, nl, itemsize, gather=True, dot=True) -> None:
+def _rebase_variant(name, rw, nl, itemsize, gather=True, dot=True) -> int:
+    """The rebase kernel's form (the mirror of ``rebase_variant`` in
+    csrc/kf_common.cuh): 0 the bulk-copy ring with the staged factor, 1
+    the wide form (no shared memory; Wt through L1) where the product's
+    ring and factor do not fit a block's shared memory, as at nl = 2048."""
     if nl % 8:
         raise ValueError(f"{name} kernel: nl={nl} must be a multiple of 8")
-    need = _rebase_smem(rw, nl, itemsize, gather, dot)
-    if need > _MAX_SMEM:
-        raise ValueError(
-            f"{name} kernel: Wt [{rw}, {nl}] and the ring of P's row blocks "
-            f"must fit shared memory ({need} > {_MAX_SMEM} bytes)")
+    return int(dot and _rebase_smem(rw, nl, itemsize, gather, dot)
+               > _MAX_SMEM)
+
+
+# ---- mirrors of the planners of csrc/kf_common.cuh and kf_block.cuh ----
+_SMEM_BUDGET = _MAX_SMEM - 1024     # room for a kernel's static barriers
+_ROW_THREADS = 256                  # threads of the row-split pass C P
+_BG_RESIDENT_BYTES = 64 * 1024      # P held by one block (kBgResidentBytes)
+
+
+def _row_sets(nl: int, itemsize: int) -> int:
+    """Sets of partial sums of the row-split pass: one a warp where a unit
+    count (16-byte units a row) divides 32, else one a row group."""
+    units = nl * itemsize // 16
+    if units < 32 and 32 % units == 0:
+        return _ROW_THREADS // 32
+    return 1 if units >= _ROW_THREADS else _ROW_THREADS // units
+
+
+def _gather_cp_smem(ny, rw, nl, itemsize, factor, stage_w) -> int:
+    rows = min(max(8192 // (nl * itemsize), 1), nl)
+    return (4 * rows * nl * itemsize
+            + (rw * nl * itemsize if factor and stage_w else 0)
+            + 4 * ny * nl * (1 + _row_sets(nl, itemsize))
+            + (4 * ny * rw if factor else 0))
+
+
+def _gather_cp_plan(ny, rw, nl, itemsize, factor=True) -> int:
+    """K2's form (K8's with ``factor`` False), the mirror of
+    ``gather_cp_plan``: 0 staged with Wt in shared memory, 1 staged with Wt
+    read from global memory (always so for K8), 2 the direct form (bf16,
+    rows of more than 256 16-byte units, or a ring that does not fit)."""
+    if nl % 8:
+        raise ValueError(f"gather_cp kernel: nl={nl} must be a multiple of 8")
+    if itemsize == 4 and nl * itemsize // 16 <= _ROW_THREADS:
+        if factor and _gather_cp_smem(ny, rw, nl, itemsize, True, True) \
+                <= _SMEM_BUDGET:
+            return 0
+        if _gather_cp_smem(ny, rw, nl, itemsize, factor, False) \
+                <= _SMEM_BUDGET:
+            return 1
+    if 4 * ny * (nl + (rw if factor else 0)) > _SMEM_BUDGET:
+        raise ValueError(f"gather_cp kernel: C [{ny}, {nl}] and C Wt^T "
+                         f"[{ny}, {rw}] must fit shared memory")
+    return 2
+
+
+def _block_plan(ny: int, nl: int, itemsize: int) -> tuple[int, int, int]:
+    """K5's (and K11's) form, the mirror of ``block_gather_plan`` in
+    csrc/kf_block.cuh: (form, stage rows, shared memory bytes). Form 1:
+    P [nl, nl] resident in the block's shared memory (up to 64 KB; stages
+    of about 8 KB); 2: streamed (bf16 beyond 64 KB), P read from memory
+    once and again from L2; 0: the two-pass form (f32 beyond 64 KB, or rows
+    of more than 256 16-byte units)."""
+    if nl % 8:
+        raise ValueError(f"block kernel: nl={nl} must be a multiple of 8")
+    nbytes = nl * nl * itemsize
+    extras = 4 * ny * nl * (4 + _row_sets(nl, itemsize))
+    if nl * itemsize // 16 <= _ROW_THREADS:
+        if nbytes <= _BG_RESIDENT_BYTES and nbytes + extras <= _SMEM_BUDGET:
+            rows = min(max(8192 // (nl * itemsize), 1), nl)
+            if -(-nl // rows) > 8:
+                rows = -(-nl // 8)
+            return 1, rows, nbytes + extras
+        if itemsize == 2 and extras <= _SMEM_BUDGET:
+            return 2, 0, extras
+    groups = max(1, _ROW_THREADS // (nl // 2))
+    smem = 4 * ny * nl * (3 + groups)
+    if smem > _SMEM_BUDGET:
+        raise ValueError(f"block kernel: nl={nl} is too wide for shared "
+                         "memory")
+    return 0, 0, smem
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -158,15 +227,14 @@ def gather_cp(bidx, C, Wt, P_base) -> torch.Tensor:
         raise TypeError("C must be contiguous, on P_base's device and dtype")
     if _on_cpu(P_base):
         return gather_cp_plain(bidx, C, Wt, P_base)
-    if nl % 8 or 4 * ny * (nl + rw) > _MAX_SMEM:
-        raise ValueError(f"gather_cp kernel: nl={nl} must be a multiple of "
-                         f"8 and nl={nl}, rw={rw} fit shared memory")
+    plan = _gather_cp_plan(ny, rw, nl, P_base.element_size())
     CP = torch.empty((n, ny, nl), dtype=torch.float32, device=C.device)
     if CP.numel() == 0:
         return CP                       # nothing to launch, nothing counted
+    Wt, P_base = _aligned(Wt), _aligned(P_base)
     code = _lib.lib().rbs_gather_cp(
         bidx.data_ptr(), C.data_ptr(), Wt.data_ptr(), P_base.data_ptr(),
-        CP.data_ptr(), n, P_base.shape[0], ny, rw, nl,
+        CP.data_ptr(), n, P_base.shape[0], ny, rw, nl, plan,
         int(P_base.dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "gather_cp")
@@ -177,22 +245,22 @@ def kf_rebase(bidx, Wt, P_base) -> torch.Tensor:
     """P' [N, nl, nl] = P_base[bidx] - Wt^T Wt in the storage dtype (K3;
     replaces rbslam_tpu/kernels/kf_update.py:_kernel_rebase). Always a
     new tensor: several particles may read one ancestor row of P_base.
-    The kernel moves P by 16-byte bulk copies through shared memory: nl a
-    multiple of 8, P_base and Wt 16-byte aligned, and the ring of P's row
-    blocks plus the staged Wt [rw, nl] within a block's shared memory
-    (``_rebase_smem``), else ValueError."""
+    nl must be a multiple of 8. The kernel moves P by 16-byte bulk copies
+    through a ring in shared memory beside the staged Wt [rw, nl]; where
+    those do not fit a block (``_rebase_variant``: nl = 2048) its wide
+    form runs instead, with Wt read through L1."""
     n, rw, nl = _check_factored(bidx, Wt, P_base)
     if _on_cpu(P_base):
         return rebase_plain(bidx, Wt, P_base)
-    _check_rebase_fits("kf_rebase", rw, nl, P_base.element_size())
+    variant = _rebase_variant("kf_rebase", rw, nl, P_base.element_size())
     out = torch.empty((n, nl, nl), dtype=P_base.dtype, device=P_base.device)
-    _require_aligned(P_base=P_base, Wt=Wt, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
+    Wt, P_base = _aligned(Wt), _aligned(P_base)
     code = _lib.lib().rbs_rebase(
         bidx.data_ptr(), Wt.data_ptr(), P_base.data_ptr(), out.data_ptr(),
-        n, P_base.shape[0], rw, nl, int(P_base.dtype == torch.bfloat16),
-        _lib.stream_ptr(),
+        n, P_base.shape[0], rw, nl, variant,
+        int(P_base.dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "rebase")
     return out
@@ -361,7 +429,10 @@ def kf_update_block_gather(ai, C, xl_gathered, P_all, y, R,
     R [ny, ny]. Returns (xl' [N, nl] f32, P' [N, nl, nl] in P_all's dtype,
     logw [N], retried [N] bool): the contract of
     ops.kalman.kalman_update_dense_batched with symmetrize_out=False, up
-    to the repair and the rounding points. P' is always a new tensor.
+    to the repair and the rounding points. P' is always a new tensor. The
+    kernel holds P in the block's shared memory and reads it once where
+    P fits (nl=128), else streams it twice, the second time from L2 at bf16
+    (``_block_plan``).
     """
     if C.dim() != 3:
         raise ValueError(f"C must be [N, ny, nl], got {tuple(C.shape)}")
@@ -393,6 +464,8 @@ def kf_update_block_gather(ai, C, xl_gathered, P_all, y, R,
         return block_gather_plain(ai, Cf, e, xl, P_all, Rf, jitter)
     if not P_all.is_contiguous():
         raise ValueError("P_all must be contiguous")
+    plan = _block_plan(ny, nl, P_all.element_size())[0]
+    P_all = _aligned(P_all)
     Cf, e, xl, Rf = (x.contiguous() for x in (Cf, e, xl, Rf))
     P_new = torch.empty((n, nl, nl), dtype=P_all.dtype, device=P_all.device)
     xl_new = torch.empty((n, nl), dtype=f32, device=P_all.device)
@@ -404,7 +477,8 @@ def kf_update_block_gather(ai, C, xl_gathered, P_all, y, R,
         ai.data_ptr(), Cf.data_ptr(), e.data_ptr(), xl.data_ptr(),
         P_all.data_ptr(), Rf.data_ptr(), P_new.data_ptr(), xl_new.data_ptr(),
         logw.data_ptr(), bad.data_ptr(), n, P_all.shape[0], ny, nl,
-        float(jitter), int(P_all.dtype == torch.bfloat16), _lib.stream_ptr(),
+        float(jitter), plan, int(P_all.dtype == torch.bfloat16),
+        _lib.stream_ptr(),
     )
     _lib.check(code, "block_gather")
     return xl_new, P_new, logw, bad

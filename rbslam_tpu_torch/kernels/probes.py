@@ -10,8 +10,8 @@ beside K2, K3 and K5.
 Each wrapper takes the plain version for tensors on the CPU, launches its
 kernel (``csrc/probes.cu``) for CUDA tensors, and raises for any other
 device. An index outside [0, n_base) writes NaN into that particle's
-output. K9 and K10 move P by 16-byte bulk copies: their tensors must be
-16-byte aligned (a ValueError otherwise).
+output. The kernels move P by 16-byte bulk copies: a view that does not
+start on a 16-byte boundary is copied into a fresh tensor first.
 """
 
 from __future__ import annotations
@@ -20,11 +20,12 @@ import torch
 
 from . import _lib
 from .kf_update import (
-    _MAX_SMEM,
     _STORAGE,
-    _check_rebase_fits,
+    _aligned,
+    _block_plan,
+    _gather_cp_plan,
     _on_cpu,
-    _require_aligned,
+    _rebase_variant,
 )
 
 
@@ -116,16 +117,15 @@ def probe_gather_cp(bidx, C, P) -> torch.Tensor:
     _check_inputs(("bidx", bidx), ("C", C), ("P", P))
     if _on_cpu(P):
         return probe_gather_cp_plain(bidx, C, P)
-    _check_nl("probe_gather_cp", nl)
-    if 4 * ny * nl > _MAX_SMEM:
-        raise ValueError(f"probe_gather_cp kernel: C [{ny}, {nl}] must fit "
-                         "shared memory")
+    plan = _gather_cp_plan(ny, 0, nl, P.element_size(), factor=False)
     CP = torch.empty((n, ny, nl), dtype=torch.float32, device=P.device)
     if CP.numel() == 0:
         return CP                       # nothing to launch, nothing counted
+    P = _aligned(P)
     code = _lib.lib().rbs_probe_gather_cp(
         bidx.data_ptr(), C.data_ptr(), P.data_ptr(), CP.data_ptr(), n,
-        P.shape[0], ny, nl, int(P.dtype == torch.bfloat16), _lib.stream_ptr(),
+        P.shape[0], ny, nl, plan, int(P.dtype == torch.bfloat16),
+        _lib.stream_ptr(),
     )
     _lib.check(code, "probe_gather_cp")
     return CP
@@ -157,15 +157,15 @@ def probe_rebase_parts(bidx, Wt, P, do_gather: bool = True,
     _check_inputs(("bidx", bidx), ("Wt", Wt), ("P", P))
     if _on_cpu(P):
         return probe_rebase_parts_plain(bidx, Wt, P, do_gather, do_dot)
-    _check_rebase_fits("probe_rebase_parts", rw, nl, P.element_size(),
-                       do_gather, do_dot)
+    variant = _rebase_variant("probe_rebase_parts", rw, nl,
+                              P.element_size(), do_gather, do_dot)
     out = torch.empty((n, nl, nl), dtype=P.dtype, device=P.device)
-    _require_aligned(P=P, Wt=Wt, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
+    Wt, P = _aligned(Wt), _aligned(P)
     code = _lib.lib().rbs_probe_rebase_parts(
         bidx.data_ptr(), Wt.data_ptr(), P.data_ptr(), out.data_ptr(), n,
-        P.shape[0], rw, nl, int(do_gather), int(do_dot),
+        P.shape[0], rw, nl, int(do_gather), int(do_dot), variant,
         int(P.dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "probe_rebase_parts")
@@ -187,9 +187,9 @@ def probe_gather(ai, P) -> torch.Tensor:
         return probe_gather_plain(ai, P)
     _check_nl("probe_gather", nl)
     out = torch.empty((n, nl, nl), dtype=P.dtype, device=P.device)
-    _require_aligned(P=P, out=out)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
+    P = _aligned(P)
     code = _lib.lib().rbs_probe_gather(
         ai.data_ptr(), P.data_ptr(), out.data_ptr(), n, P.shape[0], nl,
         int(P.dtype == torch.bfloat16), _lib.stream_ptr(),
@@ -221,12 +221,13 @@ def probe_block_products(C, P) -> torch.Tensor:
     _check_inputs(("C", C), ("P", P))
     if _on_cpu(P):
         return probe_block_products_plain(C, P)
-    _check_nl("probe_block_products", nl)
+    plan = _block_plan(ny, nl, P.element_size())[0]
     out = torch.empty((n, nl, nl), dtype=P.dtype, device=P.device)
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
+    P = _aligned(P)
     code = _lib.lib().rbs_probe_block_products(
-        C.data_ptr(), P.data_ptr(), out.data_ptr(), n, ny, nl,
+        C.data_ptr(), P.data_ptr(), out.data_ptr(), n, ny, nl, plan,
         int(P.dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "probe_block_products")

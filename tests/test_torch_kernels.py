@@ -403,22 +403,31 @@ class TestOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("ny,nl", [(1, 128), (3, 128), (1, 512),
-                                       (3, 512)])
+                                       (3, 512), (1, 1024), (3, 1024)])
     def test_block_gather_kernel(self, card, dtype, ny, nl):
-        args = self._block_inputs(card, 256, ny, nl, dtype, nl + ny)
+        """Every form of K5 (P resident in the block at nl=128, streamed at
+        bf16 beyond, two passes at f32 beyond), on unsorted ancestors with
+        repeats; a second launch on the same inputs gives the same bits
+        (no atomics)."""
+        n = 256 if nl < 1024 else 64
+        args = self._block_inputs(card, n, ny, nl, dtype, nl + ny)
         before = launch_counts()["block_gather"]
         out = kf_update_block_gather(*args)
+        again = kf_update_block_gather(*args)
         ref = self._block_plain(*args)
         torch.cuda.synchronize()
-        assert launch_counts()["block_gather"] == before + 1
+        assert launch_counts()["block_gather"] == before + 2
         for a, b in zip(out[:3], ref[:3]):
             self._check(a, b, dtype if a.dim() == 3 else torch.float32)
         assert torch.equal(out[3], ref[3])
+        for a, b in zip(out, again):
+            assert torch.equal(a, b)
 
-    def test_block_gather_bad_ancestor_writes_nan(self, card):
+    @pytest.mark.parametrize("nl", [128, 512, 1024])
+    def test_block_gather_bad_ancestor_writes_nan(self, card, nl):
         """An ancestor index out of range writes NaN (P', xl', logw) for
-        that particle instead of reading out of bounds."""
-        ai, C, xl, P, y, R = self._block_inputs(card, 8, 3, 128,
+        that particle instead of reading out of bounds, in every form."""
+        ai, C, xl, P, y, R = self._block_inputs(card, 8, 3, nl,
                                                 torch.float32, 0)
         ai[2] = 8
         ai[5] = -1
@@ -429,6 +438,32 @@ class TestOnCard:
             for out in (P_new[i], xl_new[i], logw[i]):
                 assert bool(torch.isnan(out).all()) == bad
                 assert bool(torch.isfinite(out).all()) != bad
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("nl", [16, 136, 512])
+    @pytest.mark.parametrize("rw", [8, 24, 40])
+    def test_gather_cp_kernel_widths(self, card, dtype, nl, rw):
+        """K2 at map widths that give one, a few and many row groups and at
+        three factor widths, on unsorted indices with repeats; a bad index
+        writes NaN; a second launch gives the same bits."""
+        g = torch.Generator(device=card).manual_seed(nl * rw)
+        n, ny = 300, 3
+        P_base = torch.randn((n, nl, nl), generator=g, device=card).to(dtype)
+        Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=card)
+              ).to(dtype)
+        C = (0.3 * torch.randn((n, ny, nl), generator=g, device=card)
+             ).to(dtype)
+        bidx = torch.randint(0, n, (n,), generator=g, device=card,
+                             dtype=torch.int32)
+        out = gather_cp(bidx, C, Wt, P_base)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base), dtype)
+        assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
+        bidx[7], bidx[11] = -1, n
+        out = gather_cp(bidx, C, Wt, P_base)
+        assert bool(torch.isnan(out[[7, 11]]).all())
+        good = torch.ones(n, dtype=torch.bool, device=card)
+        good[[7, 11]] = False
+        assert bool(torch.isfinite(out[good]).all())
 
     def test_empty_inputs_launch_nothing(self, card):
         """An empty ensemble returns an empty output without a launch, so

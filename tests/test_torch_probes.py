@@ -19,8 +19,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rbslam_tpu_torch.kernels import (  # noqa: E402
+    block_gather_plain,
     gather_cp,
+    gather_cp_plain,
     kf_rebase,
+    kf_update_block_gather,
     launch_counts,
     probe_block_products,
     probe_block_products_plain,
@@ -210,39 +213,78 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_kernel_paths_need_aligned_tensors_and_a_tile_that_fits():
-    """What the wrappers check before a launch (on CPU tensors the checks
-    are called directly: a wrapper takes the plain version there): the
-    bulk copies need 16-byte aligned tensors, and the rebase's ring and
-    staged factor must fit the 227 KB a block may use."""
+    """What the wrappers decide before a launch (on CPU tensors the helpers
+    are called directly: a wrapper takes the plain version there): a view
+    that does not start on a 16-byte boundary is copied for the bulk
+    copies, and the rebase runs its ring with the staged factor where both
+    fit the 227 KB a block may use, else its wide form."""
     from rbslam_tpu_torch.kernels.kf_update import (
-        _check_rebase_fits,
+        _aligned,
         _rebase_smem,
-        _require_aligned,
+        _rebase_variant,
     )
 
     base = torch.zeros(4 * 16 * 16 + 2)
-    _require_aligned(P=base[:1024].view(4, 16, 16))
+    view = base[:1024].view(4, 16, 16)
+    assert _aligned(view) is view
     shifted = base[1:1025].view(4, 16, 16)          # 4 bytes past 16
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        _require_aligned(P=shifted)
+    copied = _aligned(shifted)
+    assert copied.data_ptr() % 16 == 0 and torch.equal(copied, shifted)
     # the main shapes and the widest factor fit, with room for 3 and 2
     # blocks an SM
     assert _rebase_smem(24, 128, 2) == 59904
     assert _rebase_smem(24, 512, 4) == 114688
-    _check_rebase_fits("kf_rebase", 40, 512, 4)
-    _check_rebase_fits("probe_rebase_parts", 40, 512, 2, False, True)
+    assert _rebase_variant("kf_rebase", 40, 512, 4) == 0
+    assert _rebase_variant("probe_rebase_parts", 40, 512, 2, False, True) == 0
     # without the product only the gather's 2 KB piece, or nothing
     assert _rebase_smem(24, 512, 4, True, False) == 2048
     assert _rebase_smem(24, 512, 4, False, False) == 0
     with pytest.raises(ValueError, match="multiple of 8"):
-        _check_rebase_fits("kf_rebase", 8, 20, 4)
-    with pytest.raises(ValueError, match="fit shared memory"):
-        _check_rebase_fits("kf_rebase", 24, 2048, 4)
-    with pytest.raises(ValueError, match="fit shared memory"):
-        _check_rebase_fits("probe_rebase_parts", 512, 512, 2, False, True)
+        _rebase_variant("kf_rebase", 8, 20, 4)
+    # nl = 2048 (and a factor too wide to stage) take the wide form
+    assert _rebase_variant("kf_rebase", 24, 2048, 4) == 1
+    assert _rebase_variant("kf_rebase", 24, 2048, 2) == 1
+    assert _rebase_variant("probe_rebase_parts", 512, 512, 2, False, True) == 1
     # a copy needs no room for the factor
-    _check_rebase_fits("probe_rebase_parts", 512, 512, 2, True, False)
+    assert _rebase_variant("probe_rebase_parts", 512, 512, 2, True, False) == 0
+
+
+# (ny, nl, itemsize) -> (form, stage rows, shared memory bytes) of
+# csrc/kf_block.cuh:block_gather_plan: P resident in one block up to 64 KB
+# (form 1), else streamed at bf16 (2), else the two-pass form (0)
+@pytest.mark.parametrize("ny,nl,itemsize,plan", [
+    (3, 128, 2, (1, 32, 51200)),       # headline K5: 4 blocks an SM
+    (3, 128, 4, (1, 16, 83968)),       # f32 nl=128: 2 blocks an SM
+    (1, 128, 4, (1, 16, 71680)),
+    (3, 512, 4, (0, 0, 24576)),        # reference K5
+    (3, 512, 2, (2, 0, 49152)),
+    (3, 1024, 4, (0, 0, 49152)),
+    (1, 1024, 2, (2, 0, 24576)),
+    (3, 2048, 4, (0, 0, 96 * 1024)),
+    (3, 16, 4, (1, 16, 3328)),         # probe shapes
+    (3, 136, 4, (0, 0, 9792)),
+    (3, 136, 2, (1, 30, 68000)),
+])
+def test_block_plan_mirror(ny, nl, itemsize, plan):
+    from rbslam_tpu_torch.kernels.kf_update import _block_plan
+
+    assert _block_plan(ny, nl, itemsize) == plan
+
+
+# (ny, rw, nl, itemsize, factor) -> csrc/kf_common.cuh:gather_cp_plan: 0 Wt
+# staged beside the ring, 1 Wt from global memory (always K8's), 2 direct
+# (always at bf16)
+@pytest.mark.parametrize("ny,rw,nl,itemsize,factor,plan", [
+    (3, 24, 128, 2, True, 2), (3, 24, 512, 4, True, 0),
+    (3, 40, 512, 4, True, 0), (3, 24, 512, 4, False, 1),
+    (3, 24, 128, 4, True, 0), (3, 24, 2048, 4, True, 2),
+    (3, 40, 4096, 2, True, 2),
+])
+def test_gather_cp_plan_mirror(ny, rw, nl, itemsize, factor, plan):
+    from rbslam_tpu_torch.kernels.kf_update import _gather_cp_plan
+
+    assert _gather_cp_plan(ny, rw, nl, itemsize, factor) == plan
 
 
 @pytest.fixture
@@ -345,34 +387,85 @@ class TestOnCard:
 
     def test_misaligned_tensors_raise(self, card):
         """A contiguous view that starts 4 bytes past a 16-byte boundary:
-        the kernels' bulk copies cannot take it, the wrappers say so."""
-        bidx, _, Wt, P = _inputs(8, 16)
-        bidx, Wt = _t(bidx).to(card), _t(Wt).to(card)
+        the bulk copies cannot take it, so each wrapper copies it and
+        launches once; the result equals the plain version's."""
+        bidx, C, Wt, P = _inputs(8, 16)
+        bidx, C, Wt = _t(bidx).to(card), _t(C).to(card), _t(Wt).to(card)
         flat = torch.zeros(8 * 16 * 16 + 1, device=card)
         shifted = flat[1:].view(8, 16, 16)
+        shifted.copy_(_t(P))
         assert shifted.is_contiguous() and shifted.data_ptr() % 16
-        before = launch_counts()
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            probe_gather(bidx, shifted)
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            probe_rebase_parts(bidx, Wt, shifted)
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            kf_rebase(bidx, Wt, shifted)
-        assert launch_counts() == before
+        wflat = torch.zeros(Wt.numel() + 1, device=card)
+        wshift = wflat[1:].view(Wt.shape)
+        wshift.copy_(Wt)
+        calls = [
+            ("probe_gather", lambda: probe_gather(bidx, shifted),
+             lambda: probe_gather_plain(bidx, shifted)),
+            ("probe_rebase_parts", lambda: probe_rebase_parts(bidx, wshift,
+                                                              shifted),
+             lambda: probe_rebase_parts_plain(bidx, wshift, shifted)),
+            ("rebase", lambda: kf_rebase(bidx, wshift, shifted),
+             lambda: probe_rebase_parts_plain(bidx, wshift, shifted)),
+            ("probe_gather_cp", lambda: probe_gather_cp(bidx, C, shifted),
+             lambda: probe_gather_cp_plain(bidx, C, shifted)),
+            ("gather_cp", lambda: gather_cp(bidx, C, wshift, shifted),
+             lambda: gather_cp_plain(bidx, C, wshift, shifted)),
+            ("probe_block_products",
+             lambda: probe_block_products(C, shifted),
+             lambda: probe_block_products_plain(C, shifted)),
+        ]
+        # K5 takes nl a multiple of 128: its own shifted covariances
+        n, ny, nl = 4, 3, 128
+        g = torch.Generator(device=card).manual_seed(3)
+        B = torch.randn((n, nl, nl), generator=g, device=card)
+        pflat = torch.zeros(n * nl * nl + 1, device=card)
+        P_all = pflat[1:].view(n, nl, nl)
+        P_all.copy_(0.05 * (B + B.transpose(1, 2)) + 2 * torch.eye(nl,
+                                                                   device=card))
+        assert P_all.is_contiguous() and P_all.data_ptr() % 16
+        Ck = 0.3 * torch.randn((n, ny, nl), generator=g, device=card)
+        xl = torch.randn((n, nl), generator=g, device=card)
+        y = torch.randn((ny,), generator=g, device=card)
+        R = 0.5 * torch.eye(ny, device=card)
+        ai = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=card)
+        e = y[None] - torch.einsum("pij,pj->pi", Ck, xl)
+        calls.append((
+            "block_gather",
+            lambda: kf_update_block_gather(ai, Ck, xl, P_all, y, R, 1e-3)[1],
+            lambda: block_gather_plain(ai, Ck, e, xl, P_all, R, 1e-3)[1]))
+        for name, kernel, plain in calls:
+            before = launch_counts()
+            self._check(kernel(), plain(), "float32")
+            torch.cuda.synchronize()
+            after = launch_counts()
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {name: 1}
 
-    def test_tile_that_does_not_fit_raises(self, card):
-        bidx = torch.zeros(2, dtype=torch.int32, device=card)
-        Wt = torch.zeros((2, 24, 2048), device=card)
-        P = torch.zeros((2, 2048, 2048), device=card)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_tile_that_does_not_fit_raises(self, card, dtype):
+        """nl = 2048: the rebase's ring and staged factor do not fit a
+        block, so kf_rebase and probe_rebase_parts run the wide form on the
+        card and equal their plain versions."""
+        g = torch.Generator(device=card).manual_seed(5)
+        td = TDTYPE[dtype]
+        n, nl, rw = 4, 2048, 24
+        P = torch.randn((n, nl, nl), generator=g, device=card).to(td)
+        Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=card)).to(td)
+        bidx = torch.tensor([2, 0, 2, 3], dtype=torch.int32, device=card)
         before = launch_counts()
-        with pytest.raises(ValueError, match="fit shared memory"):
-            kf_rebase(bidx, Wt, P)
-        with pytest.raises(ValueError, match="fit shared memory"):
-            probe_rebase_parts(bidx, Wt, P)
+        self._check(kf_rebase(bidx, Wt, P),
+                    probe_rebase_parts_plain(bidx, Wt, P), dtype)
+        for do_gather in (True, False):
+            self._check(probe_rebase_parts(bidx, Wt, P, do_gather, True),
+                        probe_rebase_parts_plain(bidx, Wt, P, do_gather, True),
+                        dtype)
         # the copies need no room for the factor
         assert torch.equal(probe_rebase_parts(bidx, Wt, P, True, False),
                            probe_gather(bidx, P))
-        assert launch_counts()["probe_gather"] == before["probe_gather"] + 1
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["rebase"] == before["rebase"] + 1
+        assert after["probe_rebase_parts"] == before["probe_rebase_parts"] + 3
 
     def test_unsorted_indices_and_many_pieces(self, card):
         """The gather walks piece-major over all matrices: an unsorted
