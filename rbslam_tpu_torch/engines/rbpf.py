@@ -332,7 +332,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             ancestors[t] = ar
             logw = logw_n + log_np + logw
         w_new, logw_n, logz = logsumexp_normalize(logw)
-        traj_max_t[t] = xn[torch.argmax(logw_n)]
+        traj_max_t[t] = _row_at_max(xn, logw_n)
         traj_mean_t[t] = torch.sum(xn * w_new[:, None], dim=0)
         ess_t[t] = ess_from_logw(logw_n)
         logz_t[t] = logz - log_np
@@ -400,7 +400,7 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             logw_n = record(t, ai, logw, logw_n)
 
     # prepend step-0 outputs
-    traj_max = torch.cat([xn0[torch.argmax(logw1n)][None], traj_max_t])
+    traj_max = torch.cat([_row_at_max(xn0, logw1n)[None], traj_max_t])
     traj_mean = torch.cat(
         [torch.sum(xn0 * w1[:, None], dim=0)[None], traj_mean_t]
     )
@@ -445,6 +445,12 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         log_evidence=log_evidence,
         chol_retries=retries,
     )
+
+
+def _row_at_max(x, logw):
+    """x[argmax(logw)], gathered on the device: indexing by a 0-d tensor
+    would read the index on the host (a device sync)."""
+    return x.index_select(0, torch.argmax(logw).reshape(1))[0]
 
 
 def _weighted_sum(w, P, chunk_bytes: int = 1 << 28):

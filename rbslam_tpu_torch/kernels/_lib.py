@@ -51,14 +51,20 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (x, consts, scale, out, n, m, d, stream)
-    "rbs_grad_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
-    # (pos, quat, consts, scale, out, n, m, nl_pad, out_bf16, stream)
-    "rbs_jac3d_rows": (_P, _P, _P, _F, _P, _LL, _I, _I, _I, _P),
+    # (x, consts, scale, out, n, m, d, table, codes, u0, u1, u2, ustride,
+    #  form, per_block, stream)
+    "rbs_grad_basis": (_P, _P, _F, _P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _P),
+    # (pos, quat, consts, scale, out, n, m, nl_pad, out_bf16, table, codes,
+    #  u0, u1, u2, ustride, form, per_block, stream)
+    "rbs_jac3d_rows": (_P, _P, _P, _F, _P, _LL, _I, _I, _I, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _P),
     # (x, consts, scale, out, n, m, d, stream)
     "rbs_phi_basis": (_P, _P, _F, _P, _LL, _I, _I, _P),
-    # (pos, quat, consts, scale, out, n, m, nl_pad, stream)
-    "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P),
+    # (pos, quat, consts, scale, out, n, m, nl_pad, table, codes, u0, u1,
+    #  u2, ustride, form, per_block, stream)
+    "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
+                  _I, _I, _P),
     # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, plan, bf16, stream)
     "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P),
     # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, variant, bf16, stream)

@@ -45,12 +45,16 @@ def systematic_resample(u0: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tens
     Histogram form: ancestor ai[j] = #{i : cdf_i <= (j + u0)/n}, i.e.
     bucket b_i = ceil(n cdf_i - u0) and a cumulative histogram — O(n)
     with no search. Equal to the searchsorted form up to f32 knife-edge
-    rounding where n cdf_i - u0 lies within an ulp of an integer.
+    rounding where n cdf_i - u0 lies within an ulp of an integer. The
+    histogram is a scatter-add into n + 1 zeroed counters, the first n
+    kept, as the reference's (``torch.bincount`` would read its length
+    on the host: a device sync).
     """
     cdf = _cumsum_1d(w)
     cdf = cdf / cdf[-1]
     b = torch.clamp(torch.ceil(n * cdf - u0).to(torch.int64), 0, n)
-    hist = torch.bincount(b, minlength=n + 1)[:n]
+    hist = torch.zeros(n + 1, dtype=torch.int64, device=b.device) \
+        .scatter_add_(0, b, torch.ones_like(b))[:n]
     ai = _cumsum_1d(hist)
     return torch.clamp(ai, 0, w.shape[0] - 1)
 

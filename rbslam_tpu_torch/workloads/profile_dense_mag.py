@@ -7,20 +7,25 @@
 
 Builds the flagship problem (bean_6D, seed 1), runs the filter on the
 chosen path once to warm up, three times for the best un-profiled wall
-time, then once under ``torch.profiler`` (CPU and CUDA activities).
-Reports the number of steps that resampled, the best un-profiled wall
-time, the profiled run's wall time, the device time per kernel
-name (sum over the run), the device busy share (kernel + memcpy/memset
-time over wall time), and the device operations launched per step.
-Needs a CUDA device; there is no CPU mode.
+time, once under ``torch.cuda.set_sync_debug_mode("warn")`` to count the
+host-device synchronizations by call site, then once under
+``torch.profiler`` (CPU and CUDA activities). Reports the number of
+steps that resampled, the best un-profiled wall time, the syncs (all,
+and those at call sites hit at every step, which are the step loop's),
+the profiled run's wall time, the device time per kernel name (sum over
+the run), the device busy share (kernel + memcpy/memset time over wall
+time), and the device operations launched per step. Needs a CUDA device;
+there is no CPU mode.
 """
 
 from __future__ import annotations
 
 import argparse
+import linecache
 import subprocess
 import sys
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -38,6 +43,42 @@ def _device_events(prof):
         if e.device_type == DeviceType.CUDA:
             out.append((e.name, e.time_range.end - e.time_range.start))
     return out
+
+
+def count_syncs(fn) -> dict:
+    """Host-device synchronizations during one call of ``fn``, by call
+    site ("file:line" of the frame that synchronized, from the package
+    root), each with its count and source line: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        site = f"{w.filename.split('rbslam_tpu_torch/')[-1]}:{w.lineno}"
+        if site not in sites:
+            sites[site] = [0, linecache.getline(w.filename, w.lineno).strip()]
+        sites[site][0] += 1
+    return sites
+
+
+def sync_report(sites: dict, steps: int) -> list[str]:
+    """Lines reporting :func:`count_syncs` of a run of ``steps`` steps
+    after step 0; a site hit at least ``steps`` times is in the step
+    loop."""
+    total = sum(n for n, _ in sites.values())
+    per_step = sum(n for n, _ in sites.values() if n >= steps)
+    lines = [f"host-device syncs in one run: {total}; at call sites hit at "
+             f"every step: {per_step} ({per_step / steps:.2f} per step)"]
+    for site, (n, code) in sorted(sites.items(), key=lambda kv: -kv[1][0]):
+        lines.append(f"  {n:6d}x {site}  {code[:80]}")
+    return lines
 
 
 def main(argv=None) -> int:
@@ -88,6 +129,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         run(seed)
         best = min(best, time.perf_counter() - t0)
+    syncs = count_syncs(lambda: run(4))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -109,6 +151,7 @@ def main(argv=None) -> int:
         f"without the profiler: best of 3 {best * 1e3:.3f} ms "
         f"({best * 1e3 / T:.4f} ms/step, "
         f"{args.particles * T / best:.1f} particle-steps/s)",
+        *sync_report(syncs, T - 1),
         f"wall {wall_us / 1e3:.3f} ms under the profiler "
         f"({wall_us / 1e3 / T:.4f} ms/step)",
         f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of "

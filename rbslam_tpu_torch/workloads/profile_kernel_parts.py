@@ -106,6 +106,64 @@ def time_stats(fn, device, reps: int = 10, groups: int = GROUPS):
     return time_alternately({"fn": fn}, device, reps, groups)["fn"]
 
 
+def device_ms(fn, device, reps: int = 10, groups: int = GROUPS):
+    """(median, least, most) device-only milliseconds per call of one
+    function: ``reps`` calls captured in one CUDA graph, the graph
+    replayed ``groups`` times between CUDA events after one warm-up
+    replay. The replays launch no Python, so this is the kernels' own
+    time (and the gaps between them inside the graph), where
+    :func:`time_stats` gives the launch interval, which the host sets
+    for a kernel shorter than its launch. The kernel wrappers launch on
+    the current stream, which is the capture stream; their outputs come
+    from the graph's memory pool. None on the CPU (after one call)."""
+    fn()
+    if device.type != "cuda":
+        return None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()                            # warm-up off the default stream
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(reps)]
+    graph.replay()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize(device)
+        times.append(start.elapsed_time(end) / reps)
+    del outs, graph
+    return sorted(times)[len(times) // 2], min(times), max(times)
+
+
+def kernel_ms(fn, device, reps: int = 10) -> float | None:
+    """Mean duration of the device kernels one call of ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls after a warm-up: the
+    kernels' own time, without the gaps between launches that
+    :func:`device_ms` still holds. None on the CPU (after one call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def time_ms(fn, device, reps: int = 10, groups: int = GROUPS):
     """Median milliseconds per call on a CUDA device over ``groups`` groups
     of ``reps`` calls after one warm-up call (1 + groups * reps calls in

@@ -115,6 +115,101 @@ def test_grad_basis_matches_basis_gradient():
                                rtol=1e-5, atol=1e-5)
 
 
+# ---- the table form of K1, K4 and K7 (its host side and arithmetic) ----
+BOUNDS3 = [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]]
+HALF = [9.0, 6.0, 2.4]
+
+
+def _basis(m, d):
+    return hypercube_basis(m, BOUNDS3 if d == 3 else HALF[:d])
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("m", [125, 509, 512, 128, 2000])
+def test_packed_table_matches_packed_rows(d, m):
+    """Each dimension's distinct (freq, phase, fac) triplets, looked up by
+    column, give the packed rows bit for bit; the column codes hold the
+    table offsets (the counts of the dimensions before plus the index)
+    a byte a dimension where the counts fit them."""
+    consts = pack_basis_constants(_basis(m, d), "cpu")
+    assert consts.table.shape == (3 * d, max(consts.counts))
+    for r in range(3 * d):
+        looked_up = consts.table[r][consts.index[r % d].long()]
+        assert torch.equal(looked_up.view(torch.int32),
+                           consts.packed[r].view(torch.int32))
+    offset = 0
+    for j in range(d):
+        assert int(consts.index[j].max()) == consts.counts[j] - 1
+        if sum(consts.counts) <= 256:
+            field = (consts.col_codes[3:3 + m] >> (8 * j)) & 255
+            assert torch.equal(field, consts.index[j] + offset)
+        offset += consts.counts[j]
+
+
+@pytest.mark.parametrize("d,m", [(1, 17), (2, 128), (3, 125), (3, 509),
+                                 (3, 512)])
+def test_table_evaluation_equals_plain_bitwise(d, m):
+    """The plain mirror of the table form (sin and fac * cos of the
+    distinct phases, read through the kernels' position and column codes)
+    equals the plain versions of K4 and, at d = 3, of K1 in both dtypes:
+    torch.equal."""
+    from rbslam_tpu_torch.kernels.basis_eval import (
+        _table_grad_plain,
+        _table_rows_plain,
+    )
+
+    consts = pack_basis_constants(_basis(m, d), "cpu")
+    rng = np.random.default_rng(m + d)
+    half = np.array([20.0, 20.0, 2.4] if d == 3 else HALF[:d], np.float32)
+    x = t((rng.uniform(-0.9, 0.9, size=(67, d)) * half).astype(np.float32))
+    assert torch.equal(_table_grad_plain(consts, x),
+                       grad_basis_plain(consts, x))
+    if d == 3:
+        _, q = _points(67, seed=m)
+        nl_pad = -(-(3 + m) // 128) * 128
+        for dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(
+                _table_rows_plain(consts, x, t(q), nl_pad, dtype),
+                mag3d_jacobian_rows_plain(consts, x, t(q), nl_pad, dtype))
+
+
+@pytest.mark.parametrize("jac,n,d,m,nl_pad,itemsize,counts,plan", [
+    # K1 bf16 headline: 16 stores of 16 bytes a row, 32 particles a block
+    (True, 16384, 3, 125, 128, 2, (13, 13, 1), (1, 32)),
+    # K1 f32 reference shape: 128 stores a row, 4 particles a block
+    (True, 4096, 3, 509, 512, 4, (21, 21, 2), (1, 4)),
+    # fewer particles a block, so that 1001 particles make 264 blocks
+    (True, 1001, 3, 125, 128, 4, (13, 13, 1), (1, 3)),
+    # K4: a block's flat range starts 16-byte aligned (d m = 375 is odd:
+    # a multiple of four particles a block; 150: of two), and 4096 floats
+    # a block at most
+    (False, 16384, 3, 125, 0, 4, (13, 13, 1), (1, 8)),
+    (False, 16384, 2, 128, 0, 4, (16, 11), (1, 16)),
+    (False, 1103, 2, 75, 0, 4, (9, 8), (1, 4)),
+    # too few particles to fill the card (the smoothers' 100, K7 at the
+    # smoothed trajectory's 192): the direct form
+    (False, 100, 3, 512, 0, 4, (21, 21, 2), (0, 0)),
+    (True, 192, 3, 512, 640, 4, (21, 21, 2), (0, 0)),
+    # 256 distinct values in all dimensions: the table form still
+    (False, 16384, 1, 256, 0, 4, (256,), (1, 16)),
+    # over 256 (a table offset is a byte): the direct form
+    (False, 16384, 1, 257, 0, 4, (257,), (0, 0)),
+    (False, 100, 1, 2000, 0, 4, (2000,), (0, 0)),
+    (True, 100, 3, 1100, 1152, 4, (1100, 1, 1), (0, 0)),
+])
+def test_basis_planner_choices(jac, n, d, m, nl_pad, itemsize, counts, plan):
+    """The Python mirror of basis_plan (csrc/basis_eval.cu), whose choice
+    the C entries check before they launch."""
+    from rbslam_tpu_torch.kernels.basis_eval import _basis_plan, _basis_smem
+
+    got = _basis_plan(jac, n, d, m, nl_pad, itemsize, counts)
+    assert got == plan
+    if got[0] == 1:
+        assert _basis_smem(jac, sum(counts), got[1]) <= 48 * 1024
+        if not jac:
+            assert got[1] * d * m % 4 == 0
+
+
 def _factored(ny, seed=3, N=32, nl=128, rw=None):
     rng = np.random.default_rng(seed)
     rw = 8 * ny if rw is None else rw
@@ -523,3 +618,111 @@ class TestOnCard:
                         torch.bfloat16 if a.dim() == 3 else torch.float32)
         assert torch.equal(got[3][tail], want[3])
         torch.cuda.synchronize()
+
+    @pytest.mark.parametrize("kernel,n,d,m,nl_pad,dtype,form", [
+        # K1: the headline and reference shapes, n not a multiple of the
+        # block's particles, a row that is not a whole number of 16-byte
+        # stores (bf16 nl_pad 132, f32 nl_pad 131)
+        ("jac3d_rows", 16384, 3, 125, 128, torch.bfloat16, 1),
+        ("jac3d_rows", 4096, 3, 509, 512, torch.float32, 1),
+        ("jac3d_rows", 1001, 3, 125, 128, torch.float32, 1),
+        ("jac3d_rows", 777, 3, 125, 132, torch.bfloat16, 1),
+        ("jac3d_rows", 555, 3, 128, 131, torch.float32, 1),
+        # K7 at the headline shape and at an odd width; at the smoothed
+        # trajectory's shape (192 particles) the direct form
+        ("jac3d", 16384, 3, 125, 128, torch.float32, 1),
+        ("jac3d", 333, 3, 61, 67, torch.float32, 1),
+        ("jac3d", 192, 3, 512, 640, torch.float32, 0),
+        # K4 at d = 1, 2, 3; d m odd (four particles a block), n odd; at
+        # the smoothers' 100 particles the direct form
+        ("grad_basis", 16384, 3, 125, None, torch.float32, 1),
+        ("grad_basis", 16384, 2, 128, None, torch.float32, 1),
+        ("grad_basis", 1103, 2, 75, None, torch.float32, 1),
+        ("grad_basis", 1999, 1, 17, None, torch.float32, 1),
+        ("grad_basis", 600, 1, 250, None, torch.float32, 1),
+        ("grad_basis", 100, 3, 512, None, torch.float32, 0),
+    ])
+    def test_table_form_bit_equal_to_direct_form(self, card, kernel, n, d, m,
+                                                 nl_pad, dtype, form):
+        """K1, K7 and K4 in the form the planner picks against their plain
+        versions, twice for equal bits, and bit-equal to their direct form
+        on the same constants (the direct form runs where the counts say
+        the dimensions have more than 256 distinct values in all)."""
+        from rbslam_tpu_torch.kernels.basis_eval import _basis_plan
+
+        g = torch.Generator(device=card).manual_seed(n + m)
+        consts = pack_basis_constants(_basis(m, d), card)
+        half = torch.tensor([18.0, 18.0, 2.0] if d == 3 else HALF[:d],
+                            device=card)
+        x = (2 * torch.rand((n, d), generator=g, device=card) - 1) * half
+        q = torch.randn((n, 4), generator=g, device=card)
+        q = q / q.norm(dim=-1, keepdim=True)
+        jac = kernel != "grad_basis"
+        item = torch.tensor([], dtype=dtype).element_size()
+        assert _basis_plan(jac, n, d, m, nl_pad or 0, item,
+                           consts.counts)[0] == form
+        direct = consts._replace(counts=(257,) * d)
+
+        def run(c):
+            if kernel == "jac3d_rows":
+                return mag3d_jacobian_rows(c, x, q, nl_pad, dtype)
+            if kernel == "jac3d":
+                return mag3d_jacobian(c, x, q, nl_pad)
+            return grad_basis(c, x)
+
+        before = launch_counts()[kernel]
+        out = run(consts)
+        plain = {"jac3d_rows": lambda: mag3d_jacobian_rows_plain(
+                     consts, x, q, nl_pad, dtype),
+                 "jac3d": lambda: mag3d_jacobian_plain(consts, x, q, nl_pad),
+                 "grad_basis": lambda: grad_basis_plain(consts, x)}[kernel]()
+        self._check(out, plain, dtype)
+        assert torch.equal(run(consts), out)
+        assert torch.equal(run(direct), out)
+        torch.cuda.synchronize()
+        assert launch_counts()[kernel] == before + 3
+
+    @pytest.mark.parametrize("kernel", ["jac3d_rows", "jac3d", "grad_basis"])
+    def test_direct_form_where_a_dimension_has_many_values(self, card,
+                                                           kernel):
+        """Over 256 distinct values in all dimensions: the planner picks
+        the direct form, which still serves the shape; a plan that
+        disagrees with the C entry's own is refused."""
+        from rbslam_tpu_torch.kernels import _lib
+        from rbslam_tpu_torch.kernels.basis_eval import _table_args
+
+        d = 1 if kernel == "grad_basis" else 3
+        basis = (hypercube_basis(2000, [9.0]) if d == 1
+                 else hypercube_basis(1100, [1000.0, 1.0, 1.0]))
+        consts = pack_basis_constants(basis, card)
+        assert sum(consts.counts) > 256
+        g = torch.Generator(device=card).manual_seed(3)
+        n = 50
+        x = (2 * torch.rand((n, d), generator=g, device=card) - 1) \
+            * (0.9 * torch.tensor(basis.L, dtype=torch.float32, device=card))
+        q = torch.randn((n, 4), generator=g, device=card)
+        q = q / q.norm(dim=-1, keepdim=True)
+        nl_pad = 1152
+        if kernel == "jac3d_rows":
+            out = mag3d_jacobian_rows(consts, x, q, nl_pad)
+            plain = mag3d_jacobian_rows_plain(consts, x, q, nl_pad)
+        elif kernel == "jac3d":
+            out = mag3d_jacobian(consts, x, q, nl_pad)
+            plain = mag3d_jacobian_plain(consts, x, q, nl_pad)
+        else:
+            out, plain = grad_basis(consts, x), grad_basis_plain(consts, x)
+        self._check(out, plain, torch.float32)
+        # the table form asked for where the C planner says direct
+        bad = torch.empty_like(out)
+        args = _table_args(consts, consts.grad_codes, (1, 1))
+        if kernel == "grad_basis":
+            code = _lib.lib().rbs_grad_basis(
+                x.data_ptr(), consts.packed.data_ptr(), consts.scale,
+                bad.data_ptr(), n, consts.m, d, *args, _lib.stream_ptr())
+        else:
+            code = getattr(_lib.lib(), f"rbs_{kernel}")(
+                x.data_ptr(), q.data_ptr(), consts.packed.data_ptr(),
+                consts.scale, bad.data_ptr(), n, consts.m, nl_pad,
+                *((0,) if kernel == "jac3d_rows" else ()), *args,
+                _lib.stream_ptr())
+        assert code != 0
