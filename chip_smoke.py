@@ -8,12 +8,14 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
     paths' shapes, and time both (the median of five groups of ten
-    launches, the spread beside it; for K1, K4, K6 and K7, which are
-    shorter than their launch, also the device-only time: ten calls in
-    one CUDA graph, replayed); K1, K4 and K7 in the form their planner
-    picks (the table form at N = 16384 and 4096, the direct form at the
-    smoothers' 100 and phase 9's 192 particles), each launched twice for
-    equal bits and held bit for bit against its direct form; K3 also at
+    launches, the spread beside it); K1, K4, K6 and K7, which are
+    shorter than their launch, also through
+    workloads/basis_kernel_times.py: the device-only time (ten calls in
+    one CUDA graph, replayed) beside the launch interval, and K1, K4 and
+    K7 in the form their planner picks (the table form at N = 16384 and
+    4096, the direct form at the smoothers' 100 and phase 9's 192
+    particles), each launched twice for equal bits and held bit for bit
+    against its direct form; K3 also at
     rw = 8 and 40, at nl = 136 and at nl = 2048 (its wide form); K5 in
     each of its forms (P resident
     in the block, streamed, two passes), each launched twice for equal
@@ -114,13 +116,13 @@ from rbslam_tpu_torch.kernels import (
     rebase_plain,
     reset_launch_counts,
 )
-from rbslam_tpu_torch.kernels.basis_eval import _basis_plan
 from rbslam_tpu_torch.kernels.kf_update import _block_plan
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
 from rbslam_tpu_torch.metrics import aligned_position_rmse
 from rbslam_tpu_torch.utils import ekf_inputs
 from rbslam_tpu_torch.workloads import (
+    basis_kernel_times,
     dense_mag,
     dense_radio,
     profile_kernel_parts,
@@ -129,7 +131,6 @@ from rbslam_tpu_torch.workloads.dense_mag import build_problem
 from rbslam_tpu_torch.workloads.profile_kernel_parts import (
     GROUPS,
     bound_ms,
-    device_ms,
     time_alternately,
     time_ms,
     time_stats,
@@ -190,7 +191,7 @@ def sync(device) -> None:
 
 
 def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
-            flop_dtype=torch.float32, exact=False, device_only=False):
+            flop_dtype=torch.float32, exact=False):
     """Run kernel and plain version on the same inputs (``inputs``: the
     tensors the kernel reads, ``flops``: the operations it does on them,
     for :func:`bound`); check the error
@@ -199,10 +200,7 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
     floor of 1e-6 of that magnitude); time both. ``dtype`` names the
     tolerance; None holds each output to the tolerance of its own dtype.
     A kernel with several outputs returns a tuple; a boolean output must
-    be equal, and with ``exact`` every output. With ``device_only`` the
-    kernel's device-only time (ten calls in one CUDA graph, replayed) is
-    printed beside its launch interval, for kernels shorter than their
-    launch (K1, K4, K6, K7)."""
+    be equal, and with ``exact`` every output."""
     outs_k = kernel()
     outs_p = plain()
     sync(device)
@@ -246,11 +244,6 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
     log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms ({lo:.4f}-{hi:.4f} "
         f"over {GROUPS} groups of 10) plain={plain_ms:.4f} ms "
         f"bound={bound_info['bound_ms']:.4f} ms ({bound_info['bound_by']})")
-    if device_only:
-        dms, dlo, dhi = device_ms(kernel, device)
-        log(f"[3] {name} {shape_note}: device-only {dms:.4f} ms "
-            f"({dlo:.4f}-{dhi:.4f} over {GROUPS} graph replays of 10 calls) "
-            f"beside the launch interval {ms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info}
 
 
@@ -282,7 +275,6 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             device, dt, f"N={pp.shape[0]} m={cc.m} nl={nll} {dt}",
             (pp, qq, cc.packed),
             pp.shape[0] * cc.m * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
-            device_only=True,
         )
         rows.setdefault("jac3d_rows", r)
     # K4 at the headline shape, at d = 2 and at the mag3d smoother's 100
@@ -299,7 +291,6 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             lambda: grad_basis_plain(cc, xx), device, torch.float32,
             f"N={xx.shape[0]} m={cc.m} d={dd} float32", (xx, cc.packed),
             xx.shape[0] * cc.m * (dd * 2 + dd * 2 + dd * (dd + 1)),
-            device_only=True,
         )
         rows.setdefault("grad_basis", r)
 
@@ -315,7 +306,6 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             lambda: mag3d_jacobian_plain(cc, pp, qq, nll), device,
             torch.float32, f"N={nn} m={mm} nl={nll} float32",
             (pp, qq, cc.packed), nn * mm * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
-            device_only=True,
         )
         rows.setdefault("jac3d", r)
         if not torch.equal(mag3d_jacobian(cc, pp, qq, nll),
@@ -324,37 +314,6 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             raise AssertionError("jac3d differs from jac3d_rows transposed")
         log(f"[3] jac3d N={nn} nl={nll}: bit-equal to jac3d_rows (float32) "
             "transposed")
-
-    # K1, K4 and K7 in the form their planner picks: two launches give the
-    # same bits, and so does the direct form on the same constants (forced
-    # by counts over the table's 256 offsets)
-    cases = [
-        (consts, "jac3d_rows", n, lambda c: mag3d_jacobian_rows(
-            c, pos, quat, nl, torch.bfloat16)),
-        (ref, "jac3d_rows", n_ref, lambda c: mag3d_jacobian_rows(
-            c, pos_ref, quat_ref, nl_ref, torch.float32)),
-        *[(cc, "grad_basis", xx.shape[0], lambda c, xx=xx: grad_basis(c, xx))
-          for cc, xx in grad_cases],
-        (consts, "jac3d", n, lambda c: mag3d_jacobian(c, pos, quat, nl)),
-        (smoother, "jac3d", 192, lambda c: mag3d_jacobian(
-            c, pos[:192], quat[:192], 640)),
-    ]
-    for cc, name, nn, fn in cases:
-        out = fn(cc)
-        jac = name != "grad_basis"
-        form, per = _basis_plan(jac, nn, cc.d, cc.m,
-                                out.shape[-1] if jac else 0,
-                                out.element_size(), cc.counts)
-        same = torch.equal(fn(cc), out)
-        direct = torch.equal(fn(cc._replace(counts=(257,) * cc.d)), out)
-        note = (f"{name} N={nn} m={cc.m} d={cc.d} {out.dtype} ("
-                + (f"table form, {per} particles a block)" if form
-                   else "direct form)"))
-        if not (same and direct):
-            raise AssertionError(f"{note}: two launches equal {same}, equal "
-                                 f"to the direct form {direct}")
-        log(f"[3] {note}: two launches bit-equal, bit-equal to the direct "
-            "form")
 
     # K6 at the radio path's shape (N_P=100, d=2, m=128) and at large N
     for nn, dd, mm in ((100, 2, 128), (n, 2, 128), (n, 3, 512)):
@@ -366,9 +325,20 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             "phi_basis", lambda: phi_basis(cc, xx),
             lambda: phi_basis_plain(cc, xx), device, torch.float32,
             f"N={nn} d={dd} m={mm} float32", (xx, cc.packed),
-            nn * mm * dd * 4, device_only=True,
+            nn * mm * dd * 4,
         )
         rows.setdefault("phi_basis", r)
+
+    # K1, K4, K6 and K7 at their main paths' shapes: the form the planner
+    # picks, two launches and the direct form bit-equal, and the
+    # device-only time (ten calls in one CUDA graph, replayed) beside the
+    # launch interval, as these kernels are shorter than their launch
+    basis_rows = basis_kernel_times.run(device)
+    for line in basis_kernel_times.report(basis_rows):
+        log(f"[3] {line}")
+    if basis_kernel_times.failed(basis_rows):
+        raise AssertionError("a basis kernel's bits differ between launches "
+                             "or from its direct form")
 
     def factored(nn, nll, dt):
         B = torch.randn((nn, nll, nll), generator=g, device=device)

@@ -19,15 +19,15 @@
 //
 // Table form (K4, K1, K7). The phase a_jb depends on the column b only
 // through the index n_jb, and a few distinct values of n_jb serve all m
-// columns (11, 11, 2 of them at m = 125 on the bean_6D domain, 17, 17, 3
-// at m = 509 and 512: 24 and 37 sincosf a particle for 3 m): the host
+// columns (11, 11, 2 of them at m = 125 on the bean_6D domain, 18, 17, 3
+// at m = 509 and 512: 24 and 38 sincosf a particle for 3 m): the host
 // packs, per dimension, the distinct (freq, phase, fac) triplets, and per
 // output column (K1, K7) or per flat output position (K4) a code holding
 // the table offsets it needs, a byte each. A block takes several
 // particles (basis_plan chooses how many) in two phases. Phase 1: its
 // threads evaluate sincosf once per particle and distinct phase into a
-// shared-memory table of (sin, fac * cos), and R(q) one thread a
-// particle. Phase 2, after one barrier: each thread writes 16 bytes at a
+// shared-memory table of (sin, fac * cos), and R(q) nine threads a
+// particle, one an entry. Phase 2, after one barrier: each thread writes 16 bytes at a
 // time (8 bf16 or 4 f32 columns of all three rows of K1 or K7; 4
 // consecutive floats of the block's flat [P, d, m] range for K4), its
 // codes read 16 bytes at a time through L1 and its sines and cosines from
@@ -314,9 +314,9 @@ jac_table_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
   const long long p0 = (long long)blockIdx.x * ta.per_block;
   const int np = (int)min((long long)ta.per_block, n - p0);
   fill_table<3>(pos, ta, p0, np, tab);
-  for (int pl = threadIdx.x; pl < np; pl += blockDim.x) {
-#pragma unroll
-    for (int e = 0; e < 9; ++e) Rs[9 * pl + e] = rmat_entry(quat + (p0 + pl) * 4, e);
+  for (int w = threadIdx.x; w < 9 * np; w += blockDim.x) {
+    const int pl = w / 9;
+    Rs[w] = rmat_entry(quat + (p0 + pl) * 4, w - 9 * pl);
   }
   __syncthreads();
 

@@ -31,12 +31,12 @@ class BasisConstants(NamedTuple):
 
     - ``table`` [3d, max(counts)] float32: each dimension's distinct
       (freq, phase, fac) triplets in the rows' order (zero beyond a
-      dimension's count), and ``index`` [d, m] int32, each column's index
-      into them: ``table[r][index[r % d, b]] == packed[r][b]`` bit for bit;
+      dimension's count), ``counts[j]`` of them: each column's triplet
+      equals exactly one of them bit for bit;
     - ``col_codes`` [round_up(3 + m, 8)] int32 (K1, K7): at output column
       3 + b, the table offsets of column b's values, a byte a dimension
       (a dimension's offset is the counts of the dimensions before it
-      plus its index);
+      plus the index of the column's triplet among its distinct ones);
     - ``grad_codes`` [g d m] int32 (K4): at flat position (q, i, b) of a
       period of g particles (g d m a multiple of 4), the table offset of
       dimension i's value, then those of the other dimensions in order,
@@ -48,7 +48,6 @@ class BasisConstants(NamedTuple):
     m: int
     d: int
     table: torch.Tensor
-    index: torch.Tensor
     col_codes: torch.Tensor
     grad_codes: torch.Tensor
     counts: tuple
@@ -107,7 +106,7 @@ def pack_basis_constants(basis, device) -> BasisConstants:
 
     return BasisConstants(
         packed=dev(packed), scale=scale, m=int(m), d=int(d),
-        table=dev(table), index=dev(index.astype(np.int32)),
+        table=dev(table),
         col_codes=dev(col_codes.view(np.int32)),
         grad_codes=dev(grad_codes.reshape(-1).view(np.int32)),
         counts=counts,

@@ -1,8 +1,10 @@
-"""Device-only time of the basis kernels K1, K4, K6 and K7 at their main
-paths' shapes, beside their launch interval and their bound; with
-``--parent``, the same kernels of another checkout of the port, loaded in
-the same process, timed in turns with this one, and their outputs held
-against this one's bit for bit.
+"""The basis kernels K1, K4, K6 and K7 at their main paths' shapes: the
+form their planner picks, held bit for bit against a second launch and
+against the direct form, and their device-only time beside their launch
+interval and their bound; with ``--parent``, the same kernels of another
+checkout of the port, loaded in the same process, timed in turns with
+this one, and their outputs held against this one's bit for bit.
+chip_smoke.py phase 3 runs this without a parent.
 
     python -m rbslam_tpu_torch.workloads.basis_kernel_times \
         [--parent DIR] [--out FILE]
@@ -15,10 +17,8 @@ builds of the kernel library are loaded at once. Device-only time:
 median of five replays). Launch interval: ``profile_kernel_parts.
 time_stats`` (ten wrapper calls back to back between CUDA events, median
 of five groups), which the host sets when a kernel is shorter than its
-launch. Kernel time: ``profile_kernel_parts.kernel_ms`` (the kernels'
-own durations in a ``torch.profiler`` trace of ten calls, without the
-gaps between launches). The order of a case is parent, this tree, this
-tree, parent. Needs a CUDA device.
+launch. The order of a case is parent, this tree, this tree, parent.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ import torch
 
 from .. import kernels as this_kernels
 from ..basis import hypercube_basis
-from .profile_kernel_parts import bound_ms, device_ms, kernel_ms, time_stats
+from ..kernels.basis_eval import _basis_plan
+from .profile_kernel_parts import bound_ms, device_ms, time_stats
 
 BOUNDS3 = [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]]
 HALF = [9.0, 6.0, 2.4]
@@ -112,8 +113,11 @@ def case_bound(name, n, d, m, nl_pad, dtype, consts):
 
 
 def run(device, parent_root=None, seed=0):
-    """One row per case: device-only and launch-interval times of this
-    tree (and of the parent, with equal outputs), and the bound."""
+    """One row per case: the planner's form (K1, K4, K7), whether two
+    launches and the direct form on the same constants (forced by counts
+    over the table's 256 offsets) give the same bits, device-only and
+    launch-interval times of this tree (and of the parent, with equal
+    outputs), and the bound."""
     trees = {"this": this_kernels}
     if parent_root is not None:
         load_port(parent_root, "_parent_rbslam_tpu_torch")
@@ -134,42 +138,62 @@ def run(device, parent_root=None, seed=0):
         equal = (None if "parent" not in trees
                  else torch.equal(outs["this"], outs["parent"]))
         again = torch.equal(fns["this"](), outs["this"])
+        form = direct = None
+        if name != "phi_basis":
+            this = consts["this"]
+            form = _basis_plan(name != "grad_basis", n, d, m, nl_pad or 0,
+                               outs["this"].element_size(), this.counts)
+            direct = torch.equal(
+                call(this_kernels, name, this._replace(counts=(257,) * d),
+                     x, q, nl_pad, dtype), outs["this"])
         dev = {k: [] for k in trees}
         launch = {k: [] for k in trees}
-        kern = {k: [] for k in trees}
         for k in order:
             dev[k].append(device_ms(fns[k], device))
             launch[k].append(time_stats(fns[k], device))
-            kern[k].append(kernel_ms(fns[k], device))
         b, by = case_bound(name, n, d, m, nl_pad, dtype, consts["this"])
         rows.append({
             "kernel": name, "n": n, "d": d, "m": m, "nl_pad": nl_pad,
             "dtype": str(dtype).removeprefix("torch."),
-            "shape": tuple(outs["this"].shape),
+            "shape": tuple(outs["this"].shape), "form": form,
             "bit_equal_to_parent": equal, "two_launches_equal": again,
+            "equal_to_direct_form": direct,
             "device_ms": dev, "launch_interval_ms": launch,
-            "kernel_ms": kern,
             "bound_ms": b, "bound_by": by,
         })
         del outs
     return rows
 
 
-def print_rows(rows) -> None:
+def failed(rows) -> list:
+    """The rows whose bits disagree with a second launch, the direct form
+    or the parent."""
+    return [r for r in rows if not r["two_launches_equal"]
+            or r["equal_to_direct_form"] is False
+            or r["bit_equal_to_parent"] is False]
+
+
+def report(rows) -> list[str]:
     def fmt(stats):
         return " ".join(f"{s[0]:.4f} ({s[1]:.4f}-{s[2]:.4f})" for s in stats)
 
+    lines = []
     for r in rows:
-        print(f"{r['kernel']} N={r['n']} d={r['d']} m={r['m']} "
-              f"nl_pad={r['nl_pad']} {r['dtype']} -> {r['shape']}: bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); bit-equal to parent "
-              f"{r['bit_equal_to_parent']}, two launches equal "
-              f"{r['two_launches_equal']}")
+        form = ("" if r["form"] is None else
+                f"table form, {r['form'][1]} particles a block; "
+                if r["form"][0] else "direct form; ")
+        lines.append(
+            f"{r['kernel']} N={r['n']} d={r['d']} m={r['m']} "
+            f"nl_pad={r['nl_pad']} {r['dtype']} -> {r['shape']}: {form}bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); two launches equal "
+            f"{r['two_launches_equal']}, equal to the direct form "
+            f"{r['equal_to_direct_form']}, to the parent "
+            f"{r['bit_equal_to_parent']}")
         for k in r["device_ms"]:
-            kern = " ".join(f"{v:.4f}" for v in r["kernel_ms"][k])
-            print(f"    {k:6s} device-only ms {fmt(r['device_ms'][k])}; "
-                  f"launch interval ms {fmt(r['launch_interval_ms'][k])}; "
-                  f"kernel (profiler) ms {kern}")
+            lines.append(f"    {k:6s} device-only ms {fmt(r['device_ms'][k])};"
+                         f" launch interval ms "
+                         f"{fmt(r['launch_interval_ms'][k])}")
+    return lines
 
 
 def main(argv=None) -> int:
@@ -185,12 +209,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
     rows = run(device, args.parent)
-    print_rows(rows)
-    bad = [r for r in rows if r["bit_equal_to_parent"] is False
-           or not r["two_launches_equal"]]
+    print("\n".join(report(rows)))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
+    bad = failed(rows)
     if bad:
         print(f"outputs differ: {[(r['kernel'], r['n'], r['m']) for r in bad]}")
         return 1

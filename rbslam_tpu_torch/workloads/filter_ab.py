@@ -1,20 +1,19 @@
-"""The filter of this checkout against another's (the parent commit's),
-in turns on one card: particle-steps/s of each run, host-device syncs a
-step by call site, and whether the two give the same bits.
+"""The lowrank filter of this checkout against another's (the parent
+commit's), in turns on one card: particle-steps/s of each run,
+host-device syncs a step by call site, and whether the two give the
+same bits.
 
     python -m rbslam_tpu_torch.workloads.filter_ab --parent DIR \
-        [--child DIR] [--shape headline] [--kf-kernel lowrank] \
-        [--pairs 5] [--out FILE]
+        [--shape headline] [--pairs 5] [--out FILE]
 
 ``DIR`` is the root of another checkout (for example a ``git archive``
 of the parent commit unpacked into a directory that ``.gitignore``
-lists), imported under another name beside this one; ``--child`` puts a
-second other checkout in this one's place (two earlier commits). Both
-build the same dataset (bean_6D, T=192, m_sim=512, seed 1) and run
-``run_rbpf`` with the same generator seed, as chip_smoke.py phases 4 and
-5 do: ``headline`` N_P=16384, m=125, bf16; ``reference`` N_P=4096,
-m=509, f32; systematic
-resampling, no symmetrization, lowrank r=8 by default. After one warm-up
+lists), imported under another name beside this one. Both build the
+same dataset (bean_6D, T=192, m_sim=512, seed 1) and run ``run_rbpf``
+with the same generator seed, as chip_smoke.py phases 4 and 5 do:
+``headline`` N_P=16384, m=125, bf16; ``reference`` N_P=4096, m=509,
+f32; systematic resampling, no symmetrization, lowrank r=8 (the main
+path). After one warm-up
 run each, ``--pairs`` pairs of timed runs (one run each, a wall ending in
 ``torch.cuda.synchronize()``), the order alternating (parent, this; this,
 parent; ...), each run with its own seed, the same in both trees. Needs a
@@ -41,7 +40,7 @@ SHAPES = {"headline": (16384, 125, "bfloat16"),
 T = 192
 
 
-def _runner(package: str, shape: str, kf_kernel: str, device):
+def _runner(package: str, shape: str, device):
     """run(seed) -> RBPFResult of the port imported as ``package``."""
     engines = importlib.import_module(f"{package}.engines")
     dense_mag = importlib.import_module(f"{package}.workloads.dense_mag")
@@ -50,7 +49,7 @@ def _runner(package: str, shape: str, kf_kernel: str, device):
                                          device=device)
     cfg = engines.RBPFConfig(n_particles=n, resampling="systematic",
                              cov_dtype=cov_dtype, symmetrize_cov=False,
-                             kf_kernel=kf_kernel, lowrank_period=8)
+                             kf_kernel="lowrank", lowrank_period=8)
     gen = torch.Generator(device=device)
 
     def run(seed):
@@ -67,11 +66,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="root of the other checkout of the port")
-    ap.add_argument("--child", default=None,
-                    help="root of a checkout to run instead of this one")
     ap.add_argument("--shape", default="headline", choices=list(SHAPES))
-    ap.add_argument("--kf-kernel", default="lowrank",
-                    choices=["lowrank", "block_gather", "xla"])
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--out", default=None, help="also write the rows here")
     args = ap.parse_args(argv)
@@ -83,22 +78,18 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     load_port(args.parent, "_parent_rbslam_tpu_torch")
-    this = __package__.rsplit(".", 1)[0]
-    if args.child is not None:
-        this = "_child_rbslam_tpu_torch"
-        load_port(args.child, this)
     runs = {"parent": _runner("_parent_rbslam_tpu_torch", args.shape,
-                              args.kf_kernel, device),
-            "this": _runner(this, args.shape, args.kf_kernel, device)}
+                              device),
+            "this": _runner(__package__.rsplit(".", 1)[0], args.shape,
+                            device)}
     n = SHAPES[args.shape][0]
     first = {k: run(0) for k, run in runs.items()}
     same = all(torch.equal(getattr(first["this"], f),
                            getattr(first["parent"], f))
                for f in ("ancestors", "traj_mean", "xl", "P", "logw"))
     del first
-    print(f"{card}; this = {args.child or 'this checkout'}, parent = "
-          f"{args.parent}")
-    print(f"{card}; {args.shape} N_P={n} T={T} {args.kf_kernel}: the two "
+    print(f"{card}; parent = {args.parent}")
+    print(f"{card}; {args.shape} N_P={n} T={T} lowrank: the two "
           f"trees' runs with seed 0 give equal ancestors, traj_mean, xl, P, "
           f"logw: {same}")
     syncs = {}
@@ -120,7 +111,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "shape": args.shape,
-                       "kf_kernel": args.kf_kernel, "equal_bits": same,
+                       "equal_bits": same,
                        "particle_steps_per_s": rate, "syncs": syncs}, f,
                       indent=1)
     return 0 if same else 1

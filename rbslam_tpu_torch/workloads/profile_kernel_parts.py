@@ -143,27 +143,6 @@ def device_ms(fn, device, reps: int = 10, groups: int = GROUPS):
     return sorted(times)[len(times) // 2], min(times), max(times)
 
 
-def kernel_ms(fn, device, reps: int = 10) -> float | None:
-    """Mean duration of the device kernels one call of ``fn`` launches,
-    from ``torch.profiler`` over ``reps`` calls after a warm-up: the
-    kernels' own time, without the gaps between launches that
-    :func:`device_ms` still holds. None on the CPU (after one call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    if device.type != "cuda":
-        return None
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(device)
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3
-
-
 def time_ms(fn, device, reps: int = 10, groups: int = GROUPS):
     """Median milliseconds per call on a CUDA device over ``groups`` groups
     of ``reps`` calls after one warm-up call (1 + groups * reps calls in

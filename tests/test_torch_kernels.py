@@ -127,23 +127,25 @@ def _basis(m, d):
 @pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("m", [125, 509, 512, 128, 2000])
 def test_packed_table_matches_packed_rows(d, m):
-    """Each dimension's distinct (freq, phase, fac) triplets, looked up by
-    column, give the packed rows bit for bit; the column codes hold the
-    table offsets (the counts of the dimensions before plus the index)
+    """Each column's (freq, phase, fac) triplet equals exactly one of its
+    dimension's distinct triplets in the table, bit for bit, and every
+    table entry serves some column; the column codes hold the table
+    offsets (the counts of the dimensions before plus that entry's index)
     a byte a dimension where the counts fit them."""
     consts = pack_basis_constants(_basis(m, d), "cpu")
     assert consts.table.shape == (3 * d, max(consts.counts))
-    for r in range(3 * d):
-        looked_up = consts.table[r][consts.index[r % d].long()]
-        assert torch.equal(looked_up.view(torch.int32),
-                           consts.packed[r].view(torch.int32))
     offset = 0
-    for j in range(d):
-        assert int(consts.index[j].max()) == consts.counts[j] - 1
+    for j, u in enumerate(consts.counts):
+        bits = consts.table[j::d, :u].T.contiguous().view(torch.int32)
+        cols = consts.packed[j::d].T.contiguous().view(torch.int32)
+        match = (cols[:, None, :] == bits[None, :, :]).all(-1)   # [m, u]
+        assert torch.equal(match.sum(1), torch.ones(m, dtype=torch.long))
+        index = match.int().argmax(1)
+        assert torch.equal(torch.unique(index), torch.arange(u))
         if sum(consts.counts) <= 256:
             field = (consts.col_codes[3:3 + m] >> (8 * j)) & 255
-            assert torch.equal(field, consts.index[j] + offset)
-        offset += consts.counts[j]
+            assert torch.equal(field, index + offset)
+        offset += u
 
 
 @pytest.mark.parametrize("d,m", [(1, 17), (2, 128), (3, 125), (3, 509),
