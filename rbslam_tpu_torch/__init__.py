@@ -11,14 +11,18 @@ Subpackages
 math      quaternion algebra, PSD-safe Cholesky, log-weight utilities,
           Procrustes alignment
 basis     Laplacian eigenbasis, scalar-potential basis, spectral densities
-ops       resampling schemes, small-ny Kalman update
+gp        reduced-rank GP regression with ML-II fitting (the magnetic map)
+ops       resampling schemes, dense and masked (sparse) Kalman updates
 kernels   CUDA kernels K1-K7 with wrappers, plain versions, launch counts
-models    dense 3-D magnetic-field model, dense radio model
-engines   RBPF (xla, block_gather, lowrank), CPF-AS and information-form
-          smoothers
-data      trajectories, GP field draws, dataset simulation
-metrics   Procrustes-aligned position RMSE
-workloads dense-mag and dense-radio problems, GPU profilers
+models    dense 3-D magnetic-field and radio models, terrain-matching
+          models, pinhole camera
+engines   RBPF (xla, block_gather, lowrank; sparse models), plain PF,
+          CPF-AS and information-form smoothers, EKF
+data      trajectories, GP field draws, dataset simulation, the sparse
+          visual dataset
+metrics   Procrustes-aligned position, orientation, path and map RMSE
+workloads dense-mag, dense-radio, mag-localization and sparse-visual
+          problems, GPU profilers
 utils     problem construction from numpy arrays
 """
 

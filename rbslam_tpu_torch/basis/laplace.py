@@ -12,7 +12,7 @@ works on torch tensors of any device.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -45,6 +45,10 @@ class LaplaceBasis:
     NN: np.ndarray           # [m, d] int32
     L: np.ndarray            # [d] float64 half-widths
     eigenvalues: np.ndarray  # [m] float64
+    # NN and L as tensors, by (device, dtype): copying them from the host
+    # at every evaluation is a host-device sync on a CUDA device
+    _tensors: dict = field(default_factory=dict, init=False, repr=False,
+                           compare=False)
 
     @property
     def m(self) -> int:
@@ -56,8 +60,12 @@ class LaplaceBasis:
 
     def _args(self, x: torch.Tensor):
         """Phase arguments a[..., m, d] = pi n_j (x_j + L_j) / (2 L_j)."""
-        NN = torch.as_tensor(self.NN, dtype=x.dtype, device=x.device)
-        L = torch.as_tensor(self.L, dtype=x.dtype, device=x.device)
+        key = (x.device, x.dtype)
+        if key not in self._tensors:
+            self._tensors[key] = (
+                torch.as_tensor(self.NN, dtype=x.dtype, device=x.device),
+                torch.as_tensor(self.L, dtype=x.dtype, device=x.device))
+        NN, L = self._tensors[key]
         shifted = (x + L)[..., None, :]
         return math.pi * NN * shifted / (2.0 * L), NN, L
 

@@ -31,12 +31,20 @@ weights is at most ``ess_threshold * N``, which the host reads from the
 device once per step; a step that does not resample keeps ai = identity,
 skips the state and covariance gathers and accumulates the log-weights.
 
+Sparse models (the pinhole camera of the sparse visual workload) run the
+masked EKF update (``ops/kalman.py``) on every step, whatever
+``kf_kernel`` names, with the visibility mask from ``isfinite(y)``
+(rbslam_tpu/engines/rbpf.py:174-188,388-389). The update's float32
+products need full precision (the JAX package forces it after silent NaN
+weights on the TPU), so on a CUDA device the sparse path refuses to run
+with TF32 matmuls on.
+
 Randomness enters through one seam: per step the resampling uniforms
 (one ``u0`` for systematic, N for multinomial and stratified) and one
 [N, model.n_noise] standard normal for the dynamics, drawn from
 ``generator`` or taken from ``noise``. Every size comes from the model
-(``n_nonlin``, ``n_noise``, ``ny``), so the same loop serves the mag3d and
-radio2d families.
+(``n_nonlin``, ``n_noise``, ``ny``), so the same loop serves the mag3d,
+radio2d and pinhole2d families.
 """
 
 from __future__ import annotations
@@ -48,8 +56,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..math.linalg import ess_from_logw, logsumexp_normalize
-from ..models.base import DenseModel
-from ..ops.kalman import kalman_update_dense_batched
+from ..models.base import SparseModel
+from ..ops.kalman import (
+    kalman_update_dense_batched,
+    kalman_update_masked_batched,
+)
 from ..ops.resampling import _SCHEMES, resample_indices
 from ..kernels.kf_update import (
     kf_rebase,
@@ -129,12 +140,20 @@ def _check_supported(model, config: RBPFConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded filtering is not ported yet (ROADMAP queue 1 "
-            "item 15)"
+            "item 4)"
         )
-    if not isinstance(model, DenseModel):
-        raise NotImplementedError(
-            "sparse models are not ported yet (ROADMAP queue 1 item 13)"
-        )
+    if isinstance(model, SparseModel) and config.cov_dtype != "float32":
+        raise ValueError("sparse models carry the covariance in float32")
+
+
+def refuse_tf32(device, what: str) -> None:
+    """Raise on a CUDA device while TF32 matmuls are on: ``what`` needs full
+    float32 products."""
+    if torch.device(device).type == "cuda" \
+            and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"torch.backends.cuda.matmul.allow_tf32 is on: {what} needs "
+            "full float32 matmuls")
 
 
 def _as(x, device, dtype=torch.float32):
@@ -194,7 +213,7 @@ def _check_noise(noise, T, n_p, n_noise, resampling, extra=()):
             f"{resampling} resampling")
 
 
-def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
              config: RBPFConfig, *, generator: Optional[torch.Generator],
              device, noise=None, mask=None, mesh=None) -> RBPFResult:
     """Run the RBPF on ``device``.
@@ -209,28 +228,35 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     wrappers run their plain versions.
 
     The kernel paths (block_gather, lowrank) reject NaN or masked y. On
-    the xla path NaN becomes 0 and the mask is ignored, as the JAX
-    package's dense update does. Sparse models and ``mesh`` raise
-    NotImplementedError naming the ROADMAP item that ports them.
+    the xla path NaN becomes 0 and, for a dense model, the mask is
+    ignored, as the JAX package's dense update does. A sparse model masks
+    the update with ``mask`` [T, ny] (1 = observed), by default
+    ``isfinite(y)``. ``mesh`` raises NotImplementedError naming the
+    ROADMAP item that ports it.
     """
     _check_supported(model, config, mesh)
+    sparse = isinstance(model, SparseModel)
+    if sparse:
+        refuse_tf32(device, "the sparse (masked EKF) update")
     device = torch.device(device)
     n_p = config.n_particles
     f32 = torch.float32
     y = _as(y, device)
     T = y.shape[0]
-    # the kernels take ny <= 3: a larger ny runs the xla path whatever
-    # kf_kernel says, as in the JAX package
-    if config.kf_kernel != "xla" and model.ny > 3:
+    # the kernels take dense models with ny <= 3: any other model runs the
+    # xla path whatever kf_kernel says, as in the JAX package
+    kernel_model = not sparse and model.ny <= 3
+    if config.kf_kernel != "xla" and not kernel_model:
         warnings.warn(
-            f"kf_kernel={config.kf_kernel!r} takes ny <= 3; this model has "
-            f"ny={model.ny} and runs the 'xla' path, which launches none of "
-            "the Kalman update kernels",
+            f"kf_kernel={config.kf_kernel!r} takes dense models with ny <= "
+            f"3; this model ({type(model).__name__}, ny={model.ny}) runs "
+            "the 'xla' path, which launches none of the Kalman update "
+            "kernels",
             stacklevel=2,
         )
-    block_gather = config.kf_kernel == "block_gather" and model.ny <= 3
+    block_gather = config.kf_kernel == "block_gather" and kernel_model
     # T == 1 has no steps: the lowrank config runs step 0 as the xla path
-    lowrank = config.kf_kernel == "lowrank" and model.ny <= 3 and T > 1
+    lowrank = config.kf_kernel == "lowrank" and kernel_model and T > 1
     if config.kf_kernel != "xla":
         # the kernel paths have no observation-mask support: NaN-masked
         # measurements would enter the update as y=0 observations
@@ -245,11 +271,27 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 "y contains NaN but a KF kernel path is selected; NaN rows "
                 "are only masked correctly on kf_kernel='xla'"
             )
+    if sparse:
+        mask = (torch.isfinite(y).to(f32) if mask is None
+                else _as(mask, device))
     y = torch.nan_to_num(y)
     dx = _as(dx, device)
     Q, dt = _broadcast_time(Q, dt, T, device)
     R = _as(R, device)
     dn, n_noise = model.n_nonlin, model.n_noise
+
+    def dense_update(t, xn, xl, P, symmetrize_out):
+        """Step t's measurement update (the xla path): the dense update
+        with the Jacobian of xn, or the masked update of a sparse model.
+        Returns (xl', P', logw, retried)."""
+        if sparse:
+            yhat, H = model.measure(xn, xl)
+            return kalman_update_masked_batched(
+                yhat, H, P, xl, y[t], R, mask[t], config.jitter)
+        return kalman_update_dense_batched(
+            _pad_last(_jacobian_batch(model, xn), P.shape[-1]), P, xl, y[t],
+            R, config.jitter, config.joseph, symmetrize_out=symmetrize_out)
+
     u_shape = () if config.resampling == "systematic" else (n_p,)
     if noise is None and generator is None:
         raise ValueError("give a torch.Generator or injected noise")
@@ -298,11 +340,8 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     P0 = P0.expand((n_p,) + P0.shape)
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
-    C0 = _pad_last(_jacobian_batch(model, xn0), nl_pad)
-    xl, P, logw1, retried0 = kalman_update_dense_batched(
-        C0, P0, xl0, y[0], R, config.jitter, config.joseph,
-        symmetrize_out=block_gather or lowrank or config.symmetrize_cov,
-    )
+    xl, P, logw1, retried0 = dense_update(
+        0, xn0, xl0, P0, block_gather or lowrank or config.symmetrize_cov)
     del P0
     retries = retried0.sum()
     w1, logw1n, logz0 = logsumexp_normalize(logw1)
@@ -383,19 +422,17 @@ def run_rbpf(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             ai = resample(u, logw_n)
             xn_a, xl_a = (xn, xl) if ai is None else (xn[ai], xl[ai])
             xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
-            C = _pad_last(_jacobian_batch(model, xn), nl_pad)
             if block_gather:
                 # K5 gathers the pre-resampling P itself
+                C = _pad_last(_jacobian_batch(model, xn), nl_pad)
                 xl, P, logw, bad = kf_update_block_gather(
                     ar if ai is None else ai, C, xl_a, P, y[t + 1], R,
                     config.jitter,
                 )
             else:
-                xl, P, logw, bad = kalman_update_dense_batched(
-                    C, P if ai is None else P[ai], xl_a, y[t + 1], R,
-                    config.jitter, config.joseph,
-                    symmetrize_out=config.symmetrize_cov,
-                )
+                xl, P, logw, bad = dense_update(
+                    t + 1, xn, xl_a, P if ai is None else P[ai],
+                    config.symmetrize_cov)
             retries = retries + bad.sum()
             logw_n = record(t, ai, logw, logw_n)
 

@@ -1,6 +1,6 @@
 """Rao-Blackwellized particle smoother: conditional particle filter with
-ancestor sampling (CPF-AS; port of rbslam_tpu/engines/rbps.py, dense
-models; the paper's Alg. 2, src/particleSmoother.m).
+ancestor sampling (CPF-AS; port of rbslam_tpu/engines/rbps.py; the paper's
+Alg. 2, src/particleSmoother.m).
 
 N_K sweeps of a conditional RBPF. Sweep 1 is a plain RBPF; in sweeps
 k > 1 particle N_P-1 is pinned to the reference trajectory sampled from
@@ -10,9 +10,16 @@ the previous sweep (:92-96,110-113) and its ancestor index is sampled from
 
 where the future-measurement likelihood evaluates the reference
 trajectory's future observations against each particle's map posterior.
-The stacked future system (:188-193) is built at fixed width
-[T*ny, T*ny] with a time mask (rows ti < t neutralized exactly), batched
-over the ensemble as one [N, T*ny, T*ny] factorization per step.
+For a dense model the stacked future system (:188-193) is built at fixed
+width [T*ny, T*ny] with a time mask (rows ti < t neutralized exactly),
+batched over the ensemble as one [N, T*ny, T*ny] factorization per step.
+For a sparse model the reference stacks per-step EKF linearizations into
+an O((ny(T-t))^3) Cholesky (:194-218); here the same Gaussian is
+evaluated through the matrix-inversion lemma in n_lin-dimensional
+information form, with the model linearized along the whole reference
+trajectory for every particle in one batched call [N, T, ny, n_lin], and
+the measurement updates are the masked EKF update (visibility mask from
+``isfinite(y)``). The sparse path refuses TF32 matmuls on a CUDA device.
 
 Randomness enters through one seam. Per step: the resampling uniforms,
 one [N, model.n_noise] standard normal for the dynamics, and one uniform
@@ -21,26 +28,31 @@ trajectory that is kept. They come from ``generator`` or from ``noise =
 (u, w, u_anc, u_pick)`` with a leading sweep axis: u [N_K, T-1] (systematic)
 or [N_K, T-1, N], w [N_K, T-1, N, n_noise], u_anc [N_K, T-1], u_pick [N_K].
 
-Sparse models (the information-form future weights of the EKF-linearized
-path), per-sweep checkpoints and a device mesh are not ported: they raise
+Per-sweep checkpoints and a device mesh are not ported: they raise
 NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
+from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..math.linalg import (
     gaussian_logpdf_chol,
+    half_logdet,
     logsumexp_normalize,
     psd_cholesky,
     tril_solve,
 )
-from ..models.base import DenseModel
-from ..ops.kalman import kalman_update_dense_batched
+from ..models.base import SparseModel
+from ..ops.kalman import (
+    kalman_update_dense_batched,
+    kalman_update_masked_batched,
+)
 from ..ops.resampling import _SCHEMES, resample_indices, sample_categorical
 from .rbpf import (
     _DTYPES,
@@ -51,7 +63,10 @@ from .rbpf import (
     _init_linear,
     _jacobian_batch,
     reconstruct_trajectories,
+    refuse_tf32,
 )
+
+_LOG2PI = math.log(2.0 * math.pi)
 
 
 class RBPSConfig(NamedTuple):
@@ -145,35 +160,93 @@ def _dense_future_log_weights(C_stack, y_stack, t_idx, xl, P, R, T, ny,
     return gaussian_logpdf_chol(e, L, n_obs=torch.sum(rmask)), retried
 
 
+def _sparse_future_log_weights(model, xnk, y, mask, t_idx, xl, P, R,
+                               jitter):
+    """Future-measurement log-likelihood of a sparse model, information
+    form (exact), for the whole ensemble.
+
+    Every particle's map xl [N, n_lin] linearizes the model along the
+    whole reference xnk [T, dn] in one batched call (as
+    src/particleSmoother.m:194-218 does step by step); with the masked
+    sums over ti >= t_idx Lambda = sum H'R^-1H, iota = sum H'R^-1 e,
+    se = sum e'R^-1 e,
+
+      log N = -0.5 (se - iota' (P^-1 + Lambda)^-1 iota)
+              - 0.5 log|I + P Lambda| - 0.5 sum log|R_ti| - n_obs/2 log 2pi
+
+    through B = I + L_P' Lambda L_P (one n_lin Cholesky of P and one of B
+    a particle). y [T, ny] (NaN as 0), mask [T, ny]. Returns
+    (logw [N], retried [N]).
+    """
+    n_p, n_lin = xl.shape
+    T = xnk.shape[0]
+    r_diag = torch.diagonal(R)
+    yhat, H = model.measure(xnk.expand(n_p, -1, -1),
+                            xl[:, None, :].expand(-1, T, -1))
+    active = (torch.arange(T, device=xl.device) >= t_idx).to(xl.dtype)
+    m = mask * active[:, None]                            # [T, ny]
+    Hm = H * m[None, :, :, None]                          # [N, T, ny, nl]
+    e = (y[None] - yhat) * m[None]                        # [N, T, ny]
+    Lam = torch.einsum("ntkj,k,ntki->nji", Hm, 1.0 / r_diag, Hm)
+    iota = torch.einsum("ntkj,k,ntk->nj", Hm, 1.0 / r_diag, e)
+    se = torch.sum(e * e / r_diag, dim=(1, 2))
+    n_obs = torch.sum(m)
+    logdetR = torch.sum(m * torch.log(r_diag)[None, :])
+    Lp, r1 = psd_cholesky(P, jitter)
+    B = torch.eye(n_lin, dtype=xl.dtype, device=xl.device) \
+        + Lp.transpose(-1, -2) @ Lam @ Lp
+    Lb, r2 = psd_cholesky(B, jitter)
+    v = tril_solve(Lb, torch.einsum("nji,nj->ni", Lp, iota))
+    quad = se - torch.sum(v * v, dim=-1)
+    logw = (-0.5 * quad - half_logdet(Lb) - 0.5 * logdetR
+            - 0.5 * n_obs * _LOG2PI)
+    return logw, r1 | r2
+
+
 def _ess(logw_n):
     return torch.exp(-torch.logsumexp(2.0 * logw_n, dim=-1))
 
 
-def _cpf_as_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R,
-                  dt, config: RBPSConfig, xnk, is_first: bool,
-                  draws: SweepDraws) -> SweepOut:
+def _cpf_as_sweep(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                  config: RBPSConfig, xnk, is_first: bool,
+                  draws: SweepDraws, mask=None) -> SweepOut:
     """One conditional-particle-filter sweep over tensors already on the
     run's device; Q [T-1, nw, nw], dt [T-1]; xnk [T, n_nonlin] the
-    reference trajectory (ignored if ``is_first``)."""
+    reference trajectory (ignored if ``is_first``); mask [T, ny] the
+    visibility of a sparse model's observations."""
     n_p = config.n_particles
     T, ny = y.shape
     device = y.device
+    sparse = isinstance(model, SparseModel)
     xn = x0_nonlin.expand(n_p, -1).clone()
     if not is_first:
         xn[n_p - 1] = xnk[0]                               # pin (:92-96)
     xl0, P0 = _init_linear(x0_lin, P0_lin, n_p, device)
     P0 = P0.to(_DTYPES[config.cov_dtype]).expand((n_p,) + P0.shape)
 
-    if not is_first:
+    if not is_first and not sparse:
         C_ref = _jacobian_batch(model, xnk)     # [T, ny, n_lin] (:119-121)
         C_stack = C_ref.reshape(T * ny, C_ref.shape[-1])
         y_stack = y.reshape(T * ny)
 
+    def update(t, xn, xl, P):
+        if sparse:
+            yhat, H = model.measure(xn, xl)
+            return kalman_update_masked_batched(yhat, H, P, xl, y[t], R,
+                                                mask[t], config.jitter)
+        return kalman_update_dense_batched(
+            _jacobian_batch(model, xn), P, xl, y[t], R, config.jitter,
+            config.joseph, config.symmetrize_cov)
+
+    def future_log_weights(t, xl, P):
+        if sparse:
+            return _sparse_future_log_weights(model, xnk, y, mask, t, xl, P,
+                                              R, config.jitter)
+        return _dense_future_log_weights(C_stack, y_stack, t, xl, P, R, T,
+                                         ny, config.jitter)
+
     # --- t = 0: importance weights + KF update only ---
-    xl, P, logw1, retried0 = kalman_update_dense_batched(
-        _jacobian_batch(model, xn), P0, xl0, y[0], R, config.jitter,
-        config.joseph, config.symmetrize_cov,
-    )
+    xl, P, logw1, retried0 = update(0, xn, xl0, P0)
     retries = retried0.sum()
     _, logw_n, _ = logsumexp_normalize(logw1)
 
@@ -191,9 +264,7 @@ def _cpf_as_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R,
         if not is_first:
             # ancestor sampling for the pinned particle (:159-244)
             logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i], dt[i], Q[i])
-            logw_meas, retried = _dense_future_log_weights(
-                C_stack, y_stack, t, xl, P, R, T, ny, config.jitter
-            )
+            logw_meas, retried = future_log_weights(t, xl, P)
             pa, _, _ = logsumexp_normalize(logw_n + logw_dyn + logw_meas)
             ai[n_p - 1] = sample_categorical(u_anc, pa)
             retries = retries + retried.sum()
@@ -201,10 +272,7 @@ def _cpf_as_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R,
         xn = _dynamics_batch(model, w_dyn, xn[ai], dx[i], dt[i], Q[i])
         if not is_first:
             xn[n_p - 1] = xnk[t]                  # keep the reference state
-        xl, P, logw, retried_kf = kalman_update_dense_batched(
-            _jacobian_batch(model, xn), P[ai], xl[ai], y[t], R,
-            config.jitter, config.joseph, config.symmetrize_cov,
-        )
+        xl, P, logw, retried_kf = update(t, xn, xl[ai], P[ai])
         _, logw_n, _ = logsumexp_normalize(logw)
         retries = retries + retried_kf.sum()
         xn_hist[t] = xn
@@ -230,22 +298,18 @@ def _finish_sweep(xn_hist, ancestors, logw_f, xl_f, P_f, ess, retries,
 
 
 def _check_supported(model, config: RBPSConfig, checkpoint_dir, mesh) -> None:
-    if not isinstance(model, DenseModel):
-        raise NotImplementedError(
-            "sparse models (the information-form future weights of the "
-            "EKF-linearized path, rbslam_tpu/engines/rbps.py:136-187) are "
-            "not ported yet (ROADMAP queue 1 item 13)"
-        )
     if checkpoint_dir is not None:
         raise NotImplementedError(
             "per-sweep checkpoints are not ported yet (ROADMAP queue 1 "
-            "item 14)"
+            "item 2)"
         )
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded smoothing is not ported yet (ROADMAP queue 1 "
-            "item 15)"
+            "item 4)"
         )
+    if isinstance(model, SparseModel) and config.cov_dtype != "float32":
+        raise ValueError("sparse models carry the covariance in float32")
     if config.resampling not in _SCHEMES:
         raise ValueError(f"unknown resampling scheme {config.resampling!r}; "
                          f"options: {sorted(_SCHEMES)}")
@@ -320,15 +384,17 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     )
 
 
-def run_rbps(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
              config: RBPSConfig, *, generator: Optional[torch.Generator],
              device, noise=None, mask=None,
              checkpoint_dir: Optional[str] = None, mesh=None) -> RBPSResult:
     """Run N_K CPF-AS sweeps on ``device`` (src/particleSmoother.m:88).
 
-    dx [T-1, n_u]; y [T, ny] (NaN becomes 0; ``mask`` is ignored for dense
-    models, as in the reference package); Q [nw, nw] or [T-1, nw, nw]; dt
-    scalar or [T-1]. See the module docstring for ``generator`` and
+    dx [T-1, n_u]; y [T, ny] (NaN becomes 0); Q [nw, nw] or [T-1, nw, nw];
+    dt scalar or [T-1]. A sparse model masks its updates and future
+    weights with ``mask`` [T, ny] (1 = observed), by default
+    ``isfinite(y)``; for a dense model ``mask`` is ignored, as in the
+    reference package. See the module docstring for ``generator`` and
     ``noise``.
 
     COST WARNING: the naive ancestor weights factorize the full
@@ -338,8 +404,15 @@ def run_rbps(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     dense-mag T=192, ny=3 config) use
     :func:`rbslam_tpu_torch.engines.rbps_info.run_rbps_information_form`.
     """
-    del mask
     _check_supported(model, config, checkpoint_dir, mesh)
+    if isinstance(model, SparseModel):
+        refuse_tf32(device, "the sparse (masked EKF) smoother")
+        y = _as(y, device)
+        mask = (torch.isfinite(y).to(torch.float32) if mask is None
+                else _as(mask, device))
+        return _run_sweeps(partial(_cpf_as_sweep, mask=mask), model, dx, y,
+                           x0_nonlin, x0_lin, P0_lin, Q, R, dt, config,
+                           generator, device, noise)
     n_stack = int(torch.as_tensor(y).shape[0]) * model.ny
     if n_stack > 256:
         warnings.warn(

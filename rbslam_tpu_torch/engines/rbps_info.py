@@ -56,7 +56,13 @@ from ..ops.kalman import (
     kalman_update_dense_batched_hld,
 )
 from ..ops.resampling import resample_indices, sample_categorical
-from .rbpf import _DTYPES, _dynamics_batch, _init_linear, _jacobian_batch
+from .rbpf import (
+    _DTYPES,
+    _dynamics_batch,
+    _init_linear,
+    _jacobian_batch,
+    refuse_tf32,
+)
 from .rbps import (
     RBPSConfig,
     RBPSResult,
@@ -319,13 +325,13 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
     :func:`rbslam_tpu_torch.engines.rbps.run_rbps`; ``mask`` is ignored
     (dense models have no visibility masking)."""
     del mask
+    if not isinstance(model, DenseModel):
+        raise ValueError(
+            "the information-form smoother supports dense features only "
+            "(as the reference, src/particleSmootherInformationForm.m:77-80);"
+            " use run_rbps for sparse models")
     _check_supported(model, config, checkpoint_dir, mesh)
-    if torch.device(device).type == "cuda" \
-            and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is on: the information-"
-            "form smoother maintains W by cancellation and needs full "
-            "float32 contractions"
-        )
+    refuse_tf32(device, "the information-form smoother (it maintains W "
+                "by cancellation)")
     return _run_sweeps(_info_sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
                        Q, R, dt, config, generator, device, noise)

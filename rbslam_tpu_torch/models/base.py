@@ -3,7 +3,8 @@ rbslam_tpu/models/base.py).
 
 Noise enters every sampled transition as an explicit standard-normal
 tensor drawn by the caller (from a ``torch.Generator``, or injected by
-the tests), never inside the model.
+the tests), never inside the model. The sparse path's visibility comes
+from the data: the engines mask on ``isfinite(y_t)``.
 """
 
 from __future__ import annotations
@@ -43,3 +44,27 @@ class DenseModel(NamedTuple):
     meas_jacobian_batch: Optional[Callable] = None
     dynamics_batch: Optional[Callable] = None
     meas_jacobian_batch_rows: Optional[Callable] = None
+
+
+class SparseModel(NamedTuple):
+    """Conditionally linearized (EKF) measurement, NaN-masked observations.
+
+    dynamics:       (w, xn, u, dt, Q) -> xn', w [..., n_noise] standard
+                    normals; broadcasts over leading axes of xn
+    dyn_residual:   as DenseModel's (None: the Euclidean default)
+    measure:        (xn [..., dn], xl [..., n_lin]) -> (yhat [..., ny],
+                    H [..., ny, n_lin]), the linearization at each
+                    particle's current map (src/particleFilter.m:129),
+                    over any leading axes the two share
+    n_nonlin, n_lin, ny, n_noise: static dimensions
+    dynamics_batch: (w [P, nw], xn [P, dn], u, dt, Q) -> xn' [P, dn]
+    """
+
+    dynamics: Callable
+    dyn_residual: Optional[Callable]
+    measure: Callable
+    n_nonlin: int
+    n_lin: int
+    ny: int
+    n_noise: int
+    dynamics_batch: Optional[Callable] = None

@@ -13,8 +13,16 @@ batch (the "small" form); for ny > 3 it goes through
 ``torch.linalg`` (the "lax" form). All contractions accumulate in float32
 whatever the covariance storage dtype. The downdate is formed in float32
 (an [N, nl, nl] float32 temporary) and subtracted in the storage dtype,
-so bf16 storage rounds where the reference rounds. The masked (sparse)
-update comes with the engine path that uses it.
+so bf16 storage rounds where the reference rounds.
+
+Sparse path (src/particleFilter.m:127-136,164-180; rbslam_tpu/ops/
+kalman.py:74-104,327-355): the reference strips NaN-masked rows to a
+dynamic size; here masked rows stay at fixed width and are neutralized
+exactly (innovation zeroed, unit diagonal and zero couplings in S), which
+leaves the Cholesky, the log-density (with n_obs = sum(mask)), the gain
+and the covariance update equal to the stripped computation. S is
+[N, M, M] with M the number of landmarks, so it is factored by
+:func:`psd_cholesky`, float32 throughout.
 """
 
 from __future__ import annotations
@@ -223,3 +231,58 @@ def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
         K, Cf, P, R, lambda: torch.einsum("pij,pjk,plk->pil", K, S, K),
         joseph, symmetrize_out)
     return xl_new, P_new, logw, retried, hld
+
+
+def _mask_system(e, S, mask):
+    """Neutralize masked observation rows and columns exactly: mask [ny]
+    float (1 = observed); masked entries get e = 0 and a unit diagonal in
+    S with zero couplings, so they add nothing to the Cholesky log-det,
+    the whitened residual or the gain. e [..., ny], S [..., ny, ny]."""
+    m = mask
+    return e * m, S * (m[:, None] * m[None, :]) + torch.diag(1.0 - m)
+
+
+def masked_log_weights(yhat, H, P, y, R, mask, jitter: float):
+    """Sparse (EKF) innovation log-likelihood with visibility masking:
+    yhat [..., ny], H [..., ny, nl] from the linearized model, P
+    [..., nl, nl], mask [ny] from ``isfinite(y)``
+    (src/particleFilter.m:134-136). Returns (logw, e_m, L, Hm, retried)."""
+    Hm = H * mask[:, None]
+    e = torch.nan_to_num(y) - yhat
+    S = Hm @ P @ Hm.transpose(-1, -2) + R * (mask[:, None] * mask[None, :])
+    e_m, S_m = _mask_system(e, S, mask)
+    L, retried = psd_cholesky(S_m, jitter)
+    logw = gaussian_logpdf_chol(e_m, L, n_obs=torch.sum(mask))
+    return logw, e_m, L, Hm, retried
+
+
+def kalman_update_masked_batched(yhat, H, P, xl, y, R, mask, jitter: float):
+    """Whole-ensemble masked (sparse/EKF) update: yhat [N, ny], H
+    [N, ny, nl], P [N, nl, nl], xl [N, nl], y [ny] (NaN allowed), mask
+    [ny]. Returns (xl', P', logw [N], retried [N])."""
+    m = mask
+    Hm = H * m[None, :, None]
+    e = (torch.nan_to_num(y)[None, :] - yhat) * m[None, :]
+    R_m = R * (m[:, None] * m[None, :])
+    PHt = P @ Hm.transpose(-1, -2)                       # [N, nl, ny]
+    S = torch.einsum("pij,pjk->pik", Hm, PHt) + R_m + torch.diag(1.0 - m)
+    L, retried = psd_cholesky(S, jitter)
+    logw = gaussian_logpdf_chol(e, L, n_obs=torch.sum(m))
+    K = solve_psd(L, PHt.transpose(-1, -2)).transpose(-1, -2)
+    xl_new = xl + torch.einsum("pij,pj->pi", K, e)
+    P_new = P - K @ S @ K.transpose(-1, -2)
+    return xl_new, symmetrize(P_new), logw, retried
+
+
+def kalman_update_masked(yhat, H, P, xl, y, R, mask, jitter: float):
+    """One particle's masked measurement update: yhat [ny], H [ny, nl], P
+    [nl, nl], xl [nl]. Returns (xl', P', logw, retried)."""
+    logw, e_m, L, Hm, retried = masked_log_weights(
+        yhat, H, P, y, R, mask, jitter)
+    PHt = P @ Hm.T                     # [nl, ny]; masked columns are zero
+    K = solve_psd(L, PHt.T).T          # the block structure keeps them zero
+    xl_new = xl + K @ e_m
+    S_m = Hm @ PHt + R * (mask[:, None] * mask[None, :]) \
+        + torch.diag(1.0 - mask)
+    P_new = P - K @ S_m @ K.T
+    return xl_new, symmetrize(P_new), logw, retried

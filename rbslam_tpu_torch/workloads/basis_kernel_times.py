@@ -18,7 +18,9 @@ median of five replays). Launch interval: ``profile_kernel_parts.
 time_stats`` (ten wrapper calls back to back between CUDA events, median
 of five groups), which the host sets when a kernel is shorter than its
 launch. The order of a case is parent, this tree, this tree, parent.
-Needs a CUDA device.
+A last row times a one-element PyTorch op (``x.add_(0)`` on one float)
+the same two ways: the launch floor that K6 at the radio shape is held
+against. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -162,7 +164,40 @@ def run(device, parent_root=None, seed=0):
             "bound_ms": b, "bound_by": by,
         })
         del outs
+    rows.append(launch_floor_row(device))
     return rows
+
+
+def launch_floor_row(device) -> dict:
+    """The launch floor: ``x.add_(0)`` on a one-element float32 tensor,
+    device-only and launch interval, twice each, as a row of :func:`run`
+    (its bound: one float read and written)."""
+    x = torch.zeros(1, device=device)
+
+    def fn():
+        return x.add_(0)
+
+    b, by = bound_ms(8, 1, torch.float32)
+    return {
+        "kernel": "launch_floor", "n": 1, "d": None, "m": None,
+        "nl_pad": None, "dtype": "float32", "shape": (1,), "form": None,
+        "bit_equal_to_parent": None, "two_launches_equal": True,
+        "equal_to_direct_form": None,
+        "device_ms": {"this": [device_ms(fn, device),
+                               device_ms(fn, device)]},
+        "launch_interval_ms": {"this": [time_stats(fn, device),
+                                        time_stats(fn, device)]},
+        "bound_ms": b, "bound_by": by,
+    }
+
+
+def floor_ratio(rows) -> float:
+    """K6's device-only time at the radio shape (N=100, d=2, m=128) over
+    the launch floor's: the lower of each one's medians."""
+    k6 = next(r for r in rows if r["kernel"] == "phi_basis" and r["n"] == 100)
+    floor = next(r for r in rows if r["kernel"] == "launch_floor")
+    return (min(s[0] for s in k6["device_ms"]["this"])
+            / min(s[0] for s in floor["device_ms"]["this"]))
 
 
 def failed(rows) -> list:
@@ -210,6 +245,8 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True).stdout.strip())
     rows = run(device, args.parent)
     print("\n".join(report(rows)))
+    print(f"K6 at the radio shape over the launch floor, device-only: "
+          f"{floor_ratio(rows):.3f}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

@@ -178,7 +178,7 @@ def main(argv=None):
     if args.plots is not None:
         raise NotImplementedError(
             "--plots needs the viz package, not ported yet (ROADMAP queue 1 "
-            "item 14)")
+            "item 2)")
     cfg = DenseRadioConfig(
         traj_type=args.traj,
         n_steps=48 if args.traj == "square_3D" else 32,

@@ -81,6 +81,36 @@ def sync_report(sites: dict, steps: int) -> list[str]:
     return lines
 
 
+def profile_lines(run_once, T: int) -> list[str]:
+    """Report lines of one ``run_once()`` of T steps under
+    ``torch.profiler`` (CPU and CUDA activities): its wall, the device
+    busy time and share of that wall, the device operations a step and
+    the device time by kernel name."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_once()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_events(prof)
+    by_name = defaultdict(lambda: [0, 0.0])
+    for name, us in events:
+        by_name[name][0] += 1
+        by_name[name][1] += us
+    busy_us = sum(us for _, us in events)
+    lines = [
+        f"wall {wall_us / 1e3:.3f} ms under the profiler "
+        f"({wall_us / 1e3 / T:.4f} ms/step)",
+        f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of "
+        f"wall (idle share {1 - busy_us / wall_us:.3f})",
+        f"device operations: {len(events)} ({len(events) / T:.1f} per step)",
+        "device time by kernel (count, total ms, share of busy):",
+    ]
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {us / 1e3:10.3f} ms {n:7d}x {us / busy_us:6.3f}  "
+                     f"{name[:110]}")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--particles", type=int, default=16384)
@@ -130,17 +160,6 @@ def main(argv=None) -> int:
         run(seed)
         best = min(best, time.perf_counter() - t0)
     syncs = count_syncs(lambda: run(4))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(1)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = _device_events(prof)
-    by_name = defaultdict(lambda: [0, 0.0])
-    for name, us in events:
-        by_name[name][0] += 1
-        by_name[name][1] += us
-    busy_us = sum(us for _, us in events)
     lines = [
         f"card: {card}",
         f"config: N_P={args.particles} m={args.basis} T={T} "
@@ -152,16 +171,8 @@ def main(argv=None) -> int:
         f"({best * 1e3 / T:.4f} ms/step, "
         f"{args.particles * T / best:.1f} particle-steps/s)",
         *sync_report(syncs, T - 1),
-        f"wall {wall_us / 1e3:.3f} ms under the profiler "
-        f"({wall_us / 1e3 / T:.4f} ms/step)",
-        f"device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of "
-        f"wall (idle share {1 - busy_us / wall_us:.3f})",
-        f"device operations: {len(events)} ({len(events) / T:.1f} per step)",
-        "device time by kernel (count, total ms, share of busy):",
+        *profile_lines(lambda: run(1), T),
     ]
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
-        lines.append(f"  {us / 1e3:10.3f} ms {n:7d}x {us / busy_us:6.3f}  "
-                     f"{name[:110]}")
     report = "\n".join(lines)
     print(report)
     if args.out:

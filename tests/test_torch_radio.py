@@ -527,4 +527,4 @@ def test_workload_cli():
     bad = subprocess.run(cmd + ["--plots", "figs"], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0
-    assert "ROADMAP queue 1 item 14" in bad.stderr
+    assert "ROADMAP queue 1 item 2)" in bad.stderr

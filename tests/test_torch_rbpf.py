@@ -327,20 +327,15 @@ def test_dense_ny4_filter_matches_jax(slice_run, kf_kernel, symmetrize_cov,
 
 @pytest.mark.parametrize("case", ["mesh", "sparse_model"])
 def test_unported_paths_raise(slice_run, case):
-    """What the port does not have yet raises, naming its ROADMAP item:
-    a mesh and a sparse (EKF-linearized) model."""
-    from rbslam_tpu.models.base import SparseModel
+    """What the port does not have yet raises, naming its ROADMAP item: a
+    mesh, for a dense model and for a sparse (EKF-linearized) one."""
+    from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
 
     prob = slice_run["prob"]
     args = list(prob.rbpf_args())
-    kw = {}
-    if case == "mesh":
-        kw["mesh"] = object()
-    else:
-        m = prob.model
-        args[0] = SparseModel(dynamics=m.dynamics, dyn_residual=None,
-                              measure=m.meas_jacobian, n_nonlin=7,
-                              n_lin=m.n_lin, ny=m.ny)
+    kw = {"mesh": object()}
+    if case == "sparse_model":
+        args[0] = make_pinhole2d_model(PinholeCamera(1.5, 0.0, 1.0), 6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_rbpf(*args, _config(RBPFConfig), generator=None, device="cpu",
                  noise=slice_run["noise"], **kw)

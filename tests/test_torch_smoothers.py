@@ -575,8 +575,11 @@ def test_dense_ny4_cpf_as_matches_jax(mag):
 @pytest.mark.parametrize("entry", ["run_rbps", "run_rbps_information_form"])
 @pytest.mark.parametrize("case", ["sparse_model", "checkpoint_dir", "mesh"])
 def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
-    """What the port does not have yet raises, naming its ROADMAP item."""
-    from rbslam_tpu.models.base import SparseModel
+    """What the port does not have yet raises, naming its ROADMAP item. A
+    sparse model is ported for run_rbps (its checkpoints are not, as for a
+    dense one); the information form takes dense features only and
+    rejects it, as the JAX package does."""
+    from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
 
     fn = {"run_rbps": run_rbps,
           "run_rbps_information_form": run_rbps_information_form}[entry]
@@ -584,10 +587,13 @@ def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
     args = list(prob.rbpf_args())
     kw = {}
     if case == "sparse_model":
-        m = prob.model
-        args[0] = SparseModel(dynamics=m.dynamics, dyn_residual=None,
-                              measure=m.meas_jacobian, n_nonlin=7,
-                              n_lin=m.n_lin, ny=m.ny)
+        args[0] = make_pinhole2d_model(PinholeCamera(1.5, 0.0, 1.0), 6)
+        if entry == "run_rbps_information_form":
+            with pytest.raises(ValueError, match="dense features only"):
+                fn(*args, _mag_config(RBPSConfig), generator=None,
+                   device="cpu", noise=mag_noise)
+            return
+        kw["checkpoint_dir"] = "unused"
     elif case == "checkpoint_dir":
         kw["checkpoint_dir"] = "unused"
     else:
