@@ -70,12 +70,29 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     (under 4.0) and the PF's mean error after burn-in (under 1.5 m);
 14. the sparse visual workload at its reference size (T=197, 20
     landmarks; PF N_P=100; PS N_K=10, N_P=10): path and map RMSE of both,
-    no NaN, the PF's map under 2.0.
+    no NaN, the PF's map under 2.0;
+15. smoother resume at full width: run_rbps_information_form at phase 8's
+    size, 2 sweeps with a checkpoint directory and then a resume to 3
+    whose own generator is seeded otherwise (the CUDA generator's state
+    comes from the checkpoint), bit-equal in every result field to phase
+    8's unbroken run (K4 counted); then run_rbps (CPF-AS) on the radio
+    problem at phase 7's size (m=128, N_P=100, T=32), 4 sweeps unbroken
+    against 2 and a resume to 4 (K6 counted); the seconds of each run;
+16. the profiling helpers: one headline lowrank filter call (phase 4's
+    configuration) inside ``trace_to`` and ``phase_annotation(
+    "rbpf_lowrank")``: the Chrome trace must name the annotation and the
+    kernels of K1-K3 (``jac_table_kernel``, ``gather_cp``, ``rebase``);
+    ``ThroughputMeter``'s particle-steps/s of the traced call and of an
+    untraced one beside phase 4's best of 3;
+17. the command line: ``rbslam_tpu_torch.__main__.main(["dense-radio",
+    "--quick"])`` in this process, on the card: finite RMSE lines, K6
+    counted.
 
-Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 14 sets every launch
-count to 0 just before it and reads the counts just after; the counts
-must be exactly those of its path (none for 12-14, which are plain
-PyTorch, as the JAX package's paths are plain XLA).
+Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets
+every launch count to 0 just before it and reads the counts just after;
+the counts must be exactly those of its path (none for 12-14, which are
+plain PyTorch, as the JAX package's paths are plain XLA). No phase
+imports the viz package: the card's machine has no matplotlib.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on its main path, its error and time against its plain version,
@@ -87,9 +104,15 @@ the card's peak for their type); the last line is
 
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -133,8 +156,15 @@ from rbslam_tpu_torch.kernels import (
 from rbslam_tpu_torch.kernels.kf_update import _block_plan
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
+from rbslam_tpu_torch import __main__ as cli
 from rbslam_tpu_torch.metrics import aligned_position_rmse
-from rbslam_tpu_torch.utils import ekf_inputs
+from rbslam_tpu_torch.utils import (
+    ThroughputMeter,
+    ekf_inputs,
+    latest_step,
+    phase_annotation,
+    trace_to,
+)
 from rbslam_tpu_torch.workloads import (
     basis_kernel_times,
     dense_mag,
@@ -611,7 +641,7 @@ def run_path(tag, device, m, T, cfg, card, expect_counts):
         f"{cfg.cov_dtype} {path} {cfg.resampling}: best of 3 {best:.4f} s "
         f"= {rate:.1f} particle-steps/s ({best / T * 1e3:.4f} ms/step) on "
         f"{card}")
-    return counts
+    return counts, rate
 
 
 def phase_plain_vs_kernel(device, m=125, n_particles=64, T=24):
@@ -1214,6 +1244,188 @@ def phase_sparse_visual(device, card, zero):
         raise AssertionError("sparse visual: PF map RMSE not under 2.0")
 
 
+def assert_bit_equal(tag, a, b):
+    """Every field of two smoother results equal in dtype and bits."""
+    for field, x, y in zip(a._fields, a, b):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{tag}: {field} differs from the unbroken "
+                                 "run")
+
+
+def resumed_run(device, fn, args, cfg, n_first, seed, expect):
+    """``fn`` for ``n_first`` sweeps with a checkpoint directory, then
+    called again for ``cfg.n_sweeps`` with a generator seeded otherwise;
+    the launch counts of the pair must be ``expect``. Returns (result,
+    seconds of the first call, seconds of the resume)."""
+    gen = torch.Generator(device=device)
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        fn(*args, cfg._replace(n_sweeps=n_first),
+           generator=gen.manual_seed(seed), device=device, checkpoint_dir=ck)
+        sync(device)
+        t1 = time.perf_counter()
+        if latest_step(ck) != n_first:
+            raise AssertionError(f"no checkpoint of sweep {n_first}")
+        res = fn(*args, cfg, generator=gen.manual_seed(seed + 1000),
+                 device=device, checkpoint_dir=ck)
+        sync(device)
+        t2 = time.perf_counter()
+        if latest_step(ck) != cfg.n_sweeps:
+            raise AssertionError(f"no checkpoint of sweep {cfg.n_sweeps}")
+    counts = launch_counts()
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    return res, t1 - t0, t2 - t1, counts
+
+
+def phase_resume_info(device, card, zero, problem, res, n_first=2):
+    """Phase 15, information form: phase 8's unbroken run (seed 0, 3
+    sweeps) against 2 sweeps with a checkpoint directory and a resume to
+    3. K4 launches of the pair: 2 * 192 + 1, then 192 + 1."""
+    check_tf32_off()
+    cfg = RBPSConfig(n_particles=100, n_sweeps=3, resampling="systematic",
+                     ancestor_form="woodbury")
+    T = problem.y.shape[0]
+    expect = {**zero, "grad_basis": cfg.n_sweeps * T + cfg.n_sweeps - 1}
+    out, t_first, t_resume, counts = resumed_run(
+        device, run_rbps_information_form, problem.rbpf_args(), cfg,
+        n_first, 0, expect)
+    assert_bit_equal("info-form resume", res, out)
+    log(f"[15] run_rbps_information_form N_P={cfg.n_particles} m="
+        f"{problem.model.n_lin - 3} (n_lin={problem.model.n_lin}) T={T}: "
+        f"{n_first} sweeps with checkpoints {t_first:.3f} s, resume to "
+        f"{cfg.n_sweeps} {t_resume:.3f} s on {card}; XNK, XLK, PK, ess, "
+        f"chol_retries, ancestors and kept bit-equal to phase 8's unbroken "
+        f"run (CUDA generator restored from the checkpoint); launches "
+        f"{counts}")
+
+
+def phase_resume_radio(device, card, zero, n_sweeps=4, n_first=2, seed=3):
+    """Phase 15, CPF-AS on the radio problem at phase 7's size (m=128,
+    N_P=100, T=32): 4 sweeps unbroken against 2 with a checkpoint
+    directory and a resume to 4. K6 launches: 4 * 32 + 3 each way."""
+    check_tf32_off()
+    rcfg = dense_radio.DenseRadioConfig()
+    problem, _ = dense_radio.build_problem(
+        rcfg, torch.Generator().manual_seed(rcfg.seed), device=device)
+    cfg = RBPSConfig(n_particles=rcfg.n_particles, n_sweeps=n_sweeps,
+                     resampling=rcfg.resampling)
+    T = rcfg.n_steps
+    expect = {**zero, "phi_basis": n_sweeps * T + n_sweeps - 1}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    full = run_rbps(*problem.rbpf_args(), cfg,
+                    generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device)
+    sync(device)
+    t_full = time.perf_counter() - t0
+    if launch_counts() != expect:
+        raise AssertionError(f"launch counts {launch_counts()} != {expect}")
+    out, t_first, t_resume, counts = resumed_run(
+        device, run_rbps, problem.rbpf_args(), cfg, n_first, seed, expect)
+    assert_bit_equal("radio CPF-AS resume", full, out)
+    log(f"[15] run_rbps (CPF-AS) radio m={rcfg.m_basis} N_P="
+        f"{rcfg.n_particles} T={T}: {n_sweeps} sweeps unbroken "
+        f"{t_full:.3f} s; {n_first} with checkpoints {t_first:.3f} s, resume "
+        f"to {n_sweeps} {t_resume:.3f} s on {card}; every field bit-equal; "
+        f"launches {counts} each way")
+
+
+def phase_profiling(device, card, expect, rate4, n_particles=16384,
+                    m=125, T=192):
+    """Phase 16: one headline lowrank filter call (phase 4's configuration)
+    inside trace_to and phase_annotation; the Chrome trace must name the
+    annotation and the kernels of K1-K3. ThroughputMeter (synchronized
+    before stop) times three untraced calls before the trace, the traced
+    call, and three untraced calls after it."""
+    problem, _ = build_problem(m, T, seed=1, m_sim=512, device=device)
+    cfg = filter_config(n_particles, "bfloat16")
+    gen = torch.Generator(device=device)
+
+    def run(seed, meter):
+        gen.manual_seed(seed)
+        meter.start()
+        run_rbpf(*problem.rbpf_args(), cfg, generator=gen, device=device)
+        sync(device)
+        meter.stop(n_particles, T)
+
+    def untraced(seeds):
+        """ThroughputMeter over one call per seed, and its best call."""
+        meter, best = ThroughputMeter(), 0.0
+        for i in seeds:
+            t = meter.elapsed
+            run(i, meter)
+            best = max(best, n_particles * T / (meter.elapsed - t))
+        return meter.particle_steps_per_s, best
+
+    run(0, ThroughputMeter())                         # warm-up
+    before = untraced((1, 2, 3))
+    traced = ThroughputMeter()
+    with tempfile.TemporaryDirectory() as logdir:
+        reset_launch_counts()
+        with trace_to(logdir), phase_annotation("rbpf_lowrank"):
+            run(5, traced)
+        counts = launch_counts()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace_to wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    annotated = sum(e.get("name") == "rbpf_lowrank" for e in events)
+    found = {k: [e["dur"] for e in kernels if k in e.get("name", "")]
+             for k in ("jac_table_kernel", "gather_cp", "rebase")}
+    log(f"[16] trace_to + phase_annotation('rbpf_lowrank') over one headline "
+        f"lowrank call: {size} bytes of Chrome trace, {len(kernels)} kernel "
+        f"events ({sum(e['dur'] for e in kernels) / 1e3:.3f} ms on the "
+        f"device), the annotation {annotated} times; by name: "
+        + ", ".join(f"{k} {len(d)} launches {sum(d) / 1e3:.3f} ms"
+                    for k, d in found.items()) + f"; launches {counts}")
+    if not (annotated and all(found.values())):
+        raise AssertionError("the trace lacks the annotation or a kernel")
+    after = untraced((6, 7, 8))
+    busy = sum(e["dur"] for e in kernels) / 1e6
+    log(f"[16] device busy {busy:.4f} s, {busy / traced.elapsed:.3f} of the "
+        f"traced call's wall ({traced.elapsed:.4f} s)")
+    log(f"[16] ThroughputMeter particle-steps/s: traced "
+        f"{traced.particle_steps_per_s:.1f}; untraced, three calls before the "
+        f"trace {before[0]:.1f} (best call {before[1]:.1f}), three after "
+        f"{after[0]:.1f} (best {after[1]:.1f}); phase 4 best of 3 {rate4:.1f} "
+        f"on {card}")
+
+
+def phase_cli(device, card, zero):
+    """Phase 17: ``python -m rbslam_tpu_torch dense-radio --quick``, in this
+    process on the card. K6 launches: the filter T=32, three sweeps
+    3 * 32 + 2."""
+    expect = {**zero, "phi_basis": 32 + 3 * 32 + 2}
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["dense-radio", "--quick"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    values = report["rmse_filter_max_mean"] + report["rmse_smoother_per_sweep"]
+    log(f"[17] python -m rbslam_tpu_torch dense-radio --quick on "
+        f"{report['device']}: RMSE filter max/mean "
+        f"{report['rmse_filter_max_mean']}, per sweep "
+        f"{report['rmse_smoother_per_sweep']} m; {wall:.3f} s on {card}; "
+        f"launches {counts}")
+    if report["device"] != torch.cuda.get_device_name(device):
+        raise AssertionError("the CLI did not run on the card")
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError("the CLI's RMSE is not finite")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -1243,14 +1455,14 @@ def main() -> int:
     # and a remainder period of 7, each closed by one rebase (K3)
     lowrank = {**zero, "grad_basis": 1, "jac3d_rows": 191,
                "gather_cp": 191, "rebase": 24}
-    counts = run_path("4", device, 125, 192,
-                      filter_config(16384, "bfloat16"), card, lowrank)
+    counts, rate4 = run_path("4", device, 125, 192,
+                             filter_config(16384, "bfloat16"), card, lowrank)
     run_path("5", device, 509, 192, filter_config(4096, "float32"), card,
              lowrank)
     # block_gather: K4 at every step's Jacobian (step 0 included), K5 at
     # every step after step 0; xla: K4 only
     block = {**zero, "grad_basis": 192, "block_gather": 191}
-    counts_block = run_path(
+    counts_block, _ = run_path(
         "4b", device, 125, 192,
         filter_config(16384, "bfloat16", "block_gather"), card, block)
     run_path("5b", device, 509, 192,
@@ -1272,7 +1484,9 @@ def main() -> int:
     counts["grad_basis"] = counts_s["grad_basis"]
     counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
                                         res)["jac3d"]
+    phase_resume_info(device, card, zero, problem, res)
     del problem, data, res
+    phase_resume_radio(device, card, zero)
     counts_p = phase_kernel_parts(device, zero)
     for name in ("probe_gather_cp", "probe_rebase_parts", "probe_gather",
                  "probe_block_products"):
@@ -1283,6 +1497,8 @@ def main() -> int:
     phase_terrain_pf(device, card, zero)
     phase_mag_localization(device, card, zero)
     phase_sparse_visual(device, card, zero)
+    phase_profiling(device, card, lowrank, rate4)
+    phase_cli(device, card, zero)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

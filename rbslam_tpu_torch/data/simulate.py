@@ -1,20 +1,25 @@
-"""Dense-workload dataset simulation, 6-D and heading families (port of
-rbslam_tpu/data/simulate.py; examples/slam-dense-radio/generateData_dense.m).
+"""Dense-workload dataset simulation (port of rbslam_tpu/data/simulate.py;
+examples/slam-dense-radio/generateData_dense.m).
 
 1. ground-truth trajectory (data/trajectories.py);
 2. domain LL = trajectory bounds padded by nLL * lengthScale (:226-231);
 3. GP field draw with m_sim basis functions at the trajectory points: 6-D
    trajectories get the curl-free field rotated per step to the body
-   frame (:252-257), heading ones a scalar SE field;
+   frame (:252-257), planar and heading ones a scalar SE field; with
+   ``with_grid``, the noise-free field on a 100 x 100 visualization grid
+   over LL (:216-290);
 4. odometry corruption (:294-323): run the model's own sampled dynamics
    forward from the initial state, then rebuild the increments per family:
    6-D: the differenced noisy path plus the noisy quaternion increments
-   actually applied (:303-309); heading families (line_3D, square_3D):
-   clean position increments + differenced noisy heading (:317-319).
+   actually applied (:303-309); heading families (line_3D, square_3D,
+   line_3D_withPos): clean position increments + differenced noisy
+   heading (:317-319); planar families: the fully differenced noisy path
+   (:320-321).
 
 Host-side float32 torch; the random draws come from one CPU
-``torch.Generator`` or are given. The visualization grid of the reference
-package and the fully planar families are not ported.
+``torch.Generator`` or are given. The grid's values are computed from the
+drawn weights and draw nothing, so a seed gives the same dataset with or
+without the grid.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..basis.laplace import domain_center, hypercube_basis
+from ..basis.potential import ScalarPotentialBasis
 from ..math.quaternions import quat_to_rmat
 from .fields import draw_scalar_field, draw_scalar_potential_field
 from .trajectories import generate_trajectory
@@ -41,6 +47,7 @@ class DenseDataset:
     LL: np.ndarray               # domain bounds [2, d]
     Q: torch.Tensor              # process noise used [T-1, nw, nw]
     odometry_path: np.ndarray    # noisy integrated path [T, n_nonlin]
+    grid: Optional[dict]         # visualization grid + true field values
     field_weights: torch.Tensor  # true field basis weights (m_sim basis)
 
 
@@ -53,24 +60,60 @@ def _domain_bounds(pos, length_scale, n_ll, three_d: bool):
     return np.stack([lo[:2], hi[:2]])
 
 
-_HEADING_FAMILIES = ("line_3D", "square_3D")
+def _vis_grid(LL, n=100):
+    x1t = np.linspace(LL[0, 0], LL[1, 0], n)
+    x2t = np.linspace(LL[0, 1], LL[1, 1], n)
+    X1, X2 = np.meshgrid(x1t, x2t)
+    cols = [X1.ravel(), X2.ravel()]
+    if LL.shape[1] == 3:
+        cols.append(np.zeros_like(cols[0]))
+    return x1t, x2t, np.stack(cols, axis=-1)
+
+
+def _grid_values(LL, m_sim, weights, is_6d, chunk=2000) -> dict:
+    """The visualization grid and the noise-free field on it, from the
+    drawn ``weights``: f (the potential for 6-D), and for 6-D also df, the
+    field. Points go through the basis in chunks, which bounds the
+    [chunk, 3, 3 + m_sim] gradient blocks."""
+    x1t, x2t, xt = _vis_grid(LL)
+    x = torch.as_tensor(xt - domain_center(LL), dtype=torch.float32)
+    basis = hypercube_basis(m_sim, LL)
+    sp = ScalarPotentialBasis(basis)
+    f, df = [], []
+    for xc in torch.split(x, chunk):
+        if is_6d:
+            f.append(sp.potential_row(xc) @ weights)
+            df.append(torch.einsum("nij,j->ni", sp.grad_blocks(xc), weights))
+        else:
+            f.append(basis.phi(xc) @ weights)
+    grid = {"x1t": x1t, "x2t": x2t, "f": torch.cat(f).numpy()}
+    if is_6d:
+        grid["df"] = torch.cat(df).numpy()
+    return grid
+
+
+_HEADING_FAMILIES = ("line_3D", "square_3D", "line_3D_withPos")
 
 
 def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
                            dynamics: Callable, m_sim: int = 2000,
                            n_ll: float = 2.0,
                            traj_kwargs: Optional[dict] = None,
-                           field_weights=None, *,
+                           field_weights=None, with_grid: bool = True, *,
                            generator: Optional[torch.Generator] = None,
                            normals=None) -> DenseDataset:
     """Simulate one dense dataset.
 
     ``dynamics(w, xn, u, dt, Q)`` with w a standard-normal [nw] draw
     returns ``(xn', dq)`` for 6-D families
-    (models.mag3d.dynamics_with_increment) and ``xn'`` for heading
-    families. ``field_weights`` reuses a previously drawn scalar field (new
-    measurement and odometry noise only: the nMC > 1 path,
-    run_dense2D_withHeading.m:156-161). The standard normals are
+    (models.mag3d.dynamics_with_increment) and ``xn'`` for planar and
+    heading families. ``field_weights`` reuses a previously drawn scalar
+    field (new measurement and odometry noise only: the nMC > 1 path,
+    run_dense2D_withHeading.m:156-161); that path has no grid, as in the
+    JAX package. ``with_grid`` adds ``grid``: the 100 x 100 visualization
+    grid over the domain (``x1t``, ``x2t``) with the drawn field's
+    noise-free values ``f`` [10000] there, and for 6-D also ``df``
+    [10000, 3]. The standard normals are
     ``normals = (z_w, z_n, w_odo)``: field weights [m_sim] (3 + m_sim for
     6-D; unused with ``field_weights``), measurement noise [T] ([T, 3]),
     odometry [T-1, nw]; entries that are None, or all of them without
@@ -78,9 +121,6 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
     """
     traj = generate_trajectory(traj_type, **(traj_kwargs or {}))
     is_6d = traj.quat is not None
-    if not is_6d and traj_type not in _HEADING_FAMILIES:
-        raise NotImplementedError(
-            f"the planar dataset family {traj_type!r} is not ported")
     z_w, z_n, w_odo = normals if normals is not None else (None, None, None)
     f32 = torch.float32
     T = traj.n_steps
@@ -110,6 +150,8 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
                                        generator=generator, z_w=z_w, z_n=z_n)
             y, weights = draw_s.y, draw_s.weights
         y = y[:, None]
+    grid = (_grid_values(LL, m_sim, weights, is_6d)
+            if with_grid and (is_6d or field_weights is None) else None)
 
     # --- odometry corruption via the model's own dynamics ---
     Q = torch.as_tensor(Q, dtype=f32)
@@ -131,9 +173,11 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
     if is_6d:
         dx = torch.cat([torch.diff(path[:, :3], dim=0), torch.stack(dqs)],
                        dim=-1)
-    else:
+    elif traj_type in _HEADING_FAMILIES:
         dx = torch.cat([dx_clean[:, :2],
                         torch.diff(path[:, 2], dim=0)[:, None]], dim=-1)
+    else:
+        dx = torch.diff(path, dim=0)
     return DenseDataset(
         dx=dx,
         init_state=path[0],
@@ -143,5 +187,6 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
         LL=LL,
         Q=Qt,
         odometry_path=path.numpy(),
+        grid=grid,
         field_weights=weights,
     )

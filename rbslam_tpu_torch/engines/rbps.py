@@ -28,8 +28,11 @@ trajectory that is kept. They come from ``generator`` or from ``noise =
 (u, w, u_anc, u_pick)`` with a leading sweep axis: u [N_K, T-1] (systematic)
 or [N_K, T-1, N], w [N_K, T-1, N, n_noise], u_anc [N_K, T-1], u_pick [N_K].
 
-Per-sweep checkpoints and a device mesh are not ported: they raise
-NotImplementedError naming their ROADMAP item.
+With ``checkpoint_dir`` each sweep ends by saving the kept trajectory, the
+outputs so far and the generator's state (``utils/checkpoint.py``); a call
+given a directory that holds checkpoints resumes after the latest one, and
+its result equals an unbroken run's bit for bit. A device mesh is not
+ported: it raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from ..ops.kalman import (
     kalman_update_masked_batched,
 )
 from ..ops.resampling import _SCHEMES, resample_indices, sample_categorical
+from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .rbpf import (
     _DTYPES,
     _as,
@@ -297,12 +301,7 @@ def _finish_sweep(xn_hist, ancestors, logw_f, xl_f, P_f, ess, retries,
     )
 
 
-def _check_supported(model, config: RBPSConfig, checkpoint_dir, mesh) -> None:
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "per-sweep checkpoints are not ported yet (ROADMAP queue 1 "
-            "item 2)"
-        )
+def _check_supported(model, config: RBPSConfig, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded smoothing is not ported yet (ROADMAP queue 1 "
@@ -322,11 +321,33 @@ def _check_supported(model, config: RBPSConfig, checkpoint_dir, mesh) -> None:
         )
 
 
+def _sweeps_like(device, with_generator: bool) -> dict:
+    """The structure of a sweep checkpoint, with each leaf's dtype and
+    device (values and shapes are not read)."""
+    def empty(dtype):
+        return torch.empty(0, dtype=dtype, device=device)
+
+    f32 = torch.float32
+    like = {"xnk": empty(f32), "sweeps": SweepOut(
+        xnk=empty(f32), xlk=empty(f32), Pk=empty(f32), ess=empty(f32),
+        retries=empty(torch.int64), ancestors=empty(torch.int32),
+        kept=empty(torch.int64))}
+    if with_generator:
+        like["generator"] = torch.empty(0, dtype=torch.uint8)
+    return like
+
+
 def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
-                config: RBPSConfig, generator, device, noise) -> RBPSResult:
+                config: RBPSConfig, generator, device, noise,
+                checkpoint_dir: Optional[str]) -> RBPSResult:
     """Shared sweep loop: moves the inputs to ``device`` once, then runs
     ``config.n_sweeps`` sweeps, each conditioned on the trajectory the
-    previous one kept."""
+    previous one kept. With ``checkpoint_dir``, each sweep k saves
+    ckpt_{k+1}: the kept trajectory, every output so far (the port's
+    ``ancestors`` and ``kept`` included) and, with a generator, its state
+    (uint8; 16 bytes for a CUDA generator); a call that finds checkpoints
+    there starts at min(latest step, n_sweeps) (rbslam_tpu/engines/
+    rbps.py:325-390), restoring the generator, or at ``noise[start]``."""
     device = torch.device(device)
     y = torch.nan_to_num(_as(y, device))
     T = y.shape[0]
@@ -368,20 +389,39 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             pick=lambda: torch.rand((), generator=generator, device=device),
         )
 
+    def stacked(outs):
+        return SweepOut(*(torch.stack([getattr(o, f) for o in outs])
+                          for f in SweepOut._fields))
+
     xnk = torch.zeros((T, model.n_nonlin), device=device)
     outs = []
-    for k in range(config.n_sweeps):
+    start_k = 0
+    if checkpoint_dir is not None:
+        step = latest_step(checkpoint_dir)
+        if step is not None and step > 0:
+            st = load_checkpoint(checkpoint_dir, step,
+                                 _sweeps_like(device, noise is None))
+            if noise is None:
+                generator.set_state(st["generator"])
+            xnk = st["xnk"]
+            outs = [SweepOut(*(v[k] for v in st["sweeps"]))
+                    for k in range(step)]
+            start_k = min(step, config.n_sweeps)
+
+    for k in range(start_k, config.n_sweeps):
         out = sweep_fn(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                        config, xnk, k == 0, draws_of(k))
         xnk = out.xnk
         outs.append(out)
-    stack = {f: torch.stack([getattr(o, f) for o in outs])
-             for f in SweepOut._fields}
-    return RBPSResult(
-        XNK=stack["xnk"], XLK=stack["xlk"], PK=stack["Pk"], ess=stack["ess"],
-        chol_retries=stack["retries"], ancestors=stack["ancestors"],
-        kept=stack["kept"],
-    )
+        if checkpoint_dir is not None:
+            tree = {"xnk": xnk, "sweeps": stacked(outs)}
+            if noise is None:
+                tree["generator"] = generator.get_state()
+            save_checkpoint(checkpoint_dir, k + 1, tree)
+    res = stacked(outs)
+    return RBPSResult(XNK=res.xnk, XLK=res.xlk, PK=res.Pk, ess=res.ess,
+                      chol_retries=res.retries, ancestors=res.ancestors,
+                      kept=res.kept)
 
 
 def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
@@ -404,7 +444,7 @@ def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     dense-mag T=192, ny=3 config) use
     :func:`rbslam_tpu_torch.engines.rbps_info.run_rbps_information_form`.
     """
-    _check_supported(model, config, checkpoint_dir, mesh)
+    _check_supported(model, config, mesh)
     if isinstance(model, SparseModel):
         refuse_tf32(device, "the sparse (masked EKF) smoother")
         y = _as(y, device)
@@ -412,7 +452,7 @@ def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 else _as(mask, device))
         return _run_sweeps(partial(_cpf_as_sweep, mask=mask), model, dx, y,
                            x0_nonlin, x0_lin, P0_lin, Q, R, dt, config,
-                           generator, device, noise)
+                           generator, device, noise, checkpoint_dir)
     n_stack = int(torch.as_tensor(y).shape[0]) * model.ny
     if n_stack > 256:
         warnings.warn(
@@ -422,4 +462,5 @@ def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             stacklevel=2,
         )
     return _run_sweeps(_cpf_as_sweep, model, dx, y, x0_nonlin, x0_lin,
-                       P0_lin, Q, R, dt, config, generator, device, noise)
+                       P0_lin, Q, R, dt, config, generator, device, noise,
+                       checkpoint_dir)

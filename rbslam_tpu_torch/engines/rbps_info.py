@@ -330,8 +330,9 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
             "the information-form smoother supports dense features only "
             "(as the reference, src/particleSmootherInformationForm.m:77-80);"
             " use run_rbps for sparse models")
-    _check_supported(model, config, checkpoint_dir, mesh)
+    _check_supported(model, config, mesh)
     refuse_tf32(device, "the information-form smoother (it maintains W "
                 "by cancellation)")
     return _run_sweeps(_info_sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
-                       Q, R, dt, config, generator, device, noise)
+                       Q, R, dt, config, generator, device, noise,
+                       checkpoint_dir)

@@ -87,7 +87,7 @@ def build_from_config(cfg: DenseMagConfig, generator: torch.Generator, *,
         "bean_6D", cfg.theta, Q, cfg.dt, dynamics_with_increment,
         m_sim=cfg.m_sim,
         traj_kwargs={"n_laps": cfg.n_laps, "n_per_lap": cfg.n_per_lap},
-        generator=generator,
+        with_grid=False, generator=generator,
     )
     y = data.y + torch.as_tensor(cfg.mag_disturbance, dtype=data.y.dtype)
     basis = hypercube_basis(cfg.m_basis, data.LL)

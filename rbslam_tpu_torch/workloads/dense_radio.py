@@ -9,13 +9,15 @@ Monte Carlo repetitions reusing the same field with fresh odometry and
 measurement noise (main.m:24-27, :156-161).
 
 Run on the GPU:  python -m rbslam_tpu_torch.workloads.dense_radio --quick
-(``--device cpu`` runs the kernels' plain versions instead).
+(``--device cpu`` runs the kernels' plain versions instead). ``--plots DIR``
+writes the figures (needs matplotlib).
 """
 
 from __future__ import annotations
 
 import argparse
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from ..engines import (
 from ..metrics import aligned_position_rmse
 from ..models import make_radio2d_model
 from ..utils.interop import Problem, radio_problem_from_numpy
+from ..viz.plots import require_matplotlib
 from .common import Timer, report
 
 
@@ -49,6 +52,7 @@ class DenseRadioConfig:
     resampling: str = "multinomial"
     smoother: str = "cpf_as"        # or "info_form"
     seed: int = 1
+    with_grid: bool = False         # the dataset's visualization grid
 
 
 def _process_noise(cfg: DenseRadioConfig) -> torch.Tensor:
@@ -79,7 +83,8 @@ def build_problem(cfg: DenseRadioConfig, generator: torch.Generator,
     data = simulate_dense_dataset(
         cfg.traj_type, cfg.theta, Q, 1.0, gen_model.dynamics,
         m_sim=cfg.m_sim, traj_kwargs={"n": cfg.n_steps},
-        field_weights=field_weights, generator=generator,
+        field_weights=field_weights, with_grid=cfg.with_grid,
+        generator=generator,
     )
     basis = hypercube_basis(cfg.m_basis, data.LL)
     k = se_spectral_density(
@@ -95,15 +100,71 @@ def build_problem(cfg: DenseRadioConfig, generator: torch.Generator,
     return problem, data
 
 
-def run(cfg: DenseRadioConfig, *, device) -> dict:
+def _make_plots(plot_dir, cfg, data, problem, res, res_s):
+    """Figure-family analogs of the reference's committed PNGs
+    (line-odometry / line-filter-{max,mean} / line-smoother / degeneracy-*;
+    README.md:85-119). The map and its posterior std on the grid use the
+    model's Jacobian rows phi(x) (K6 on the card); every array then comes
+    off the device once."""
+    from ..viz import plot_degeneracy, plot_dense_map, plot_trajectories
+
+    out = {"traj_max": res.traj_max[:, :2], "traj_mean": res.traj_mean[:, :2],
+           "xn_traj": res.xn_traj[:, :, :2]}
+    if res_s is not None:
+        out["XNK"] = res_s.XNK[:, :, :2]
+    if data.grid is not None:
+        X1, X2 = np.meshgrid(data.grid["x1t"], data.grid["x2t"])
+        xn = torch.tensor(np.stack([X1.ravel(), X2.ravel(),
+                                    np.zeros(X1.size)], -1),
+                          dtype=torch.float32, device=res.xl_mean.device)
+        Phi = problem.model.meas_jacobian_batch(xn)[:, 0, :]
+        out["est"] = Phi @ res.xl_mean
+        out["var"] = torch.einsum("ni,ij,nj->n", Phi, res.P_mean, Phi)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+
+    os.makedirs(plot_dir, exist_ok=True)
+    tag = cfg.traj_type
+    plot_trajectories(
+        os.path.join(plot_dir, f"{tag}-odometry.png"),
+        truth=data.pos, estimates=[data.odometry_path[:, :2]],
+        labels=["odometry (dead reckoning)"],
+        title="True trajectory vs odometry",
+    )
+    plot_trajectories(
+        os.path.join(plot_dir, f"{tag}-filter.png"),
+        truth=data.pos, estimates=[out["traj_max"], out["traj_mean"]],
+        labels=["filter max-weight", "filter weighted mean"],
+        title="Filter trajectories",
+    )
+    if data.grid is not None:
+        plot_dense_map(
+            os.path.join(plot_dir, f"{tag}-map.png"),
+            data.grid["x1t"], data.grid["x2t"], out["est"],
+            traj=out["traj_mean"],
+            uncertainty=np.sqrt(np.maximum(out["var"], 0.0)),
+            title="Estimated field map (alpha = posterior std)",
+        )
+    if res_s is not None:
+        plot_degeneracy(
+            os.path.join(plot_dir, f"{tag}-degeneracy.png"),
+            out["xn_traj"], out["XNK"], truth=data.pos,
+        )
+
+
+def run(cfg: DenseRadioConfig, *, device, plot_dir=None) -> dict:
     """Filter, then ``cfg.n_sweeps`` smoother sweeps, ``cfg.n_mc`` times on
-    one field; Procrustes-aligned position RMSE of each."""
+    one field; Procrustes-aligned position RMSE of each. ``plot_dir``: write
+    the first repetition's figures there (needs matplotlib; the dataset then
+    gets its grid, which draws nothing)."""
+    if plot_dir is not None:
+        require_matplotlib()
+        cfg = replace(cfg, with_grid=True)
     device = torch.device(device)
     data_gen = torch.Generator().manual_seed(cfg.seed)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     rmse_filter, rmse_smoother, times = [], [], {}
     field_weights = None
-    for _ in range(cfg.n_mc):
+    for i_mc in range(cfg.n_mc):
         problem, data = build_problem(cfg, data_gen, field_weights,
                                       device=device)
         field_weights = data.field_weights
@@ -121,6 +182,7 @@ def run(cfg: DenseRadioConfig, *, device) -> dict:
             float(aligned_position_rmse(data.pos, res.traj_mean[:, :2])),
         ])
 
+        res_s = None
         if cfg.n_sweeps > 0:
             smoother = (run_rbps_information_form
                         if cfg.smoother == "info_form" else run_rbps)
@@ -137,6 +199,9 @@ def run(cfg: DenseRadioConfig, *, device) -> dict:
                 float(aligned_position_rmse(data.pos, res_s.XNK[s, :, :2]))
                 for s in range(cfg.n_sweeps)
             ])
+
+        if plot_dir is not None and i_mc == 0:
+            _make_plots(plot_dir, cfg, data, problem, res, res_s)
 
     rf = np.asarray(rmse_filter)
     out = {
@@ -173,12 +238,8 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="reduced config for smoke runs")
     ap.add_argument("--plots", default=None, metavar="DIR",
-                    help="figure output (not ported)")
+                    help="write figure PNGs (maps, trajectories, degeneracy)")
     args = ap.parse_args(argv)
-    if args.plots is not None:
-        raise NotImplementedError(
-            "--plots needs the viz package, not ported yet (ROADMAP queue 1 "
-            "item 2)")
     cfg = DenseRadioConfig(
         traj_type=args.traj,
         n_steps=48 if args.traj == "square_3D" else 32,
@@ -191,7 +252,7 @@ def main(argv=None):
         smoother=args.smoother,
         seed=args.seed,
     )
-    report(run(cfg, device=args.device))
+    report(run(cfg, device=args.device, plot_dir=args.plots))
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from ..engines.pf import PFConfig, run_pf_localization
 from ..gp import fit_scalar_potential_gp
 from ..math.quaternions import qinv, qmul, rmat_to_quat
 from ..models.terrain import make_terrain_model
+from ..viz.plots import require_matplotlib
 from .common import Timer, report
 
 
@@ -164,11 +165,11 @@ def _environment(cfg: MagLocalizationConfig, gen: torch.Generator):
 
 def run(cfg: MagLocalizationConfig, *, device="cuda", video=None) -> dict:
     """Map, then localize: the GP fit on the mapping data and its map error
-    on the test path, then the PF from a uniform initial cloud."""
+    on the test path, then the PF from a uniform initial cloud. ``video``:
+    write the localization animation (robot-pf.mp4 analog) to this GIF
+    (needs matplotlib and pillow)."""
     if video is not None:
-        raise NotImplementedError(
-            "video needs the viz package, not ported yet (ROADMAP queue 1 "
-            "item 2)")
+        require_matplotlib()
     device = torch.device(device)
     data_gen = torch.Generator().manual_seed(cfg.seed)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -229,7 +230,8 @@ def run(cfg: MagLocalizationConfig, *, device="cuda", video=None) -> dict:
         res = run_pf_localization(
             model.dynamics, log_weight, u, y_body, init, default_Q(), cfg.dt,
             PFConfig(n_particles=n_p, resampling=cfg.resampling,
-                     ess_threshold=cfg.ess_threshold),
+                     ess_threshold=cfg.ess_threshold,
+                     store_trajectories=video is not None),
             n_noise=model.n_noise, generator=gen, device=device)
     T = y_body.shape[0]
     err = np.linalg.norm(res.traj_mean[:, :2].cpu().numpy() - x_test[:, :2],
@@ -243,6 +245,25 @@ def run(cfg: MagLocalizationConfig, *, device="cuda", video=None) -> dict:
         "time_s": t_pf.elapsed,
         "particle_steps_per_s": n_p * T / t_pf.elapsed,
     }
+    if video is not None:
+        # global localization converging on the GP magnetic map, rendered
+        # offline from the stored cloud: |mean field| on a 60 x 60 grid
+        from ..viz.animation import animate_particle_cloud
+
+        n_grid = 60
+        GX, GY = np.meshgrid(np.linspace(lo[0], hi[0], n_grid),
+                             np.linspace(lo[1], hi[1], n_grid))
+        pts = np.stack([GX.ravel(), GY.ravel(), np.zeros(GX.size)], -1)
+        mean_g, _ = gp.predict_gradient(pts)
+        img = torch.linalg.norm(mean_g, dim=-1).reshape(n_grid, n_grid)
+        n_frames = animate_particle_cloud(
+            video, res.xn_hist.cpu().numpy(),
+            traj_mean=res.traj_mean[:, :2].cpu().numpy(),
+            truth=x_test[:, :2],
+            background=((lo[0], hi[0], lo[1], hi[1]), img.cpu().numpy()),
+            title="magnetic terrain localization — PF",
+        )
+        out["pf"]["video"] = {"path": video, "frames": n_frames}
     return out
 
 
@@ -263,7 +284,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--video", default=None, metavar="GIF",
-                    help="localization animation (not ported)")
+                    help="write a localization animation "
+                         "(robot-pf.mp4 analog) to this .gif path")
     args = ap.parse_args(argv)
     cfg = MagLocalizationConfig(
         n_particles=200 if args.quick else args.particles,

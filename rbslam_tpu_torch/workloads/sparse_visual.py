@@ -18,6 +18,7 @@ generator with the same seed.
 from __future__ import annotations
 
 import argparse
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +28,7 @@ from ..data.sparse_visual import load_sparse_visual
 from ..engines import RBPFConfig, RBPSConfig, run_rbpf, run_rbps
 from ..metrics import map_and_path_rmse
 from ..models.pinhole2d import make_pinhole2d_model
+from ..viz.plots import require_matplotlib
 from .common import Timer, report
 
 
@@ -75,11 +77,11 @@ def init_maps(noise, landmarks, guess_var: float) -> torch.Tensor:
 def run(cfg: SparseVisualConfig, *, device="cuda", plot_dir=None,
         video=None, ps_video=None) -> dict:
     """The PF, then the CPF-AS smoother, on the vendored dataset; path and
-    map RMSE of each."""
+    map RMSE of each. ``plot_dir``: the PF's landmark map figure;
+    ``video`` / ``ps_video``: the PF's per-step and the smoother's
+    per-sweep animations (GIF); each needs matplotlib."""
     if plot_dir is not None or video is not None or ps_video is not None:
-        raise NotImplementedError(
-            "plots and videos need the viz package, not ported yet (ROADMAP "
-            "queue 1 item 2)")
+        require_matplotlib()
     device = torch.device(device)
     data_gen = torch.Generator().manual_seed(cfg.seed)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -117,6 +119,31 @@ def run(cfg: SparseVisualConfig, *, device="cuda", plot_dir=None,
             "chol_retries": int(res.chol_retries),
             "time_s": t_f.elapsed,
         }
+        if plot_dir is not None or video is not None:
+            xl_mean = res.xl_mean.reshape(-1, 2).cpu().numpy()
+            traj_mean = res.traj_mean[:, :2].cpu().numpy()
+        if plot_dir is not None:
+            from ..viz import plot_landmark_map
+
+            os.makedirs(plot_dir, exist_ok=True)
+            plot_landmark_map(
+                os.path.join(plot_dir, "sparse-visual-pf-map.png"),
+                truth_map, xl_mean, traj=traj_mean,
+                title="PF landmark map + mean trajectory",
+            )
+        if video is not None:
+            # loop-pf.mp4 analog (plot_visual_slam_progress.m): an offline
+            # pass over the stored per-step cloud
+            from ..viz.animation import animate_particle_cloud
+
+            n_frames = animate_particle_cloud(
+                video, res.xn_hist.cpu().numpy(), traj_mean=traj_mean,
+                truth=np.asarray(truth_traj),
+                landmarks_true=np.asarray(truth_map),
+                landmarks_est=xl_mean,
+                title="sparse visual SLAM — PF progress",
+            )
+            out["pf"]["video"] = {"path": video, "frames": n_frames}
 
     if cfg.run_smoother:
         x0_lin = maps(cfg.n_particles_ps)
@@ -137,6 +164,18 @@ def run(cfg: SparseVisualConfig, *, device="cuda", plot_dir=None,
             "chol_retries": int(res_s.chol_retries.sum()),
             "time_s": t_s.elapsed,
         }
+        if ps_video is not None:
+            # loop-ps.mp4 analog: one frame per CPF-AS sweep showing the
+            # sampled trajectory and landmark map (psslam.m:126-136)
+            from ..viz.animation import animate_smoother_sweeps
+
+            n_frames = animate_smoother_sweeps(
+                ps_video, res_s.XNK[:, :, :2].cpu().numpy(),
+                XLK=res_s.XLK.cpu().numpy(), truth=np.asarray(truth_traj),
+                landmarks_true=np.asarray(truth_map),
+                title="sparse visual SLAM — smoother",
+            )
+            out["ps"]["video"] = {"path": ps_video, "frames": n_frames}
     return out
 
 
@@ -149,12 +188,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--plots", default=None, metavar="DIR",
-                    help="figure output (not ported)")
+    ap.add_argument("--plots", default=None, metavar="DIR")
     ap.add_argument("--video", default=None, metavar="GIF",
-                    help="PF progress animation (not ported)")
+                    help="write a PF progress animation "
+                         "(loop-pf.mp4 analog) to this .gif path")
     ap.add_argument("--ps-video", default=None, metavar="GIF",
-                    help="smoother per-sweep animation (not ported)")
+                    help="write a smoother per-sweep animation "
+                         "(loop-ps.mp4 analog) to this .gif path")
     args = ap.parse_args(argv)
     cfg = SparseVisualConfig(
         n_particles_pf=20 if args.quick else args.particles,

@@ -19,6 +19,7 @@ held to a stated tolerance, not bit for bit). The workloads are held to
 the gates of tests/test_workloads.py.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -557,9 +558,22 @@ def test_mag_localization_vendored_fixture():
     assert np.isfinite(out["pf"]["mean_err_after_burnin"])
 
 
-def test_mag_localization_video_not_ported():
-    with pytest.raises(NotImplementedError, match="viz"):
-        ML.main(["--quick", "--device", "cpu", "--video", "x.gif"])
+def test_mag_localization_video_not_ported(tmp_path, capsys):
+    """--video is ported: it writes the localization GIF, one frame a step,
+    where matplotlib is installed, and raises an ImportError naming it
+    before any work where it is not."""
+    import importlib.util
+
+    gif = tmp_path / "x.gif"
+    argv = ["--quick", "--device", "cpu", "--video", str(gif)]
+    if importlib.util.find_spec("matplotlib") is None:
+        with pytest.raises(ImportError, match="matplotlib"):
+            ML.main(argv)
+        return
+    ML.main(argv)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["pf"]["video"] == {"path": str(gif), "frames": 60}
+    assert gif.stat().st_size > 1000
 
 
 def test_new_workloads_never_import_jax():

@@ -206,14 +206,34 @@ def test_procrustes_and_aligned_rmse_match_jax():
 @pytest.mark.parametrize("traj_type,kw", [("line_3D", {}),
                                           ("line_3D", {"n": 12}),
                                           ("square_3D", {}),
-                                          ("square_3D", {"n": 16})])
+                                          ("square_3D", {"n": 16}),
+                                          ("circle_2D", {}),
+                                          ("bean_2D", {}),
+                                          ("line_2D", {}),
+                                          ("line_3D_withPos", {}),
+                                          ("line_6D", {}),
+                                          ("circle_6D", {}),
+                                          ("bean_6D", {})])
 def test_heading_trajectories_match_jax(traj_type, kw):
+    """Every one of the nine TRAJECTORY_TYPES: positions and the initial
+    state exact; the quaternions and their increments, float32 in both
+    packages, within 1e-6 (as test_torch_rbpf.py::test_bean_6d_matches_jax),
+    the rest of dx exact."""
+    from rbslam_tpu.data import TRAJECTORY_TYPES as JTYPES
+    from rbslam_tpu_torch.data import TRAJECTORY_TYPES
+
+    assert list(TRAJECTORY_TYPES) == list(JTYPES)
     port, ref = generate_trajectory(traj_type, **kw), jgenerate(traj_type,
                                                                 **kw)
-    assert port.quat is None and ref.quat is None
     np.testing.assert_array_equal(port.pos, ref.pos)
-    np.testing.assert_array_equal(port.dx, ref.dx)
     np.testing.assert_array_equal(port.init_state, ref.init_state)
+    if ref.quat is None:
+        assert port.quat is None
+        np.testing.assert_array_equal(port.dx, ref.dx)
+        return
+    np.testing.assert_allclose(port.quat, ref.quat, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(port.dx[:, :3], ref.dx[:, :3])
+    np.testing.assert_allclose(port.dx, ref.dx, rtol=1e-6, atol=1e-7)
 
 
 def test_scalar_field_draw_matches_jax():
@@ -514,7 +534,12 @@ def test_workload_runs_and_smooths():
     assert np.all(np.isfinite(info["rmse_smoother_per_sweep"]))
 
 
-def test_workload_cli():
+def test_workload_cli(tmp_path):
+    """The workload's command line at the quick size; with --plots it writes
+    the four figures where matplotlib is installed and fails, naming it,
+    where it is not."""
+    import importlib.util
+
     env = dict(os.environ, PYTHONPATH=REPO)
     cmd = [sys.executable, "-m", "rbslam_tpu_torch.workloads.dense_radio",
            "--quick", "--device", "cpu"]
@@ -524,7 +549,15 @@ def test_workload_cli():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["traj_type"] == "line_3D"
     assert len(report["rmse_smoother_per_sweep"]) == 3
-    bad = subprocess.run(cmd + ["--plots", "figs"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0
-    assert "ROADMAP queue 1 item 2)" in bad.stderr
+    figs = tmp_path / "figs"
+    plots = subprocess.run(cmd + ["--plots", str(figs)], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=300)
+    if importlib.util.find_spec("matplotlib") is None:
+        assert plots.returncode != 0 and "matplotlib" in plots.stderr
+        return
+    assert plots.returncode == 0, plots.stderr
+    # the grid draws nothing: the same seed gives the same numbers
+    assert json.loads(plots.stdout.strip().splitlines()[-1])[
+        "rmse_smoother_per_sweep"] == report["rmse_smoother_per_sweep"]
+    for kind in ("odometry", "filter", "map", "degeneracy"):
+        assert (figs / f"line_3D-{kind}.png").stat().st_size > 1000

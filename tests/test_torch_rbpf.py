@@ -402,13 +402,22 @@ def test_port_builds_its_own_problem():
 
 
 def test_package_never_imports_jax():
-    """Import the port with JAX made unimportable and run 2-step lowrank
-    and block_gather filters, the radio workload with both smoothers, the
-    dense-mag workload (EKF included) and the kernel-part profile."""
+    """Import every module of the port with JAX and the JAX package made
+    unimportable and run 2-step lowrank and block_gather filters, the radio
+    workload with both smoothers, the dense-mag workload (EKF included),
+    the kernel-part profile, a checkpointed smoother resumed, a trace, the
+    CLI's usage, a planar dataset with its grid and, where matplotlib is
+    installed, a figure."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["rbslam_tpu"] = None
+        import importlib, pkgutil, tempfile
         import torch
+        import rbslam_tpu_torch
+        for mod in pkgutil.walk_packages(rbslam_tpu_torch.__path__,
+                                         "rbslam_tpu_torch."):
+            importlib.import_module(mod.name)
         from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
         from rbslam_tpu_torch.workloads.dense_mag import build_problem
         import rbslam_tpu_torch.kernels, rbslam_tpu_torch.data
@@ -434,6 +443,34 @@ def test_package_never_imports_jax():
         assert out["n_steps"] == 6 and "rmse_ekf_pos" in out
         prof = profile_kernel_parts.run("cpu", (4, 5, "float32"), reps=1)
         assert len(prof["rows"]) == 27
+        from rbslam_tpu_torch import __main__ as cli
+        from rbslam_tpu_torch.data import simulate_dense_dataset
+        from rbslam_tpu_torch.engines import RBPSConfig, run_rbps
+        from rbslam_tpu_torch.utils import latest_step, phase_annotation
+        from rbslam_tpu_torch.utils import trace_to
+        tmp = tempfile.mkdtemp()
+        radio, _ = dense_radio.build_problem(
+            dense_radio.DenseRadioConfig(n_steps=6, m_basis=8, m_sim=16),
+            torch.Generator().manual_seed(1), device="cpu")
+        with trace_to(tmp + "/trace"), phase_annotation("smoother"):
+            for n in (1, 2):
+                res = run_rbps(*radio.rbpf_args(), RBPSConfig(4, n),
+                               generator=torch.Generator().manual_seed(n),
+                               device="cpu", checkpoint_dir=tmp + "/ck")
+        assert latest_step(tmp + "/ck") == 2 and res.XNK.shape[0] == 2
+        try:
+            cli.main(["--help"])
+        except SystemExit as e:
+            assert e.code == 0
+        walk = lambda w, x, u, dt, Q: x + u + 0.1 * w
+        data = simulate_dense_dataset(
+            "circle_2D", (0.25, 2.0, 0.01), 0.01 * torch.eye(2), 1.0, walk,
+            m_sim=16, traj_kwargs={"n_laps": 1, "dpsi_deg": 45.0},
+            generator=torch.Generator().manual_seed(0))
+        assert data.grid["f"].shape == (10000,) and data.dx.shape == (7, 2)
+        if importlib.util.find_spec("matplotlib") is not None:
+            from rbslam_tpu_torch.viz import plot_trajectories
+            plot_trajectories(tmp + "/t.png", truth=data.pos)
         assert not any(m == "jax" or m.startswith("jax.")
                        or m == "rbslam_tpu" or m.startswith("rbslam_tpu.")
                        for m, v in sys.modules.items() if v is not None)

@@ -574,18 +574,29 @@ def test_dense_ny4_cpf_as_matches_jax(mag):
 
 @pytest.mark.parametrize("entry", ["run_rbps", "run_rbps_information_form"])
 @pytest.mark.parametrize("case", ["sparse_model", "checkpoint_dir", "mesh"])
-def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
-    """What the port does not have yet raises, naming its ROADMAP item. A
-    sparse model is ported for run_rbps (its checkpoints are not, as for a
-    dense one); the information form takes dense features only and
-    rejects it, as the JAX package does."""
+def test_unported_smoother_paths_raise(mag, mag_noise, entry, case,
+                                       tmp_path):
+    """What the port does not have yet raises, naming its ROADMAP item: a
+    mesh, for a dense model and (run_rbps) for a sparse one; the
+    information form takes dense features only and rejects a sparse model,
+    as the JAX package does. Per-sweep checkpoints are ported: a run with
+    ``checkpoint_dir`` saves one a sweep and returns the run's result
+    (tests/test_torch_checkpoint.py holds the resume)."""
     from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
+    from rbslam_tpu_torch.utils import latest_step
 
     fn = {"run_rbps": run_rbps,
           "run_rbps_information_form": run_rbps_information_form}[entry]
     prob = mag["prob"]
     args = list(prob.rbpf_args())
-    kw = {}
+    if case == "checkpoint_dir":
+        ck = str(tmp_path / "ck")
+        runs = [fn(*args, _mag_config(RBPSConfig), generator=None,
+                   device="cpu", noise=mag_noise, **kw)
+                for kw in ({}, {"checkpoint_dir": ck})]
+        assert latest_step(ck) == N_K
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        return
     if case == "sparse_model":
         args[0] = make_pinhole2d_model(PinholeCamera(1.5, 0.0, 1.0), 6)
         if entry == "run_rbps_information_form":
@@ -593,14 +604,9 @@ def test_unported_smoother_paths_raise(mag, mag_noise, entry, case):
                 fn(*args, _mag_config(RBPSConfig), generator=None,
                    device="cpu", noise=mag_noise)
             return
-        kw["checkpoint_dir"] = "unused"
-    elif case == "checkpoint_dir":
-        kw["checkpoint_dir"] = "unused"
-    else:
-        kw["mesh"] = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
         fn(*args, _mag_config(RBPSConfig), generator=None, device="cpu",
-           noise=mag_noise, **kw)
+           noise=mag_noise, mesh=object())
 
 
 def test_bad_config_and_noise_rejected(mag, mag_noise):

@@ -375,16 +375,25 @@ def test_map_and_path_rmse_matches_jax(toy):
         np.testing.assert_allclose(float(g), float(r), rtol=1e-4)
 
 
-def test_sparse_visual_workload_quick():
-    """tests/test_workloads.py:21-30's configuration and gates."""
-    out = SV.run(SV.SparseVisualConfig(n_particles_pf=15, n_particles_ps=5,
-                                       n_sweeps=2), device="cpu")
+def test_sparse_visual_workload_quick(tmp_path):
+    """tests/test_workloads.py:21-30's configuration and gates; with
+    ``plot_dir`` the PF's landmark map figure where matplotlib is installed,
+    and an ImportError naming it before any work where it is not."""
+    import importlib.util
+
+    cfg = SV.SparseVisualConfig(n_particles_pf=15, n_particles_ps=5,
+                                n_sweeps=2)
+    if importlib.util.find_spec("matplotlib") is None:
+        with pytest.raises(ImportError, match="matplotlib"):
+            SV.run(cfg, device="cpu", plot_dir=str(tmp_path))
+        out = SV.run(cfg, device="cpu")
+    else:
+        out = SV.run(cfg, device="cpu", plot_dir=str(tmp_path))
+        assert (tmp_path / "sparse-visual-pf-map.png").stat().st_size > 1000
     assert out["n_landmarks"] == 20 and out["n_steps"] == 197
     assert np.isfinite(out["pf"]["rmse_path"])
     assert out["pf"]["rmse_map"] < 2.0
     assert np.isfinite(out["ps"]["rmse_map"])
-    with pytest.raises(NotImplementedError, match="viz"):
-        SV.main(["--quick", "--device", "cpu", "--plots", "out"])
 
 
 # --- what the sparse path refuses -------------------------------------------
