@@ -16,7 +16,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     K1, K4 and K7 in the form their planner picks (the table form at N = 16384 and
     4096, the direct form at the smoothers' 100 and phase 9's 192
     particles), each launched twice for equal bits and held bit for bit
-    against its direct form; K3 also at
+    against its direct form; K1 also between guard bands (canaries
+    around its output and its packed constants, checked after each of 20
+    launches); K3 also at
     rw = 8 and 40, at nl = 136 and at nl = 2048 (its wide form); K5 in
     each of its forms (P resident
     in the block, streamed, two passes), each launched twice for equal
@@ -86,9 +88,16 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     untraced one beside phase 4's best of 3;
 17. the command line: ``rbslam_tpu_torch.__main__.main(["dense-radio",
     "--quick"])`` in this process, on the card: finite RMSE lines, K6
-    counted.
+    counted;
+18. the mesh path (rbslam_tpu_torch/parallel) over a world-size-1 NCCL
+    process group and mesh (1, 1): the headline xla filter with each
+    dist_resampling mode against the unsharded run (K4 = 192, the
+    collectives counted, particle-steps/s beside the unsharded run's),
+    the information-form smoother at phase 8's cell against phase 8's
+    result (K4 = 578), the sharded resamplers at 2^20 particles and the
+    map-axis Woodbury transition and quadratic form (see phase_mesh).
 
-Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets
+Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 sets
 every launch count to 0 just before it and reads the counts just after;
 the counts must be exactly those of its path (none for 12-14, which are
 plain PyTorch, as the JAX package's paths are plain XLA). No phase
@@ -105,6 +114,7 @@ the card's peak for their type); the last line is
 from __future__ import annotations
 
 import contextlib
+import datetime
 import glob
 import io
 import json
@@ -306,6 +316,67 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info}
 
 
+GUARD = 64          # canary elements on each side of a guarded buffer
+CANARY = {torch.float32: -12288.0, torch.bfloat16: -12288.0,
+          torch.int32: 0x5A5A5A5A}
+
+
+def guarded(x):
+    """``x`` copied into the middle of a buffer with GUARD canary elements
+    on each side (64 elements keep the middle 16-byte aligned): (buffer,
+    middle view)."""
+    flat = x.reshape(-1)
+    buf = torch.full((flat.numel() + 2 * GUARD,), CANARY[x.dtype],
+                     dtype=x.dtype, device=x.device)
+    buf[GUARD:GUARD + flat.numel()] = flat
+    return buf, buf[GUARD:GUARD + flat.numel()].view(x.shape)
+
+
+def k1_guard_bands(device, consts, pos, quat, nl, dtype, launches=20):
+    """Phase 3, K1 between guard bands (the one-off fault of ROADMAP queue
+    3: a K1 run at bf16 read max |kernel| 1.03e5 where valid inputs give at
+    most 1). K1's output and its packed constants (``packed``, ``table``,
+    ``col_codes``) each sit between canary values; before every launch the
+    output is filled with the canary; after every launch (synchronized)
+    the canaries must be intact, the constants unchanged, every output
+    element written, and the output within the tolerance of the plain
+    version. A failure names which of them moved."""
+    bufs = {name: guarded(getattr(consts, name))
+            for name in ("packed", "table", "col_codes")}
+    originals = {name: getattr(consts, name).clone() for name in bufs}
+    cc = consts._replace(**{name: view for name, (_, view) in bufs.items()})
+    n = pos.shape[0]
+    out_buf, out = guarded(torch.empty((n, 3, nl), dtype=dtype,
+                                       device=device))
+    plain = mag3d_jacobian_rows_plain(consts, pos, quat, nl, dtype).float()
+    scale = float(plain.abs().max())
+    worst = 0.0
+    for i in range(launches):
+        out.fill_(CANARY[dtype])
+        mag3d_jacobian_rows(cc, pos, quat, nl, dtype, out=out)
+        sync(device)
+        moved = [f"{name} guard" for name, (buf, _) in
+                 (*bufs.items(), ("output", (out_buf, None)))
+                 if not (bool((buf[:GUARD] == CANARY[buf.dtype]).all())
+                         and bool((buf[-GUARD:] == CANARY[buf.dtype]).all()))]
+        moved += [name for name in bufs
+                  if not torch.equal(bufs[name][1], originals[name])]
+        if bool((out == CANARY[dtype]).any()):
+            moved.append("output not all written")
+        err = float((out.float() - plain).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, err)
+        if moved or not err <= TOL[dtype]:
+            raise AssertionError(
+                f"K1 guard bands, launch {i + 1} of {launches} (N={n} "
+                f"nl={nl} {dtype}): moved {moved}; rel err {err:.3e}; max "
+                f"|kernel| {float(out.float().abs().max()):.3e}, max |plain| "
+                f"{scale:.3e}")
+    log(f"[3] K1 guard bands N={n} m={consts.m} nl={nl} {dtype}: {launches} "
+        f"launches, each checked: canaries around the output and the packed "
+        f"constants intact, constants unchanged, every output element "
+        f"written, max rel err {worst:.3e} (tol {TOL[dtype]:.0e})")
+
+
 def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                   ny=3, rw=24):
     """Phase 3: each kernel against its plain version on the card. The
@@ -336,6 +407,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             pp.shape[0] * cc.m * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
         )
         rows.setdefault("jac3d_rows", r)
+        k1_guard_bands(device, cc, pp, qq, nll, dt)
     # K4 at the headline shape, at d = 2 and at the mag3d smoother's 100
     # particles (the direct form there)
     d2 = pack_basis_constants(hypercube_basis(128, [9.0, 6.0]), device)
@@ -1042,12 +1114,7 @@ def phase_pf_plain_vs_card(device, n_particles=4096, T=24):
     k = problem.run(cfg, noise=noise)
     p = problem.to("cpu").run(cfg, noise=tuple(a.cpu() for a in noise))
     sync(device)
-    a_k, a_p = k.ancestors.cpu().long(), p.ancestors.long()
-    differ = (a_k != a_p).sum(dim=1)
-    steps = torch.nonzero(differ).flatten().tolist()
-    first_ok = not steps or (
-        int(differ[steps[0]]) <= 2
-        and bool(((a_k[steps[0]] - a_p[steps[0]]).abs() <= 1).all()))
+    first_ok, first, differ = first_flip_ok(k.ancestors.cpu(), p.ancestors)
     resampled = sum(not torch.equal(a, torch.arange(n_particles,
                                                     dtype=a.dtype))
                     for a in p.ancestors)
@@ -1056,7 +1123,7 @@ def phase_pf_plain_vs_card(device, n_particles=4096, T=24):
         f"ess_threshold=0.5): card vs cpu: ancestor entries differing by "
         f"step {differ.tolist()} ({resampled} of {T - 1} steps resampled; "
         f"first difference a knife-edge flip to a neighbouring index: "
-        f"{first_ok if steps else 'no difference'}), max|d traj_mean|="
+        f"{'no difference' if first is None else first_ok}), max|d traj_mean|="
         f"{d_traj:.3e} (tol 1e-3)")
     if not (first_ok and d_traj <= 1e-3 and 0 < resampled < T - 1):
         raise AssertionError("terrain PF: card and cpu disagree")
@@ -1425,6 +1492,345 @@ def phase_cli(device, card, zero):
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
 
+def first_flip_ok(a_k, a_p, max_entries=2, max_move=1):
+    """Ancestors [T-1, N] of a run against a reference run: equal at every
+    step before the first difference, and at that step at most
+    ``max_entries`` entries, each at most ``max_move`` indices away: a
+    float32 knife-edge flip of systematic resampling moves a child past
+    the particles whose CDF steps lie within rounding of its comb position
+    (by default one entry to a neighbour, phase 6's rule). Returns (ok,
+    first differing step or None, entries differing by step)."""
+    a_k, a_p = a_k.long(), a_p.long()
+    differ = (a_k != a_p).sum(dim=1)
+    steps = torch.nonzero(differ).flatten().tolist()
+    if not steps:
+        return True, None, differ
+    s0 = steps[0]
+    ok = (int(differ[s0]) <= max_entries
+          and bool(((a_k[s0] - a_p[s0]).abs() <= max_move).all()))
+    return ok, s0, differ
+
+
+def knife_edges(u, w, scheme, out, ref, tol=5e-7):
+    """Children whose ancestor differs between two inverse-CDF resamplers
+    of the same weights and uniforms: (count, largest distance in float64
+    between the child's comb position and the CDF steps between the two
+    answers). A flip is a knife edge where that distance is within
+    float32 rounding (``tol``, about 8 units in the last place at 1)."""
+    d = out.long() != ref.long()
+    if not bool(d.any()):
+        return 0, 0.0
+    n = w.shape[0]
+    cdf = torch.cumsum(w.double(), dim=0)
+    cdf = cdf / cdf[-1]
+    ar = torch.arange(n, dtype=torch.float64, device=w.device)
+    q = {"systematic": lambda: (ar + u.double()) / n,
+         "stratified": lambda: (ar + u.double()) / n,
+         "multinomial": lambda: u.double()}[scheme]()[d]
+    lo = torch.minimum(out.long(), ref.long())[d]
+    hi = torch.maximum(out.long(), ref.long())[d]
+    dist = torch.maximum((q - cdf[lo]).abs(), (q - cdf[hi - 1]).abs())
+    return int(d.sum()), float(dist.max())
+
+
+def mesh_counts(n_steps, mode, symmetrize=False):
+    """The collectives of one run_rbpf call on the xla path over a mesh
+    (engines/rbpf.py, parallel/): per step the resampler's (replicated_cdf:
+    one all-gather of the weights; prefix: one of the shard sums and one
+    reduce-scatter; local: none), three ancestor gathers (xn, xl, P), P C'
+    over the map, the log-weights' all-gather, one all-reduce (best row
+    with the weighted mean) and, symmetrized, one all-to-all; step 0 two
+    all-gathers; after the loop four all-gathers (history, ancestors,
+    P_mean's and P_max's rows) and seven all-reduces. Returns (a step's,
+    the run's)."""
+    per = {"all_reduce": 1, "all_gather": 5 + (mode != "local"),
+           "reduce_scatter": int(mode == "prefix"),
+           "all_to_all": int(symmetrize)}
+    fixed = {"all_reduce": 7, "all_gather": 6, "reduce_scatter": 0,
+             "all_to_all": int(symmetrize)}
+    return per, {k: per[k] * n_steps + fixed[k] for k in per}
+
+
+def info_mesh_counts(T, n_sweeps):
+    """The collectives of one run_rbps_information_form call (woodbury,
+    symmetrized) over a mesh. Each sweep: at step 0 P C' over the map, the
+    symmetrization's all-to-all and the log-weights' all-gather; per
+    transition the resampler's all-gather, seven ancestor gathers (xn,
+    hldM, xl, P, ivec, Imat, hldp), P C' and the all-to-all, the
+    log-weights; after the first sweep also the rows of the two initial
+    factorizations (one all-reduce), and per transition the future weights'
+    quadratic forms (one all-reduce), their normalization (one all-gather)
+    and two Woodbury transitions (an all-reduce and an all-gather each);
+    at the end the history, the ancestors and the kept map's rows (three
+    all-gathers) and three all-reduces (its xl and P rows, the retries)."""
+    steps = T - 1
+    out = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+           "all_to_all": 0}
+    for k in range(n_sweeps):
+        later = k > 0
+        out["all_gather"] += 2 + (10 + 3 * later) * steps + 3
+        out["all_reduce"] += later + 3 * later * steps + 3
+        out["all_to_all"] += 1 + steps
+    return out
+
+
+def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=192, n_res=1 << 20, n_wood=100,
+               nl_wood=512):
+    """Phase 18: the mesh path (rbslam_tpu_torch/parallel) on this card, a
+    world-size-1 NCCL process group (FileStore rendezvous in a
+    temporary directory, destroyed at the end of the phase) and mesh (1,
+    1). Two ranks cannot share a card under NCCL, so the cross-rank
+    equivalence is the CPU tests' (tests/test_torch_parallel.py, gloo);
+    here every collective runs, on groups of one rank.
+
+    (a) run_rbpf at the headline shape on the xla path (bf16, systematic)
+        with each dist_resampling mode against the unsharded xla run of the
+        same generator seed: replicated_cdf and prefix ancestors equal up
+        to the first knife-edge flip and traj_mean within 1e-5 of its
+        scale before it; local: every child on its shard and the position
+        RMSE below the dead-reckoned odometry's; K4 = 192 and the
+        collectives (mesh_counts) per run; particle-steps/s best of 3 beside
+        the unsharded run's.
+    (b) run_rbps_information_form at phase 8's cell (woodbury, f32, seed
+        0) against phase 8's unsharded result: XNK 1e-4, XLK 1e-3; K4 =
+        578.
+    (c) sharded_resample_indices, both modes and three schemes at N =
+        2^20 against resample_indices: index for index but for knife-edge
+        flips, whose count is printed beside that of resample_indices
+        against a second call of itself.
+    (d) woodbury_rank_ny_rowsharded and quad_form_rowsharded at N=100,
+        nl=512 against rbps_info._woodbury_rank_ny and v' W v.
+    """
+    import torch.distributed as dist
+
+    from rbslam_tpu_torch.engines.rbps_info import _woodbury_rank_ny
+    from rbslam_tpu_torch.ops.resampling import resample_indices
+    from rbslam_tpu_torch.parallel import (
+        collective_counts,
+        make_mesh,
+        quad_form_rowsharded,
+        reset_collective_counts,
+        sharded_resample_indices,
+        woodbury_rank_ny_rowsharded,
+    )
+    from rbslam_tpu_torch.parallel.mesh import all_gather
+
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, 1, device_type=device.type)
+        log(f"[18] NCCL process group of world size "
+            f"{dist.get_world_size()}, mesh {tuple(mesh.mesh.shape)} "
+            f"{mesh.mesh_dim_names} on {device.type}")
+
+        # (a) the headline xla filter in each resampling mode
+        problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
+        truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
+        odo = torch.as_tensor(data.odometry_path[:, :3], dtype=torch.float32,
+                              device=device)
+        gen = torch.Generator(device=device)
+        expect_k = {**zero, "grad_basis": T}
+
+        def run(mode, seed):
+            gen.manual_seed(seed)
+            cfg = filter_config(n_particles, "bfloat16", "xla")._replace(
+                dist_resampling=mode or "replicated_cdf")
+            res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
+                           device=device, mesh=mesh if mode else None)
+            sync(device)
+            return res
+
+        def best_rate(mode):
+            best = float("inf")
+            for i in range(3):
+                t0 = time.perf_counter()
+                run(mode, i + 1)
+                best = min(best, time.perf_counter() - t0)
+            return n_particles * T / best, best / T * 1e3
+
+        def rmse(path):
+            return float(torch.sqrt(torch.mean(torch.sum(
+                (path[:, :3] - truth) ** 2, dim=-1))))
+
+        ref = run(None, 0)
+        rate_ref, ms_ref = best_rate(None)
+        log(f"[18a] unsharded xla N_P={n_particles} m={m} T={T} bf16 "
+            f"systematic: position RMSE {rmse(ref.traj_mean):.4f} m "
+            f"(odometry {rmse(odo):.4f} m); best of 3 "
+            f"{rate_ref:.1f} particle-steps/s ({ms_ref:.4f} ms/step) on "
+            f"{card}")
+        # what the ancestor gather of P adds a step: one all-gather of the
+        # [N, nl, nl] bf16 ensemble over the particles group, beside a
+        # device copy of it (median of 5 groups of 10 calls)
+        P = torch.zeros((n_particles, m + 3, m + 3), dtype=torch.bfloat16,
+                        device=device)
+        group = mesh.get_group("particles")
+        t_ag = time_ms(lambda: all_gather(P, group), device)
+        t_cp = time_ms(lambda: P.clone(), device)
+        gb = 2 * P.numel() * P.element_size() / 1e9
+        log(f"[18a] all-gather of P ({P.numel() * P.element_size() / 1e6:.1f}"
+            f" MB, NCCL, one rank) {t_ag:.4f} ms, {gb / t_ag * 1e3:.1f} GB/s "
+            f"read + write; a device copy (clone) {t_cp:.4f} ms, "
+            f"{gb / t_cp * 1e3:.1f} GB/s")
+        del P
+        for mode in ("replicated_cdf", "prefix", "local"):
+            reset_launch_counts()
+            reset_collective_counts()
+            res = run(mode, 0)
+            counts, coll = launch_counts(), collective_counts()
+            check_result(res, T, n_particles, problem.potential.n_lin)
+            per, want = mesh_counts(T - 1, mode)
+            log(f"[18a] {mode}: launches {counts}; collectives {coll} "
+                f"(a step: {per})")
+            if counts != expect_k:
+                raise AssertionError(f"launch counts {counts} != {expect_k}")
+            if coll != want:
+                raise AssertionError(f"collectives {coll} != {want}")
+            if mode == "local":
+                anc = res.ancestors.long()
+                if not bool(((anc >= 0) & (anc < n_particles)).all()):
+                    raise AssertionError("local: a child left its shard")
+                # the accuracy guard (PERF.md §2): better than dead
+                # reckoning; the island comb's cumsum is summed in another
+                # order on each call, so the run is not reproducible bit
+                # for bit and its RMSE varies from call to call
+                r, r_odo = rmse(res.traj_mean), rmse(odo)
+                d = float((res.traj_mean[:, :3] - ref.traj_mean[:, :3])
+                          .abs().max())
+                note = (f"every child on its shard; position RMSE {r:.4f} m "
+                        f"(unsharded {rmse(ref.traj_mean):.4f}, odometry "
+                        f"{r_odo:.4f}: guard, below it); max|d position| "
+                        f"from the unsharded run {d:.4f} m")
+                if not (math.isfinite(r) and r < r_odo):
+                    raise AssertionError(f"local: {note}")
+            else:
+                # the CDF is summed in another order (prefix): room for
+                # 0.5 % of the entries, each at most 8 indices away
+                ok, s0, differ = first_flip_ok(res.ancestors, ref.ancestors,
+                                               max(2, n_particles // 200), 8)
+                upto = T if s0 is None else s0 + 1
+                scale = float(ref.traj_mean[:upto].abs().max())
+                d = float((res.traj_mean[:upto] - ref.traj_mean[:upto])
+                          .abs().max())
+                note = (f"ancestors {'equal at every step' if s0 is None else f'equal up to step {s0}, then {int(differ[s0])} entries'}"
+                        f" ({int((differ > 0).sum())} of {T - 1} steps "
+                        f"differ); max|d traj_mean| {d:.3e} up to there "
+                        f"(scale {scale:.3e}, tol 1e-5 of it); bit-equal "
+                        f"traj_mean: {torch.equal(res.traj_mean, ref.traj_mean)}")
+                if not (ok and d <= 1e-5 * scale):
+                    raise AssertionError(f"{mode}: {note}")
+            rate, ms = best_rate(mode)
+            log(f"[18a] {mode}: {note}; best of 3 {rate:.1f} particle-steps/s"
+                f" ({ms:.4f} ms/step; unsharded {rate_ref:.1f}, "
+                f"{ms_ref:.4f} ms/step: {ms / ms_ref:.3f}x) on {card}")
+        del problem, data, ref, res
+
+        # (b) the information-form smoother at phase 8's cell
+        cfg = RBPSConfig(n_particles=100, n_sweeps=3, resampling="systematic",
+                         ancestor_form="woodbury")
+        T8 = problem8.y.shape[0]
+        expect_s = {**zero, "grad_basis": cfg.n_sweeps * T8
+                    + cfg.n_sweeps - 1}
+        reset_launch_counts()
+        reset_collective_counts()
+        t0 = time.perf_counter()
+        out = run_rbps_information_form(
+            *problem8.rbpf_args(), cfg,
+            generator=torch.Generator(device=device).manual_seed(0),
+            device=device, mesh=mesh)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts, coll = launch_counts(), collective_counts()
+        d_xn = float((out.XNK - res8.XNK).abs().max())
+        d_xl = float((out.XLK - res8.XLK).abs().max())
+        log(f"[18b] run_rbps_information_form on the mesh, N_P=100 n_lin="
+            f"{problem8.model.n_lin} T={T8} 3 sweeps woodbury f32: {wall:.3f}"
+            f" s ({100 * T8 * 3 / wall:.1f} particle-steps/s) on {card}; "
+            f"against phase 8's unsharded run max|d XNK| {d_xn:.3e} (tol "
+            f"1e-4), max|d XLK| {d_xl:.3e} (tol 1e-3), bit-equal XNK: "
+            f"{torch.equal(out.XNK, res8.XNK)}; launches {counts}; "
+            f"collectives {coll}")
+        if counts != expect_s:
+            raise AssertionError(f"launch counts {counts} != {expect_s}")
+        if not (d_xn <= 1e-4 and d_xl <= 1e-3):
+            raise AssertionError("the sharded smoother disagrees with "
+                                 "phase 8's")
+        want = info_mesh_counts(T8, cfg.n_sweeps)
+        if coll != want:
+            raise AssertionError(f"collectives {coll} != {want}")
+
+        # (c) the sharded resamplers at the terrain PF's size
+        g = torch.Generator(device=device).manual_seed(18)
+        w = torch.softmax(2 * torch.randn(n_res, generator=g, device=device),
+                          dim=0)
+        for scheme in ("systematic", "stratified", "multinomial"):
+            u = torch.rand(() if scheme == "systematic" else (n_res,),
+                           generator=g, device=device)
+            ref_ai = resample_indices(u, w, n_res, scheme)
+            # the control: the unsharded resampler against itself (a
+            # float scan on the card may sum in another order each call)
+            again, dist_again = knife_edges(
+                u, w, scheme, resample_indices(u, w, n_res, scheme), ref_ai)
+            log(f"[18c] resample_indices {scheme} N={n_res} against itself: "
+                f"{again} knife-edge flips (largest distance {dist_again:.2e})")
+            for mode in ("replicated_cdf", "prefix"):
+                reset_collective_counts()
+                out_ai = sharded_resample_indices(u, w, mesh, scheme, mode)
+                sync(device)
+                flips, dist_max = knife_edges(u, w, scheme, out_ai, ref_ai)
+                coll = collective_counts()
+                t_sh = time_ms(lambda: sharded_resample_indices(
+                    u, w, mesh, scheme, mode), device)
+                t_1 = time_ms(lambda: resample_indices(u, w, n_res, scheme),
+                              device)
+                log(f"[18c] sharded_resample_indices {mode} {scheme} N="
+                    f"{n_res}: {flips} knife-edge flips against "
+                    f"resample_indices (largest distance of a flipped comb "
+                    f"position from a CDF step {dist_max:.2e}, tol 5e-7); "
+                    f"collectives {coll}; {t_sh:.4f} ms a call against "
+                    f"{t_1:.4f} ms unsharded")
+                if dist_max > 5e-7 or flips > n_res // 20:
+                    raise AssertionError(f"{mode} {scheme}: a flip is not a "
+                                         "knife edge")
+        del w, u, ref_ai, out_ai
+
+        # (d) the map-axis Woodbury transition and quadratic form
+        g = torch.Generator(device=device).manual_seed(19)
+        A = 0.2 * torch.randn((n_wood, nl_wood, nl_wood), generator=g,
+                              device=device) / math.sqrt(nl_wood / 64)
+        M = A @ A.transpose(1, 2) + 3.0 * torch.eye(nl_wood, device=device)
+        W = torch.linalg.inv(M)
+        hldM = 0.5 * torch.linalg.slogdet(M)[1]
+        wood, quad = woodbury_rank_ny_rowsharded(mesh), \
+            quad_form_rowsharded(mesh)
+        W_sh, h_sh = W, hldM
+        reset_collective_counts()
+        for i, sign in enumerate((1.0, -1.0)):
+            U = (0.4 if sign > 0 else 0.08) * torch.randn(
+                (n_wood, nl_wood, 3), generator=g, device=device)
+            W, hldM, _ = _woodbury_rank_ny(W, hldM, U, sign, 1e-9)
+            W_sh, h_sh, bad = wood(W_sh, h_sh, U, sign)
+            if bool(bad.any()):
+                raise AssertionError("woodbury: a retry")
+        v = torch.randn((n_wood, nl_wood), generator=g, device=device)
+        q = quad(v, W_sh)
+        sync(device)
+        q_ref = torch.einsum("pi,pij,pj->p", v, W, v)
+        d_w = float((W_sh - W).abs().max())
+        d_h = float(((h_sh - hldM) / hldM).abs().max())
+        d_q = float(((q - q_ref) / q_ref).abs().max())
+        log(f"[18d] woodbury_rank_ny_rowsharded N={n_wood} nl={nl_wood}, two "
+            f"transitions, against _woodbury_rank_ny: max|d W| {d_w:.3e} "
+            f"(tol 1e-5, bit-equal {torch.equal(W_sh, W)}), hldM rel "
+            f"{d_h:.3e} (tol 1e-5); quad_form_rowsharded rel {d_q:.3e} (tol "
+            f"1e-4); collectives {collective_counts()}")
+        if not (d_w <= 1e-5 and d_h <= 1e-5 and d_q <= 1e-4):
+            raise AssertionError("the map-axis functions disagree")
+    finally:
+        dist.destroy_process_group()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1485,6 +1891,7 @@ def main() -> int:
     counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
                                         res)["jac3d"]
     phase_resume_info(device, card, zero, problem, res)
+    problem8, res8 = problem, res
     del problem, data, res
     phase_resume_radio(device, card, zero)
     counts_p = phase_kernel_parts(device, zero)
@@ -1499,6 +1906,7 @@ def main() -> int:
     phase_sparse_visual(device, card, zero)
     phase_profiling(device, card, lowrank, rate4)
     phase_cli(device, card, zero)
+    phase_mesh(device, card, zero, problem8, res8)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

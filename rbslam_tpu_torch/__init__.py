@@ -23,6 +23,8 @@ data      trajectories, GP field draws, dataset simulation, the sparse
 metrics   Procrustes-aligned position, orientation, path and map RMSE
 workloads dense-mag, dense-radio, mag-localization and sparse-visual
           problems, GPU profilers
+parallel  the (particles, map) mesh on torch.distributed: sharded
+          resampling, map-axis algebra, process-group bootstrap
 utils     problem construction from numpy arrays
 """
 

@@ -39,6 +39,10 @@ products need full precision (the JAX package forces it after silent NaN
 weights on the TPU), so on a CUDA device the sparse path refuses to run
 with TF32 matmuls on.
 
+Under a device mesh (``mesh``, parallel/) the xla path runs on each
+rank's particles and covariance rows with explicit collectives; see
+:func:`run_rbpf` for what a rank's result holds.
+
 Randomness enters through one seam: per step the resampling uniforms
 (one ``u0`` for systematic, N for multinomial and stratified) and one
 [N, model.n_noise] standard normal for the dynamics, drawn from
@@ -132,18 +136,91 @@ def _check_supported(model, config: RBPFConfig, mesh) -> None:
             f"unknown kf_kernel {config.kf_kernel!r}: expected 'xla', "
             "'block_gather' or 'lowrank'"
         )
+    if mesh is not None and config.kf_kernel != "xla":
+        raise ValueError(
+            "the KF kernel paths are single-device; use kf_kernel='xla' "
+            "with mesh"
+        )
+    if mesh is not None and config.joseph:
+        raise ValueError("the Joseph form is single-device (the map-axis "
+                         "update has none); use joseph=False with mesh")
+    if config.dist_resampling not in ("replicated_cdf", "prefix", "local"):
+        raise ValueError(
+            f"unknown dist_resampling {config.dist_resampling!r}: expected "
+            "'replicated_cdf', 'prefix' or 'local'")
     if config.resampling not in _SCHEMES:
         raise ValueError(f"unknown resampling scheme {config.resampling!r}; "
                          f"options: {sorted(_SCHEMES)}")
     if config.cov_dtype not in _DTYPES:
         raise ValueError(f"cov_dtype must be one of {sorted(_DTYPES)}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded filtering is not ported yet (ROADMAP queue 1 "
-            "item 4)"
-        )
     if isinstance(model, SparseModel) and config.cov_dtype != "float32":
         raise ValueError("sparse models carry the covariance in float32")
+
+
+class Ensemble:
+    """The particle axis of a whole ensemble held by one process: the
+    reductions, gathers and resampling of the filters and smoothers.
+    parallel/sharded.py::ShardedEnsemble runs the same methods on a rank's
+    block of particles, with collectives; ``map`` is then the map axis of
+    the [nl, nl] matrices (parallel/map_axis.py), here None (whole rows).
+    """
+
+    map = None
+    map_rows = slice(None)   # this process's rows of the [nl, nl] matrices
+
+    def __init__(self, n_particles: int):
+        self.n = self.n_local = n_particles
+        self.start = 0
+
+    def local(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This process's particles of a global tensor (along ``axis``)."""
+        return x
+
+    def whole(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """The global tensor from every process's particles."""
+        return x
+
+    def whole_rows(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Every map row block of ``x`` concatenated along ``axis``."""
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Complete a sum over particles."""
+        return x
+
+    def normalize(self, logw: torch.Tensor):
+        """Log-sum-exp normalization over the ensemble: (w, logw_n, logZ)
+        of this process's particles and the whole normalized vector."""
+        w, logw_n, logz = logsumexp_normalize(logw)
+        return w, logw_n, logz, logw_n
+
+    def take(self, x: torch.Tensor, ai: torch.Tensor) -> torch.Tensor:
+        """Rows of the ancestors ``ai`` (global indices) of this process's
+        children."""
+        return x[ai]
+
+    def rows_at(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows of the global particles ``idx`` (1-D), on every process,
+        without a host read."""
+        return x.index_select(0, idx)
+
+    def row(self, x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        """Row of global particle ``i`` (0-d tensor)."""
+        return self.rows_at(x, i.reshape(1))[0]
+
+    def top_and_mean(self, x, w, logw_all):
+        """x of the particle with the largest weight (the first such) and
+        the weighted mean of x."""
+        return _row_at_max(x, logw_all), torch.sum(x * w[:, None], dim=0)
+
+    def u_shape(self, scheme: str) -> tuple:
+        """Shape of one step's resampling uniforms (global)."""
+        return () if scheme == "systematic" else (self.n,)
+
+    def resample(self, u, w, scheme: str):
+        """Ancestors (int32, global) of this process's children and the
+        log-weights they restart from (None: the uniform -log N)."""
+        return resample_indices(u, w, self.n, scheme).to(torch.int32), None
 
 
 def refuse_tf32(device, what: str) -> None:
@@ -201,10 +278,13 @@ def _dynamics_batch(model, w, xn, u, dt, Q):
                         for i in range(xn.shape[0])])
 
 
-def _check_noise(noise, T, n_p, n_noise, resampling, extra=()):
-    """Shapes of injected draws: u [T-1] (systematic) or [T-1, N], w
-    [T-1, N, n_noise], then ``extra`` shapes for any further entries."""
-    u_shape = () if resampling == "systematic" else (n_p,)
+def _check_noise(noise, T, n_p, n_noise, resampling, extra=(),
+                 u_shape=None):
+    """Shapes of injected draws: u [T-1] (systematic) or [T-1, N] (or
+    [T-1, *u_shape]), w [T-1, N, n_noise], then ``extra`` shapes for any
+    further entries."""
+    if u_shape is None:
+        u_shape = () if resampling == "systematic" else (n_p,)
     want = [(T - 1,) + u_shape, (T - 1, n_p, n_noise), *extra]
     got = [tuple(a.shape) for a in noise]
     if got != want:
@@ -231,8 +311,24 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     the xla path NaN becomes 0 and, for a dense model, the mask is
     ignored, as the JAX package's dense update does. A sparse model masks
     the update with ``mask`` [T, ny] (1 = observed), by default
-    ``isfinite(y)``. ``mesh`` raises NotImplementedError naming the
-    ROADMAP item that ports it.
+    ``isfinite(y)``.
+
+    ``mesh`` (parallel.make_mesh: a DeviceMesh with dims ("particles",
+    "map")) runs the xla path on this rank's block of N/S_p particles and
+    of n_lin/S_map covariance rows, with ``config.dist_resampling``
+    (parallel/resampling.py) and explicit collectives; the kernel paths
+    and the Joseph form raise ValueError. Every rank passes the same
+    arguments: the same ``noise``, or a generator seeded the same, from
+    which it draws the global tensors and keeps its own rows (with
+    ``dist_resampling="local"``, u is [T-1, S_p] for systematic: one
+    uniform a particle shard). Result on every rank: ``traj_max``,
+    ``traj_mean``, ``traj_sample_iwmax``, ``xl_max``, ``xl_mean``,
+    ``P_max``, ``P_mean``, ``ess``, ``log_evidence`` and ``chol_retries``
+    are those of the whole ensemble, as the unsharded run's; ``xn``,
+    ``xl``, ``logw``, the columns of ``ancestors`` (global indices),
+    ``xn_hist`` and ``xn_traj`` are the rank's particles, and ``P`` its
+    particles' row block [N/S_p, n_lin/S_map, n_lin]
+    (parallel.gather_particles collects them).
     """
     _check_supported(model, config, mesh)
     sparse = isinstance(model, SparseModel)
@@ -279,6 +375,13 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     Q, dt = _broadcast_time(Q, dt, T, device)
     R = _as(R, device)
     dn, n_noise = model.n_nonlin, model.n_noise
+    if mesh is None:
+        ens = Ensemble(n_p)
+    else:
+        from ..parallel.sharded import ShardedEnsemble
+
+        ens = ShardedEnsemble(n_p, mesh, model.n_lin,
+                              config.dist_resampling)
 
     def dense_update(t, xn, xl, P, symmetrize_out):
         """Step t's measurement update (the xla path): the dense update
@@ -287,38 +390,42 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         if sparse:
             yhat, H = model.measure(xn, xl)
             return kalman_update_masked_batched(
-                yhat, H, P, xl, y[t], R, mask[t], config.jitter)
+                yhat, H, P, xl, y[t], R, mask[t], config.jitter, ens.map)
         return kalman_update_dense_batched(
             _pad_last(_jacobian_batch(model, xn), P.shape[-1]), P, xl, y[t],
-            R, config.jitter, config.joseph, symmetrize_out=symmetrize_out)
+            R, config.jitter, config.joseph, symmetrize_out=symmetrize_out,
+            axis=ens.map)
 
-    u_shape = () if config.resampling == "systematic" else (n_p,)
+    u_shape = ens.u_shape(config.resampling)
     if noise is None and generator is None:
         raise ValueError("give a torch.Generator or injected noise")
     if noise is not None:
         u_all, w_all = (_as(a, device) for a in noise)
-        _check_noise((u_all, w_all), T, n_p, n_noise, config.resampling)
+        _check_noise((u_all, w_all), T, n_p, n_noise, config.resampling,
+                     u_shape=u_shape)
 
     def draw(t):
+        """Step t's uniforms (global) and this process's dynamics normals."""
         if noise is not None:
-            return u_all[t], w_all[t]
+            return u_all[t], ens.local(w_all[t])
         u = torch.rand(u_shape, generator=generator, device=device)
         w = torch.randn((n_p, n_noise), generator=generator, device=device)
-        return u, w
+        return u, ens.local(w)
 
     gated = config.ess_threshold < 1.0
 
-    def resample(u, logw_n):
-        """Ancestors (int32) of this step, or None where the ESS gate
-        keeps the particles (one device-to-host read per step)."""
-        if gated and not bool(ess_from_logw(logw_n)
+    def resample(u, logw_n, logw_all):
+        """(ancestors (int32), restart log-weights) of this step; (None,
+        None) where the ESS gate keeps the particles (one device-to-host
+        read per step, the same on every rank)."""
+        if gated and not bool(ess_from_logw(logw_all)
                                <= config.ess_threshold * n_p):
-            return None
-        ai = resample_indices(u, torch.exp(logw_n), n_p, config.resampling)
-        return ai.to(torch.int32)
+            return None, None
+        return ens.resample(u, torch.exp(logw_n), config.resampling)
 
-    xn0 = _as(x0_nonlin, device).expand(n_p, -1).contiguous()
+    xn0 = ens.local(_as(x0_nonlin, device).expand(n_p, -1)).contiguous()
     xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
+    xl0 = ens.local(xl0)
     n_lin = xl0.shape[-1]
     cov_dtype = _DTYPES[config.cov_dtype]
     if (not lowrank and cov_dtype == torch.bfloat16 and n_lin > 256
@@ -337,47 +444,54 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         xl0 = _pad_last(xl0, nl_pad)
         pad = nl_pad - n_lin
         P0 = torch.nn.functional.pad(P0, (0, pad, 0, pad))
-    P0 = P0.expand((n_p,) + P0.shape)
+    P0 = P0[ens.map_rows]
+    P0 = P0.expand((ens.n_local,) + P0.shape)
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
     xl, P, logw1, retried0 = dense_update(
         0, xn0, xl0, P0, block_gather or lowrank or config.symmetrize_cov)
     del P0
     retries = retried0.sum()
-    w1, logw1n, logz0 = logsumexp_normalize(logw1)
-    logw_n = logw1n
+    w1, logw1n, logz0, logw1_all = ens.normalize(logw1)
+    logw_n, logw_all = logw1n, logw1_all
     log_np = math.log(n_p)
 
     n_steps = T - 1
-    ar = torch.arange(n_p, dtype=torch.int32, device=device)
-    ancestors = torch.empty((n_steps, n_p), dtype=torch.int32, device=device)
+    n_loc = ens.n_local
+    ar = torch.arange(ens.start, ens.start + n_loc, dtype=torch.int32,
+                      device=device)
+    ancestors = torch.empty((n_steps, n_loc), dtype=torch.int32,
+                            device=device)
     traj_max_t = torch.empty((n_steps, dn), device=device)
     traj_mean_t = torch.empty((n_steps, dn), device=device)
     ess_t = torch.empty((n_steps,), device=device)
     logz_t = torch.empty((n_steps,), device=device)
-    xn_hist = (torch.empty((T, n_p, dn), device=device)
+    xn_hist = (torch.empty((T, n_loc, dn), device=device)
                if config.store_trajectories else None)
     if xn_hist is not None:
         xn_hist[0] = xn0
     xn = xn0
 
-    def record(t, ai, logw, logw_n):
+    def record(t, ai, logw_prev, logw, logw_n):
         """Weights and per-step outputs of step t; returns the normalized
-        log-weights. A step that resampled reset the carried weights to
-        -log N, so its update's logw is the new weight as it stands."""
+        log-weights, this process's and the whole vector. A step that
+        resampled to the uniform reset (logw_prev None: -log N) takes its
+        update's logw as the new weight as it stands; one that did not
+        carries logw_n, and the island resampler log W_o - log n_local."""
         if ai is not None:
             ancestors[t] = ai
         else:
             ancestors[t] = ar
-            logw = logw_n + log_np + logw
-        w_new, logw_n, logz = logsumexp_normalize(logw)
-        traj_max_t[t] = _row_at_max(xn, logw_n)
-        traj_mean_t[t] = torch.sum(xn * w_new[:, None], dim=0)
-        ess_t[t] = ess_from_logw(logw_n)
+            logw_prev = logw_n
+        if logw_prev is not None:
+            logw = logw_prev + log_np + logw
+        w_new, logw_n, logz, logw_all = ens.normalize(logw)
+        traj_max_t[t], traj_mean_t[t] = ens.top_and_mean(xn, w_new, logw_all)
+        ess_t[t] = ess_from_logw(logw_all)
         logz_t[t] = logz - log_np
         if xn_hist is not None:
             xn_hist[t + 1] = xn
-        return logw_n
+        return logw_n, logw_all
 
     if lowrank:
         # --- low-rank factored covariance loop ------------------------
@@ -392,7 +506,7 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             bidx = ar
             for phase in range(length):
                 u, w_dyn = draw(t)
-                ai = resample(u, logw_n)
+                ai, logw_prev = resample(u, logw_n, logw_all)
                 xn_a, xl_a = xn, xl
                 if ai is not None:
                     xn_a, xl_a = xn[ai], xl[ai]
@@ -411,7 +525,7 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 # particles, not rows): write the new rows in place
                 Wt[:, ny * phase:ny * phase + ny] = wnew
                 retries = retries + bad.sum()
-                logw_n = record(t, ai, logw, logw_n)
+                logw_n, logw_all = record(t, ai, logw_prev, logw, logw_n)
                 t += 1
             P_base = kf_rebase(bidx, Wt, P_base)
         P = P_base
@@ -419,8 +533,9 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         # --- dense per-step loop: xla or block_gather -------------------
         for t in range(n_steps):
             u, w_dyn = draw(t)
-            ai = resample(u, logw_n)
-            xn_a, xl_a = (xn, xl) if ai is None else (xn[ai], xl[ai])
+            ai, logw_prev = resample(u, logw_n, logw_all)
+            xn_a, xl_a = ((xn, xl) if ai is None
+                          else (ens.take(xn, ai), ens.take(xl, ai)))
             xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
             if block_gather:
                 # K5 gathers the pre-resampling P itself
@@ -431,46 +546,49 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 )
             else:
                 xl, P, logw, bad = dense_update(
-                    t + 1, xn, xl_a, P if ai is None else P[ai],
+                    t + 1, xn, xl_a, P if ai is None else ens.take(P, ai),
                     config.symmetrize_cov)
             retries = retries + bad.sum()
-            logw_n = record(t, ai, logw, logw_n)
+            logw_n, logw_all = record(t, ai, logw_prev, logw, logw_n)
 
     # prepend step-0 outputs
-    traj_max = torch.cat([_row_at_max(xn0, logw1n)[None], traj_max_t])
-    traj_mean = torch.cat(
-        [torch.sum(xn0 * w1[:, None], dim=0)[None], traj_mean_t]
-    )
-    ess = torch.cat([ess_from_logw(logw1n)[None], ess_t])
+    top0, mean0 = ens.top_and_mean(xn0, w1, logw1_all)
+    traj_max = torch.cat([top0[None], traj_max_t])
+    traj_mean = torch.cat([mean0[None], traj_mean_t])
+    ess = torch.cat([ess_from_logw(logw1_all)[None], ess_t])
     log_evidence = (logz0 - log_np) + torch.sum(logz_t)
 
+    iw_max = torch.argmax(logw_all)
     if xn_hist is not None:
-        xn_traj = reconstruct_trajectories(xn_hist, ancestors)
+        xn_traj = reconstruct_trajectories(ens.whole(xn_hist, 1),
+                                           ens.whole(ancestors, 1))
+        traj_sample_iwmax = xn_traj.index_select(1, iw_max.reshape(1))[:, 0]
+        xn_traj = ens.local(xn_traj, 1)
     else:
         xn_hist = torch.zeros((0,), device=device)
-        xn_traj = torch.zeros((0,), device=device)
+        xn_traj = traj_sample_iwmax = torch.zeros((0,), device=device)
 
     xl_f = xl[..., :n_lin]
-    P_f = P[..., :n_lin, :n_lin]
+    P_f = P[..., :n_lin]
+    if nl_pad != n_lin:
+        P_f = P_f[:, :n_lin]
     if config.store_trajectories:
         P_f = P_f.to(f32)
     w_f = torch.exp(logw_n)
-    iw_max = torch.argmax(logw_n)
-    xl_mean = torch.sum(xl_f * w_f[:, None], dim=0)
+    xl_mean = ens.sum(torch.sum(xl_f * w_f[:, None], dim=0))
     dev = xl_mean[None, :] - xl_f
-    P_mean = _weighted_sum(w_f.to(P_f.dtype), P_f) + torch.einsum(
-        "p,pi,pj->ij", w_f, dev, dev
-    )
+    P_mean = ens.whole_rows(
+        ens.sum(_weighted_sum(w_f.to(P_f.dtype), P_f))
+        + ens.sum(torch.einsum("p,pi,pj->ij", w_f, dev[:, ens.map_rows], dev)),
+        0)
     return RBPFResult(
         traj_max=traj_max,
         traj_mean=traj_mean,
-        xl_max=xl_f[iw_max],
+        xl_max=ens.row(xl_f, iw_max),
         xl_mean=xl_mean,
-        P_max=P_f[iw_max].to(f32),
+        P_max=ens.whole_rows(ens.row(P_f, iw_max).to(f32), 0),
         P_mean=P_mean,
-        traj_sample_iwmax=(
-            xn_traj[:, iw_max] if config.store_trajectories else xn_traj
-        ),
+        traj_sample_iwmax=traj_sample_iwmax,
         xn_traj=xn_traj,
         xn_hist=xn_hist,
         ancestors=ancestors,
@@ -480,7 +598,7 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         P=P_f,
         ess=ess,
         log_evidence=log_evidence,
-        chol_retries=retries,
+        chol_retries=ens.sum(retries),
     )
 
 

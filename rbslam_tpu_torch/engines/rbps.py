@@ -31,8 +31,9 @@ or [N_K, T-1, N], w [N_K, T-1, N, n_noise], u_anc [N_K, T-1], u_pick [N_K].
 With ``checkpoint_dir`` each sweep ends by saving the kept trajectory, the
 outputs so far and the generator's state (``utils/checkpoint.py``); a call
 given a directory that holds checkpoints resumes after the latest one, and
-its result equals an unbroken run's bit for bit. A device mesh is not
-ported: it raises NotImplementedError naming its ROADMAP item.
+its result equals an unbroken run's bit for bit. As in the JAX package,
+``run_rbps`` takes no device mesh; the information-form smoother does
+(engines/rbps_info.py).
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from ..ops.resampling import _SCHEMES, resample_indices, sample_categorical
 from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .rbpf import (
     _DTYPES,
+    Ensemble,
     _as,
     _broadcast_time,
     _check_noise,
@@ -288,25 +290,29 @@ def _cpf_as_sweep(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
 
 
 def _finish_sweep(xn_hist, ancestors, logw_f, xl_f, P_f, ess, retries,
-                  draws: SweepDraws) -> SweepOut:
+                  draws: SweepDraws, ens: Optional[Ensemble] = None,
+                  retries_shared=0) -> SweepOut:
     """Rebuild the trajectories and sample the one that is kept, with its
-    map (:346-354)."""
-    xn_traj = reconstruct_trajectories(xn_hist, ancestors)
+    map (:346-354). ``logw_f`` is the whole ensemble's final normalized
+    log-weight vector; with a sharded ``ens`` the other per-particle
+    arguments are the rank's block, ``retries`` its particles' count and
+    ``retries_shared`` the count of the factorizations every rank did
+    alike."""
+    if ens is None:
+        ens = Ensemble(logw_f.shape[0])
+    xn_traj = reconstruct_trajectories(ens.whole(xn_hist, 1),
+                                       ens.whole(ancestors, 1))
     ak = sample_categorical(draws.pick(), torch.exp(logw_f)).reshape(1)
     return SweepOut(
         xnk=xn_traj.index_select(1, ak)[:, 0],
-        xlk=xl_f.index_select(0, ak)[0],
-        Pk=P_f.index_select(0, ak)[0].to(torch.float32),
-        ess=ess, retries=retries, ancestors=ancestors, kept=ak[0],
+        xlk=ens.row(xl_f, ak[0]),
+        Pk=ens.whole_rows(ens.row(P_f, ak[0]).to(torch.float32), 0),
+        ess=ess, retries=ens.sum(retries) + retries_shared,
+        ancestors=ancestors, kept=ak[0],
     )
 
 
-def _check_supported(model, config: RBPSConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded smoothing is not ported yet (ROADMAP queue 1 "
-            "item 4)"
-        )
+def _check_supported(model, config: RBPSConfig) -> None:
     if isinstance(model, SparseModel) and config.cov_dtype != "float32":
         raise ValueError("sparse models carry the covariance in float32")
     if config.resampling not in _SCHEMES:
@@ -427,7 +433,7 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
 def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
              config: RBPSConfig, *, generator: Optional[torch.Generator],
              device, noise=None, mask=None,
-             checkpoint_dir: Optional[str] = None, mesh=None) -> RBPSResult:
+             checkpoint_dir: Optional[str] = None) -> RBPSResult:
     """Run N_K CPF-AS sweeps on ``device`` (src/particleSmoother.m:88).
 
     dx [T-1, n_u]; y [T, ny] (NaN becomes 0); Q [nw, nw] or [T-1, nw, nw];
@@ -444,7 +450,7 @@ def run_rbps(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     dense-mag T=192, ny=3 config) use
     :func:`rbslam_tpu_torch.engines.rbps_info.run_rbps_information_form`.
     """
-    _check_supported(model, config, mesh)
+    _check_supported(model, config)
     if isinstance(model, SparseModel):
         refuse_tf32(device, "the sparse (masked EKF) smoother")
         y = _as(y, device)

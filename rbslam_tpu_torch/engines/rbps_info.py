@@ -35,10 +35,17 @@ formed as [N, nl, nl] float32 temporaries before the subtraction in the
 storage dtype, which keeps the reference's rounding points; with bf16
 storage, W and P are also promoted to float32 copies for their
 contractions. Fusing those passes is left to a kernel.
+
+With a device ``mesh`` (parallel/) each rank runs its block of particles
+and holds a row block of P and of Imat (or W) over the ``map`` axis; the
+ancestor weights, the resampling CDF and the reference particle's
+ancestor draw come from the whole ensemble's log-weights, gathered, and
+the reference particle (the last) lives on the last particle rank.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -55,9 +62,11 @@ from ..ops.kalman import (
     _inv_from_chol_small_batched,
     kalman_update_dense_batched_hld,
 )
-from ..ops.resampling import resample_indices, sample_categorical
+from ..ops.resampling import sample_categorical
+from ..parallel.map_axis import quad_partial
 from .rbpf import (
     _DTYPES,
+    Ensemble,
     _dynamics_batch,
     _init_linear,
     _jacobian_batch,
@@ -79,22 +88,28 @@ _F32 = torch.float32
 
 
 def _info_future_log_weights(ivec, Imat, P, halfLogDetP, ivec_add, Imat_add,
-                             jitter):
+                             jitter, axis=None):
     """Ancestor measurement weights, information form (:224-236), batched
     over the ensemble (one [N, nl, nl] Cholesky; storage dtypes are
-    promoted to float32 for the factorization). Returns (logw, retried)."""
+    promoted to float32 for the factorization). With a map ``axis``, Imat
+    and P are row blocks; the matrix to factor is gathered whole on every
+    rank of the ``map`` group. Returns (logw, retried)."""
+    rows = slice(None) if axis is None else axis.rows
     # no symmetrize: the factorization reads only the lower triangle
-    Imat_end = Imat.to(_F32) + Imat_add[None]
+    Imat_end = Imat.to(_F32) + Imat_add[None, rows]
+    if axis is not None:
+        Imat_end = axis.gather(Imat_end, 1)
     L, retried = psd_cholesky(Imat_end, jitter)
     v = tril_solve(L, ivec + ivec_add[None])
-    Pv = torch.einsum("pij,pj->pi", P.to(_F32), ivec)
-    quad0 = torch.sum(ivec * Pv, dim=-1)
+    quad0 = quad_partial(ivec, P, axis)
+    if axis is not None:
+        quad0 = axis.reduce(quad0)
     logw = (-0.5 * quad0 - halfLogDetP - half_logdet(L)
             + 0.5 * torch.sum(v * v, dim=-1))
     return logw, retried
 
 
-def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
+def _woodbury_rank_ny(W, hldM, U, sign: float, jitter, axis=None):
     """Exact rank-ny update of (W = M^-1, hldM = 0.5 log|M|) under
     M' = M + sign * U U' (sign = +1 update / -1 downdate).
 
@@ -106,12 +121,17 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
     U [N, nl, ny]; W [N, nl, nl] in its storage dtype. G is float32; the
     correction is the sum over l = 0..ny-1, in that order, of broadcast
     outer products in float32, cast to W's dtype before the subtraction.
-    Returns (W', hldM', retried).
+    With a map ``axis`` W is this rank's row block [N, nl/S, nl]: G's rows
+    are local, Bpos is completed by one all-reduce and the correction's
+    other factor by one all-gather of G (the collectives of
+    parallel/map_axis.py). Returns (W', hldM', retried).
     """
     ny = U.shape[-1]
+    rows = slice(None) if axis is None else axis.rows
     G = torch.einsum("pij,pjk->pik", W.to(_F32), U)
+    B = torch.einsum("pji,pjk->pik", U[:, rows], G)
     Bpos = torch.eye(ny, dtype=_F32, device=U.device) \
-        + sign * torch.einsum("pji,pjk->pik", U, G)
+        + sign * (B if axis is None else axis.reduce(B))
     if ny <= 3:
         L, retried = _chol_small_batched(Bpos, jitter)
         Binv = _inv_from_chol_small_batched(L)
@@ -121,42 +141,49 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter):
             torch.eye(ny, dtype=_F32, device=U.device).expand_as(L), L)
     hldM_new = hldM + half_logdet(L)
     GB = torch.einsum("pik,pkl->pil", G, Binv)
+    G_all = G if axis is None else axis.gather(G, 1)
     corr = sum(
-        GB[..., l][:, :, None] * G[..., l][:, None, :] for l in range(ny)
+        GB[..., l][:, :, None] * G_all[..., l][:, None, :] for l in range(ny)
     )
     W_new = W - (sign * corr).to(W.dtype)
     return W_new, hldM_new, retried
 
 
-def _woodbury_future_log_weights(ivec, W, P, hldp, hldM, ivec_add):
+def _woodbury_future_log_weights(ivec, W, P, hldp, hldM, ivec_add,
+                                 axis=None):
     """Ancestor measurement weights from the maintained inverse:
     :func:`_info_future_log_weights` with chol(Imat_end) replaced by
     (W, hldM): logw = -1/2 ivec'P ivec - hldp - hldM
-    + 1/2 (ivec+ivecAdd)' W (ivec+ivecAdd)."""
+    + 1/2 (ivec+ivecAdd)' W (ivec+ivecAdd). With a map ``axis`` (W and P
+    row blocks) both quadratic forms share one all-reduce of [N, 2]."""
     ivec_end = ivec + ivec_add[None]
-    Wv = torch.einsum("pij,pj->pi", W.to(_F32), ivec_end)
-    quadW = torch.sum(ivec_end * Wv, dim=-1)
-    Pv = torch.einsum("pij,pj->pi", P.to(_F32), ivec)
-    quad0 = torch.sum(ivec * Pv, dim=-1)
+    quads = torch.stack([quad_partial(ivec_end, W, axis),
+                         quad_partial(ivec, P, axis)])
+    if axis is not None:
+        quads = axis.reduce(quads)
+    quadW, quad0 = quads[0], quads[1]
     return -0.5 * quad0 - hldp - hldM + 0.5 * quadW
 
 
 def _kf_info_update_batched(C, P, xl, ivec, Imat, hldp, y_t, R, Rinv,
                             half_logdet_R, jitter, joseph,
-                            symmetrize_out=True, update_imat=True):
+                            symmetrize_out=True, update_imat=True,
+                            axis=None):
     """Whole-ensemble KF update + information-pair update (:316-335) and
     halfLogDetP recursion (:298). C [N, ny, nl]; P and Imat may be stored
     in a reduced dtype (accumulation stays float32). ``update_imat=False``
     passes the Imat slot through untouched (the Woodbury form carries W
-    there and maintains it separately). Returns
+    there and maintains it separately). With a map ``axis`` P and Imat
+    are row blocks (ops/kalman.py). Returns
     (xl', P', ivec', Imat', hldp', logw, retried)."""
     xl_new, P_new, logw, retried, hld_S = kalman_update_dense_batched_hld(
-        C, P, xl, y_t, R, jitter, joseph, symmetrize_out
+        C, P, xl, y_t, R, jitter, joseph, symmetrize_out, axis
     )
     CtRinv = torch.einsum("pki,kl->pil", C, Rinv)            # [N, nl, ny]
     ivec_new = ivec + torch.einsum("pil,l->pi", CtRinv, y_t)
     if update_imat:
-        dI = torch.einsum("pil,plj->pij", CtRinv, C)
+        rows = slice(None) if axis is None else axis.rows
+        dI = torch.einsum("pil,plj->pij", CtRinv[:, rows], C)
         Imat_new = Imat + dI.to(Imat.dtype)
     else:
         Imat_new = Imat
@@ -167,28 +194,42 @@ def _kf_info_update_batched(C, P, xl, ivec, Imat, hldp, y_t, R, Rinv,
 
 def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 config: RBPSConfig, xnk, is_first: bool,
-                draws: SweepDraws) -> SweepOut:
+                draws: SweepDraws, mesh=None) -> SweepOut:
     """One information-form sweep over tensors already on the run's device
-    (see engines/rbps.py::_cpf_as_sweep for the arguments)."""
+    (see engines/rbps.py::_cpf_as_sweep for the arguments), on this rank's
+    particles and map rows where ``mesh`` is given."""
     n_p = config.n_particles
     T, ny = y.shape
     device = y.device
     n_lin = model.n_lin
     cov_dtype = _DTYPES[config.cov_dtype]
     Rinv = torch.linalg.inv(R)
+    if mesh is None:
+        ens = Ensemble(n_p)
+    else:
+        from ..parallel.sharded import ShardedEnsemble
 
-    xn = x0_nonlin.expand(n_p, -1).clone()
-    if not is_first:
-        xn[n_p - 1] = xnk[0]
+        ens = ShardedEnsemble(n_p, mesh, n_lin)
+    axis, rows, n_loc = ens.map, ens.map_rows, ens.n_local
+    # the reference particle (the last) on this process: its local index
+    ref = n_p - 1 - ens.start
+    has_ref = 0 <= ref < n_loc
+
+    xn = ens.local(x0_nonlin.expand(n_p, -1)).clone()
+    if not is_first and has_ref:
+        xn[ref] = xnk[0]
     xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
+    xl0 = ens.local(xl0)
 
     # initial information pair; P0 treated as diagonal (:110-115)
     p0_diag = torch.diagonal(P0_lin)
     Imat0_single = torch.diag(1.0 / p0_diag)
     ivec0 = xl0 / p0_diag[None, :]
-    hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_p)
-    P0 = P0_lin.to(cov_dtype).expand(n_p, n_lin, n_lin)
-    Imat0 = Imat0_single.to(cov_dtype).expand(n_p, n_lin, n_lin)
+    hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_loc)
+    P0 = P0_lin.to(cov_dtype)[rows]
+    P0 = P0.expand((n_loc,) + P0.shape)
+    Imat0 = Imat0_single.to(cov_dtype)[rows]
+    Imat0 = Imat0.expand((n_loc,) + Imat0.shape)
     half_logdet_R = 0.5 * torch.linalg.slogdet(R)[1]
 
     woodbury = config.ancestor_form == "woodbury"
@@ -223,7 +264,7 @@ def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         return (C,) + _kf_info_update_batched(
             C, P, xl, ivec, Imat, hldp, y_t, R, Rinv, half_logdet_R,
             config.jitter, config.joseph, config.symmetrize_cov,
-            update_imat=not use_wood,
+            update_imat=not use_wood, axis=axis,
         )
 
     # t = 0
@@ -231,13 +272,15 @@ def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         xn, xl0, P0, ivec0, Imat0, hldp0, y[0]
     )
     retries = retried0.sum()
-    _, logw_n, _ = logsumexp_normalize(logw1)
+    # factorizations every process does alike (counted once)
+    retries_shared = torch.zeros((), dtype=retries.dtype, device=device)
+    _, logw_n, _, logw_all = ens.normalize(logw1)
 
     if use_wood:
         # W(1) = (Imat(0 post) + ImatAdd_[1:T))^-1. All rows of xn are the
         # broadcast initial state except the pinned reference particle
         # (the last), so two nl x nl factorizations cover the ensemble.
-        C2 = torch.stack([C0[0], C0[n_p - 1]])               # [2, ny, nl]
+        C2 = ens.rows_at(C0, torch.tensor([0, n_p - 1], device=device))
         D2 = torch.einsum("pki,kl,plj->pij", C2, Rinv, C2)
         Add1 = Imat_add - C_ref[0].T @ Rinv @ C_ref[0]
         M2 = Imat0_single[None] + D2 + Add1[None]
@@ -245,25 +288,25 @@ def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         W2 = torch.cholesky_solve(
             torch.eye(n_lin, device=device).expand(2, n_lin, n_lin), L2)
         hld2 = half_logdet(L2)
-        Imat = W2[0].to(cov_dtype).expand(n_p, n_lin, n_lin).clone()
-        Imat[n_p - 1] = W2[1].to(cov_dtype)
-        hldM = hld2[0].expand(n_p).clone()
-        hldM[n_p - 1] = hld2[1]
-        retries = retries + retried_w1.sum()
+        Imat = W2[0, rows].to(cov_dtype).expand(n_loc, -1, -1).clone()
+        hldM = hld2[0].expand(n_loc).clone()
+        if has_ref:
+            Imat[ref] = W2[1, rows].to(cov_dtype)
+            hldM[ref] = hld2[1]
+        retries_shared = retries_shared + retried_w1.sum()
     else:
-        hldM = torch.zeros((n_p,), device=device)
+        hldM = torch.zeros((n_loc,), device=device)
 
-    xn_hist = torch.empty((T, n_p, xn.shape[-1]), device=device)
+    xn_hist = torch.empty((T, n_loc, xn.shape[-1]), device=device)
     xn_hist[0] = xn
-    ancestors = torch.empty((T - 1, n_p), dtype=torch.int32, device=device)
+    ancestors = torch.empty((T - 1, n_loc), dtype=torch.int32, device=device)
     ess = torch.empty((T,), device=device)
-    ess[0] = _ess(logw_n)
+    ess[0] = _ess(logw_all)
 
     for t in range(1, T):
         i = t - 1
         u_res, w_dyn, u_anc = draws.step(i)
-        ai = resample_indices(u_res, torch.exp(logw_n), n_p,
-                              config.resampling)
+        ai, _ = ens.resample(u_res, torch.exp(logw_n), config.resampling)
         if not is_first:
             if precomp:
                 ivec_add = ivec_adds[t]
@@ -278,40 +321,45 @@ def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i], dt[i], Q[i])
             if use_wood:
                 logw_meas = _woodbury_future_log_weights(
-                    ivec, Imat, P, hldp, hldM, ivec_add
+                    ivec, Imat, P, hldp, hldM, ivec_add, axis
                 )
             else:
                 logw_meas, retried = _info_future_log_weights(
-                    ivec, Imat, P, hldp, ivec_add, Imat_add, config.jitter
+                    ivec, Imat, P, hldp, ivec_add, Imat_add, config.jitter,
+                    axis
                 )
                 retries = retries + retried.sum()
-            pa, _, _ = logsumexp_normalize(logw_n + logw_dyn + logw_meas)
-            ai[n_p - 1] = sample_categorical(u_anc, pa)
+            pa_all = ens.normalize(logw_n + logw_dyn + logw_meas)[3]
+            anc = sample_categorical(u_anc, torch.exp(pa_all))
+            if has_ref:
+                ai[ref] = anc
 
-        xn = _dynamics_batch(model, w_dyn, xn[ai], dx[i], dt[i], Q[i])
-        if not is_first:
-            xn[n_p - 1] = xnk[t]
-        hldM = hldM[ai]
+        xn = _dynamics_batch(model, ens.local(w_dyn), ens.take(xn, ai),
+                             dx[i], dt[i], Q[i])
+        if not is_first and has_ref:
+            xn[ref] = xnk[t]
+        hldM = ens.take(hldM, ai)
         C_t, xl, P, ivec, Imat, hldp, logw, retried_kf = meas_all(
-            xn, xl[ai], P[ai], ivec[ai], Imat[ai], hldp[ai], y[t]
+            xn, ens.take(xl, ai), ens.take(P, ai), ens.take(ivec, ai),
+            ens.take(Imat, ai), ens.take(hldp, ai), y[t]
         )
         retries = retries + retried_kf.sum()
         if use_wood:
             # W: M(t) -> M(t+1) = M(t) + C_t' R^-1 C_t - C_ref' R^-1 C_ref
             U = torch.einsum("pki,km->pim", C_t, RiT)
             Imat, hldM, r_u = _woodbury_rank_ny(Imat, hldM, U, 1.0,
-                                                config.jitter)
-            Vb = (C_ref[t].T @ RiT)[None].expand(n_p, n_lin, ny)
+                                                config.jitter, axis)
+            Vb = (C_ref[t].T @ RiT)[None].expand(n_loc, n_lin, ny)
             Imat, hldM, r_d = _woodbury_rank_ny(Imat, hldM, Vb, -1.0,
-                                                config.jitter)
+                                                config.jitter, axis)
             retries = retries + r_u.sum() + r_d.sum()
-        _, logw_n, _ = logsumexp_normalize(logw)
+        _, logw_n, _, logw_all = ens.normalize(logw)
         xn_hist[t] = xn
         ancestors[i] = ai
-        ess[t] = _ess(logw_n)
+        ess[t] = _ess(logw_all)
 
-    return _finish_sweep(xn_hist, ancestors, logw_n, xl, P, ess, retries,
-                         draws)
+    return _finish_sweep(xn_hist, ancestors, logw_all, xl, P, ess, retries,
+                         draws, ens, retries_shared)
 
 
 def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
@@ -323,16 +371,36 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
     """N_K information-form CPF-AS sweeps on ``device`` (dense features
     only, :77-80). Arguments, ``generator`` and ``noise`` as
     :func:`rbslam_tpu_torch.engines.rbps.run_rbps`; ``mask`` is ignored
-    (dense models have no visibility masking)."""
+    (dense models have no visibility masking).
+
+    ``mesh`` (parallel.make_mesh) shards each sweep's ensemble over its
+    ("particles", "map") dims: N/S_p particles and n_lin/S_map rows of P
+    and Imat (or W) a rank. Every rank passes the same arguments (the
+    same ``noise``, or a generator seeded the same, whose global draws it
+    cuts to its particles). Result on every rank: XNK, XLK, PK, ess,
+    chol_retries and kept are the whole run's, equal to the unsharded
+    run's; ``ancestors`` holds the rank's particles' columns (global
+    indices). Checkpoints (``checkpoint_dir``) and the Joseph form are
+    single-process and raise ValueError with a mesh.
+    """
     del mask
     if not isinstance(model, DenseModel):
         raise ValueError(
             "the information-form smoother supports dense features only "
             "(as the reference, src/particleSmootherInformationForm.m:77-80);"
             " use run_rbps for sparse models")
-    _check_supported(model, config, mesh)
+    _check_supported(model, config)
+    if mesh is not None:
+        from ..parallel.sharded import ShardedEnsemble
+
+        if checkpoint_dir is not None or config.joseph:
+            raise ValueError("per-sweep checkpoints and the Joseph form are "
+                             "single-process; drop them or the mesh")
+        # the particles and the map rows divide over the mesh, or ValueError
+        ShardedEnsemble(config.n_particles, mesh, model.n_lin)
     refuse_tf32(device, "the information-form smoother (it maintains W "
                 "by cancellation)")
-    return _run_sweeps(_info_sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
+    sweep = _info_sweep if mesh is None else partial(_info_sweep, mesh=mesh)
+    return _run_sweeps(sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
                        Q, R, dt, config, generator, device, noise,
                        checkpoint_dir)

@@ -366,20 +366,28 @@ def _check_jac3d(consts: BasisConstants, pos, quat, nl_pad: int) -> int:
 
 def mag3d_jacobian_rows(consts: BasisConstants, pos: torch.Tensor,
                         quat: torch.Tensor, nl_pad: int,
-                        dtype=torch.float32) -> torch.Tensor:
+                        dtype=torch.float32, out=None) -> torch.Tensor:
     """Fused mag3d measurement Jacobian in rows layout (K1; replaces
     rbslam_tpu/kernels/basis_eval.py:_jac3d_rows_kernel).
 
     pos [N, 3] float32 (already centered), quat [N, 4] float32 unit
     quaternions -> C [N, 3, nl_pad] in ``dtype`` (float32 or bfloat16);
-    columns beyond 3 + m are zero.
+    columns beyond 3 + m are zero. ``out``: a contiguous, 16-byte aligned
+    tensor of that shape and dtype on the card to write C into (by default
+    a new one).
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
     n = _check_jac3d(consts, pos, quat, nl_pad)
     if _on_cpu(pos, consts):
         return mag3d_jacobian_rows_plain(consts, pos, quat, nl_pad, dtype)
-    out = torch.empty((n, 3, nl_pad), dtype=dtype, device=pos.device)
+    if out is None:
+        out = torch.empty((n, 3, nl_pad), dtype=dtype, device=pos.device)
+    elif (tuple(out.shape) != (n, 3, nl_pad) or out.dtype != dtype
+          or out.device != pos.device or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous 16-byte aligned "
+                         f"[{n}, 3, {nl_pad}] {dtype} tensor on {pos.device}")
     if out.numel() == 0:
         return out                      # nothing to launch, nothing counted
     plan = _basis_plan(True, n, 3, consts.m, nl_pad, out.element_size(),

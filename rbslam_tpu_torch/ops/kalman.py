@@ -23,6 +23,17 @@ leaves the Cholesky, the log-density (with n_obs = sum(mask)), the gain
 and the covariance update equal to the stripped computation. S is
 [N, M, M] with M the number of landmarks, so it is factored by
 :func:`psd_cholesky`, float32 throughout.
+
+Map axis (parallel/map_axis.py): given ``axis``, P is this rank's row
+block [N, nl/S, nl] of each covariance and the update returns the row
+block of P'. The contraction of P's last axis (C P' in the small form, P
+H' in the masked one) gives the rows of P C' whole on each rank, which one
+all-gather over the ``map`` group completes; the lax form contracts P's
+first axis, so its partial products are all-reduced. The gain, the
+weights and xl' are then whole on every rank, the downdate of the row
+block is local, and the symmetrization takes the row block of P'^T by one
+all-to-all of [N, nl/S, nl/S] tiles. With ``axis`` None, or one rank on
+``map``, the arithmetic is that of the unsharded update.
 """
 
 from __future__ import annotations
@@ -136,18 +147,19 @@ def _inv_from_chol_small_batched(L: torch.Tensor) -> torch.Tensor:
 
 def kalman_update_dense_batched(C, P, xl, y, R, jitter: float,
                                 joseph: bool = False,
-                                symmetrize_out: bool = True):
+                                symmetrize_out: bool = True, axis=None):
     """Whole-ensemble dense KF update: C [N,ny,nl], P [N,nl,nl] (any
-    storage dtype), xl [N,nl]. Returns (xl', P', logw [N], retried [N]).
+    storage dtype; the row block [N,nl/S,nl] with a map ``axis``), xl
+    [N,nl]. Returns (xl', P', logw [N], retried [N]).
     See :func:`kalman_update_dense_batched_hld`."""
     return kalman_update_dense_batched_hld(
-        C, P, xl, y, R, jitter, joseph, symmetrize_out
+        C, P, xl, y, R, jitter, joseph, symmetrize_out, axis
     )[:4]
 
 
 def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
                                     joseph: bool = False,
-                                    symmetrize_out: bool = True):
+                                    symmetrize_out: bool = True, axis=None):
     """As :func:`kalman_update_dense_batched` but additionally returns
     ``hld_S [N] = sum log diag chol(S)``, the innovation half-log-det that
     the information-form smoother's ``halfLogDetP`` recursion consumes
@@ -155,16 +167,28 @@ def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
     form, ny > 3 the lax form.
 
     The downdate is formed in float32 and subtracted in P's storage dtype,
-    and a float32 C against a bf16 P is promoted to float32.
+    and a float32 C against a bf16 P is promoted to float32. The Joseph
+    form takes the whole P (no map ``axis``).
     """
+    if joseph and axis is not None:
+        raise ValueError("the Joseph form has no map-axis (row block) form")
     if C.shape[1] <= 3:
         return _kalman_update_dense_batched_small(
-            C, P, xl, y, R, jitter, joseph, symmetrize_out)
+            C, P, xl, y, R, jitter, joseph, symmetrize_out, axis)
     return _kalman_update_dense_batched_lax(
-        C, P, xl, y, R, jitter, joseph, symmetrize_out)
+        C, P, xl, y, R, jitter, joseph, symmetrize_out, axis)
 
 
-def _finish(K, Cf, P, R, downdate, joseph, symmetrize_out):
+def _rows(axis):
+    """This rank's rows of the map axis (all rows without one)."""
+    return slice(None) if axis is None else axis.rows
+
+
+def _symmetrize(A, axis):
+    return symmetrize(A) if axis is None else axis.symmetrize(A)
+
+
+def _finish(K, Cf, P, R, downdate, joseph, symmetrize_out, axis=None):
     """P' from the gain: the Joseph form, or P minus the float32
     ``downdate()`` rounded to P's dtype; then the optional symmetrization."""
     f32 = torch.float32
@@ -176,19 +200,22 @@ def _finish(K, Cf, P, R, downdate, joseph, symmetrize_out):
     else:
         P_new = P - downdate().to(P.dtype)
     if symmetrize_out:
-        P_new = symmetrize(P_new)
+        P_new = _symmetrize(P_new, axis)
     return P_new.to(P.dtype)
 
 
 def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
-                                       symmetrize_out=True):
+                                       symmetrize_out=True, axis=None):
     """The ny <= 3 form: closed-form ny x ny algebra. As the reference
     path, the contractions use P's LAST axis (exact for the symmetric
-    covariance)."""
+    covariance), so a row block of P gives a column block of C P'."""
     f32 = torch.float32
     Cf = C.to(f32)
+    rows = _rows(axis)
     e = y[None, :] - torch.einsum("pij,pj->pi", Cf, xl.to(f32))
     CP = torch.einsum("pij,pkj->pik", Cf, P.to(f32))
+    if axis is not None:
+        CP = axis.gather(CP, 2)
     S = torch.einsum("pik,pjk->pij", CP, Cf) + R
     L, retried = _chol_small_batched(S, jitter)
     v = _tri_solve_small_batched(L, e)
@@ -202,25 +229,29 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
     def downdate():
         # P - K S K' == P - (CP)' Sinv (CP): rank-ny sum of broadcasts
         X = torch.einsum("pij,pjk->pik", Sinv, CP)
-        return sum(CP[:, j][:, :, None] * X[:, j][:, None, :]
+        return sum(CP[:, j][:, rows, None] * X[:, j][:, None, :]
                    for j in range(ny))
 
-    P_new = _finish(K, Cf, P, R, downdate, joseph, symmetrize_out)
+    P_new = _finish(K, Cf, P, R, downdate, joseph, symmetrize_out, axis)
     return xl_new, P_new, logw, retried, hld
 
 
 def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
-                                     symmetrize_out=True):
+                                     symmetrize_out=True, axis=None):
     """The ny > 3 form (rbslam_tpu/ops/kalman.py:292-324): the innovation
     covariance is factored by :func:`psd_cholesky` (per-particle jitter
     retry and Gershgorin repair) and the gain comes from two triangular
     solves. As written there, C P contracts P's FIRST matrix axis
     ('pij,pjk'), where the small form contracts its last; the two agree
-    for a symmetric P."""
+    for a symmetric P. With a map ``axis`` the row block of P gives a
+    partial C P, all-reduced."""
     f32 = torch.float32
     Cf = C.to(f32)
+    rows = _rows(axis)
     e = y[None, :] - torch.einsum("pij,pj->pi", Cf, xl.to(f32))
-    CP = torch.einsum("pij,pjk->pik", Cf, P.to(f32))
+    CP = torch.einsum("pij,pjk->pik", Cf[:, :, rows], P.to(f32))
+    if axis is not None:
+        CP = axis.reduce(CP)
     S = torch.einsum("pik,pjk->pij", CP, Cf) + R
     L, retried = psd_cholesky(S, jitter)
     logw = gaussian_logpdf_chol(e, L)
@@ -228,8 +259,9 @@ def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
     K = solve_psd(L, CP).transpose(-1, -2)                  # [N, nl, ny]
     xl_new = xl + torch.einsum("pij,pj->pi", K, e)
     P_new = _finish(
-        K, Cf, P, R, lambda: torch.einsum("pij,pjk,plk->pil", K, S, K),
-        joseph, symmetrize_out)
+        K, Cf, P, R,
+        lambda: torch.einsum("pij,pjk,plk->pil", K[:, rows], S, K),
+        joseph, symmetrize_out, axis)
     return xl_new, P_new, logw, retried, hld
 
 
@@ -256,22 +288,27 @@ def masked_log_weights(yhat, H, P, y, R, mask, jitter: float):
     return logw, e_m, L, Hm, retried
 
 
-def kalman_update_masked_batched(yhat, H, P, xl, y, R, mask, jitter: float):
+def kalman_update_masked_batched(yhat, H, P, xl, y, R, mask, jitter: float,
+                                 axis=None):
     """Whole-ensemble masked (sparse/EKF) update: yhat [N, ny], H
-    [N, ny, nl], P [N, nl, nl], xl [N, nl], y [ny] (NaN allowed), mask
-    [ny]. Returns (xl', P', logw [N], retried [N])."""
+    [N, ny, nl], P [N, nl, nl] (the row block [N, nl/S, nl] with a map
+    ``axis``), xl [N, nl], y [ny] (NaN allowed), mask [ny]. Returns
+    (xl', P', logw [N], retried [N])."""
     m = mask
+    rows = _rows(axis)
     Hm = H * m[None, :, None]
     e = (torch.nan_to_num(y)[None, :] - yhat) * m[None, :]
     R_m = R * (m[:, None] * m[None, :])
     PHt = P @ Hm.transpose(-1, -2)                       # [N, nl, ny]
+    if axis is not None:
+        PHt = axis.gather(PHt, 1)
     S = torch.einsum("pij,pjk->pik", Hm, PHt) + R_m + torch.diag(1.0 - m)
     L, retried = psd_cholesky(S, jitter)
     logw = gaussian_logpdf_chol(e, L, n_obs=torch.sum(m))
     K = solve_psd(L, PHt.transpose(-1, -2)).transpose(-1, -2)
     xl_new = xl + torch.einsum("pij,pj->pi", K, e)
-    P_new = P - K @ S @ K.transpose(-1, -2)
-    return xl_new, symmetrize(P_new), logw, retried
+    P_new = P - K[:, rows] @ S @ K.transpose(-1, -2)
+    return xl_new, _symmetrize(P_new, axis), logw, retried
 
 
 def kalman_update_masked(yhat, H, P, xl, y, R, mask, jitter: float):

@@ -3,7 +3,7 @@
     python -m rbslam_tpu_torch.workloads.profile_dense_mag \
         [--particles 16384] [--basis 125] [--steps 192] [--cov-dtype bfloat16] \
         [--kf-kernel lowrank] [--resampling systematic] [--ess 1.0] \
-        [--out profile.txt]
+        [--mesh] [--out profile.txt]
 
 Builds the flagship problem (bean_6D, seed 1), runs the filter on the
 chosen path once to warm up, three times for the best un-profiled wall
@@ -14,8 +14,12 @@ steps that resampled, the best un-profiled wall time, the syncs (all,
 and those at call sites hit at every step, which are the step loop's),
 the profiled run's wall time, the device time per kernel name (sum over
 the run), the device busy share (kernel + memcpy/memset time over wall
-time), and the device operations launched per step. Needs a CUDA device;
-there is no CPU mode.
+time), the device operations launched per step, the host time of the
+CUDA runtime calls by name, and the best of 3 un-profiled runs again
+after the profiled one. With ``--mesh`` (xla path) the filter runs
+on a mesh (1, 1) of a world-size-1 NCCL process group (parallel/), with
+every collective of the mesh path on groups of one rank. Needs a CUDA
+device; there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -108,7 +112,26 @@ def profile_lines(run_once, T: int) -> list[str]:
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {us / 1e3:10.3f} ms {n:7d}x {us / busy_us:6.3f}  "
                      f"{name[:110]}")
+    runtime = sorted((e for e in prof.key_averages()
+                      if e.key.startswith("cuda")),
+                     key=lambda e: -e.self_cpu_time_total)[:8]
+    lines.append("host time of CUDA runtime calls (count, total ms):")
+    lines += [f"  {e.self_cpu_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key}"
+              for e in runtime]
     return lines
+
+
+def _nccl_mesh():
+    """Mesh (1, 1) over a world-size-1 NCCL process group (a FileStore
+    rendezvous in a temporary directory)."""
+    import tempfile
+
+    from ..parallel import make_mesh
+
+    store = tempfile.mkdtemp()
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    return make_mesh(1, 1)
 
 
 def main(argv=None) -> int:
@@ -124,6 +147,8 @@ def main(argv=None) -> int:
                     choices=["systematic", "multinomial", "stratified"])
     ap.add_argument("--ess", type=float, default=1.0,
                     help="ESS threshold; below 1 resampling is ESS-gated")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run over a world-size-1 NCCL mesh (xla path)")
     ap.add_argument("--out", default=None, help="also write the report here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -139,11 +164,12 @@ def main(argv=None) -> int:
                      cov_dtype=args.cov_dtype, symmetrize_cov=False,
                      kf_kernel=args.kf_kernel, ess_threshold=args.ess)
     gen = torch.Generator(device=device)
+    mesh = _nccl_mesh() if args.mesh else None
 
     def run(seed):
         gen.manual_seed(seed)
         res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
-                       device=device)
+                       device=device, mesh=mesh)
         torch.cuda.synchronize()
         return res
 
@@ -154,18 +180,23 @@ def main(argv=None) -> int:
                                         dtype=a.dtype))
         for a in res.ancestors)
     del res
-    best = float("inf")
-    for seed in (2, 3, 4):
-        t0 = time.perf_counter()
-        run(seed)
-        best = min(best, time.perf_counter() - t0)
+    def best_of_3():
+        best = float("inf")
+        for seed in (2, 3, 4):
+            t0 = time.perf_counter()
+            run(seed)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    best = best_of_3()
     syncs = count_syncs(lambda: run(4))
     lines = [
         f"card: {card}",
         f"config: N_P={args.particles} m={args.basis} T={T} "
         f"{args.cov_dtype} {args.kf_kernel}"
         f"{' r=8' if args.kf_kernel == 'lowrank' else ''}, "
-        f"{args.resampling}, ess_threshold={args.ess}",
+        f"{args.resampling}, ess_threshold={args.ess}"
+        f"{', mesh (1, 1) over NCCL' if mesh is not None else ''}",
         f"resampled steps in the warm-up run: {resampled} of {T - 1}",
         f"without the profiler: best of 3 {best * 1e3:.3f} ms "
         f"({best * 1e3 / T:.4f} ms/step, "
@@ -173,6 +204,12 @@ def main(argv=None) -> int:
         *sync_report(syncs, T - 1),
         *profile_lines(lambda: run(1), T),
     ]
+    after = best_of_3()
+    lines.append(f"without the profiler, after the profiled run: best of 3 "
+                 f"{after * 1e3:.3f} ms ({after * 1e3 / T:.4f} ms/step, "
+                 f"{after / best:.3f}x the first best of 3)")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     report = "\n".join(lines)
     print(report)
     if args.out:

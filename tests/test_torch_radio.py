@@ -123,8 +123,18 @@ def test_phi_basis_matches_jax(d, m, n):
     port = phi_basis(pack_basis_constants(basis, "cpu"), t(x))
     ref = np.asarray(phi_basis_pallas(jhypercube_basis(m, L), jnp.asarray(x)))
     assert port.shape == (n, m) and port.dtype == torch.float32
-    np.testing.assert_allclose(port.numpy(), ref, atol=1e-4)
-    np.testing.assert_allclose(port.numpy(), ref, rtol=1e-5, atol=1e-5)
+    try:
+        np.testing.assert_allclose(port.numpy(), ref, atol=1e-4)
+        np.testing.assert_allclose(port.numpy(), ref, rtol=1e-5, atol=1e-5)
+    except AssertionError as e:
+        # say which side moved: both against a float64 evaluation
+        exact = basis.phi(t(x).double()).numpy()
+        far = {side: float(np.abs(v.astype(np.float64) - exact).max())
+               for side, v in (("port", port.numpy()), ("jax", ref))}
+        raise AssertionError(
+            f"{e}\nmax |value - float64 evaluation|: port {far['port']:.3e}"
+            f", jax {far['jax']:.3e} (the side further from it moved)"
+        ) from None
     # and the basis' own evaluation (another rounding of the phase)
     np.testing.assert_allclose(port.numpy(), basis.phi(t(x)).numpy(),
                                rtol=1e-4, atol=1e-5)

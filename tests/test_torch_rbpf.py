@@ -327,8 +327,10 @@ def test_dense_ny4_filter_matches_jax(slice_run, kf_kernel, symmetrize_cov,
 
 @pytest.mark.parametrize("case", ["mesh", "sparse_model"])
 def test_unported_paths_raise(slice_run, case):
-    """What the port does not have yet raises, naming its ROADMAP item: a
-    mesh, for a dense model and for a sparse (EKF-linearized) one."""
+    """A mesh with a KF kernel path (here lowrank) raises ValueError, for a
+    dense model and for a sparse (EKF-linearized) one, as the JAX package
+    does: the kernel paths are single-device (the mesh path itself:
+    tests/test_torch_parallel.py)."""
     from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
 
     prob = slice_run["prob"]
@@ -336,7 +338,7 @@ def test_unported_paths_raise(slice_run, case):
     kw = {"mesh": object()}
     if case == "sparse_model":
         args[0] = make_pinhole2d_model(PinholeCamera(1.5, 0.0, 1.0), 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="single-device"):
         run_rbpf(*args, _config(RBPFConfig), generator=None, device="cpu",
                  noise=slice_run["noise"], **kw)
 
@@ -445,7 +447,8 @@ def test_package_never_imports_jax():
         assert len(prof["rows"]) == 27
         from rbslam_tpu_torch import __main__ as cli
         from rbslam_tpu_torch.data import simulate_dense_dataset
-        from rbslam_tpu_torch.engines import RBPSConfig, run_rbps
+        from rbslam_tpu_torch.engines import (
+            RBPSConfig, run_rbps, run_rbps_information_form)
         from rbslam_tpu_torch.utils import latest_step, phase_annotation
         from rbslam_tpu_torch.utils import trace_to
         tmp = tempfile.mkdtemp()
@@ -468,6 +471,25 @@ def test_package_never_imports_jax():
             m_sim=16, traj_kwargs={"n_laps": 1, "dpsi_deg": 45.0},
             generator=torch.Generator().manual_seed(0))
         assert data.grid["f"].shape == (10000,) and data.dx.shape == (7, 2)
+        import torch.distributed as dist
+        from rbslam_tpu_torch.parallel import (
+            collective_counts, gather_particles, make_mesh)
+        dist.init_process_group("gloo", init_method="file://" + tmp
+                                + "/store", rank=0, world_size=1)
+        mesh = make_mesh(1, 1, device_type="cpu")
+        for mode in ("replicated_cdf", "prefix", "local"):
+            res = run_rbpf(*prob.rbpf_args(),
+                           RBPFConfig(n_particles=4, resampling="systematic",
+                                      dist_resampling=mode),
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu", mesh=mesh)
+            assert gather_particles(res, mesh).P.shape == (4, 16, 16)
+        res = run_rbps_information_form(
+            *radio.rbpf_args(), RBPSConfig(4, 2),
+            generator=torch.Generator().manual_seed(0), device="cpu",
+            mesh=mesh)
+        assert res.XNK.shape[0] == 2 and collective_counts()["all_gather"]
+        dist.destroy_process_group()
         if importlib.util.find_spec("matplotlib") is not None:
             from rbslam_tpu_torch.viz import plot_trajectories
             plot_trajectories(tmp + "/t.png", truth=data.pos)

@@ -576,10 +576,12 @@ def test_dense_ny4_cpf_as_matches_jax(mag):
 @pytest.mark.parametrize("case", ["sparse_model", "checkpoint_dir", "mesh"])
 def test_unported_smoother_paths_raise(mag, mag_noise, entry, case,
                                        tmp_path):
-    """What the port does not have yet raises, naming its ROADMAP item: a
-    mesh, for a dense model and (run_rbps) for a sparse one; the
-    information form takes dense features only and rejects a sparse model,
-    as the JAX package does. Per-sweep checkpoints are ported: a run with
+    """``run_rbps`` takes no mesh, as the JAX package's (a TypeError, for a
+    dense model and a sparse one); ``run_rbps_information_form`` takes one
+    and refuses particles that do not divide over it (15 on 2 gloo ranks;
+    the mesh path itself: tests/test_torch_parallel.py). The information
+    form takes dense features only and rejects a sparse model, as the JAX
+    package does. Per-sweep checkpoints are ported: a run with
     ``checkpoint_dir`` saves one a sweep and returns the run's result
     (tests/test_torch_checkpoint.py holds the resume)."""
     from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
@@ -604,7 +606,16 @@ def test_unported_smoother_paths_raise(mag, mag_noise, entry, case,
                 fn(*args, _mag_config(RBPSConfig), generator=None,
                    device="cpu", noise=mag_noise)
             return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+    if entry == "run_rbps_information_form":
+        from torch_ranks import Ranks
+
+        ranks = Ranks(tmp_path / "ranks", 2, (2, 1), ["info_size_mismatch"],
+                      {}).results()
+        for rank in ranks:
+            assert "15 particles do not divide over 2 'particles' ranks" \
+                in rank["info_size_mismatch"]
+        return
+    with pytest.raises(TypeError, match="mesh"):
         fn(*args, _mag_config(RBPSConfig), generator=None, device="cpu",
            noise=mag_noise, mesh=object())
 
