@@ -92,16 +92,28 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 18. the mesh path (rbslam_tpu_torch/parallel) over a world-size-1 NCCL
     process group and mesh (1, 1): the headline xla filter with each
     dist_resampling mode against the unsharded run (K4 = 192, the
-    collectives counted, particle-steps/s beside the unsharded run's),
-    the information-form smoother at phase 8's cell against phase 8's
-    result (K4 = 578), the sharded resamplers at 2^20 particles and the
-    map-axis Woodbury transition and quadratic form (see phase_mesh).
+    collectives counted, particle-steps/s beside the unsharded run's;
+    local twice, bit-equal), and with joseph=True unsharded and on the
+    mesh; the information-form smoother at phase 8's cell against phase
+    8's result (K4 = 578), and with checkpoints, 2 sweeps and a resume to
+    3, bit-equal to its unbroken mesh run; the resamplers' CDF call to
+    call (its bits must not move) beside a plain 1-D torch.cumsum, the
+    resamplers at N = 100, 16384 and 2^20 against a second call of
+    themselves (0 flips), and the map-axis Woodbury transition and
+    quadratic form (see phase_mesh);
+19. the one-particle dense Kalman update (joseph off and on) against rows
+    of the batched one at the headline shape, no kernel launched;
+20. reported, not gated: the headline lowrank filter with stratified
+    resampling under an ESS gate of 0.5, and the mag3d smoother with
+    suffix_precompute=False: ms/step, RMSE beside the odometry's, and
+    whether two calls are bit-equal.
 
-Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 sets
-every launch count to 0 just before it and reads the counts just after;
-the counts must be exactly those of its path (none for 12-14, which are
-plain PyTorch, as the JAX package's paths are plain XLA). No phase
-imports the viz package: the card's machine has no matplotlib.
+Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19
+and 20 sets every launch count to 0 just before it and reads the counts
+just after; the counts must be exactly those of its path (none for
+12-14 and 19, which are plain PyTorch, as the JAX package's paths are
+plain XLA). No phase imports the viz package: the card's machine has no
+matplotlib.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on its main path, its error and time against its plain version,
@@ -115,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import glob
 import io
 import json
@@ -1533,6 +1546,23 @@ def knife_edges(u, w, scheme, out, ref, tol=5e-7):
     return int(d.sum()), float(dist.max())
 
 
+def plain_resample(u, w, n, scheme):
+    """The stratified or multinomial resampler as it summed before the
+    fixed-order CDF: a plain 1-D torch.cumsum, whose order on the card
+    may change from call to call (the control of phase 18c)."""
+    cdf = torch.cumsum(w, dim=0)
+    cdf = cdf / cdf[-1]
+    q = u[:n] if scheme == "multinomial" else \
+        (torch.arange(n, dtype=w.dtype, device=w.device) + u[:n]) / n
+    return torch.clamp(torch.searchsorted(cdf, q, right=True), 0,
+                       w.shape[0] - 1)
+
+
+def fmt_stats(stats):
+    """'median (least-most)' of time_alternately's milliseconds."""
+    return f"{stats[0]:.4f} ({stats[1]:.4f}-{stats[2]:.4f})"
+
+
 def mesh_counts(n_steps, mode, symmetrize=False):
     """The collectives of one run_rbpf call on the xla path over a mesh
     (engines/rbpf.py, parallel/): per step the resampler's (replicated_cdf:
@@ -1574,8 +1604,8 @@ def info_mesh_counts(T, n_sweeps):
     return out
 
 
-def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=192, n_res=1 << 20, n_wood=100,
-               nl_wood=512):
+def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
+               T=192, n_res=1 << 20, n_wood=100, nl_wood=512, cdf_calls=20):
     """Phase 18: the mesh path (rbslam_tpu_torch/parallel) on this card, a
     world-size-1 NCCL process group (FileStore rendezvous in a
     temporary directory, destroyed at the end of the phase) and mesh (1,
@@ -1589,28 +1619,41 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
         to the first knife-edge flip and traj_mean within 1e-5 of its
         scale before it; local: every child on its shard and the position
         RMSE below the dead-reckoned odometry's; K4 = 192 and the
-        collectives (mesh_counts) per run; particle-steps/s best of 3 beside
-        the unsharded run's.
+        collectives (mesh_counts) per run; particle-steps/s of one timed
+        call beside the unsharded run's best of 3.
+        A second local run of the same seed is bit-equal to the first.
+        Then joseph=True (ops/kalman.py's row-block Joseph form), unsharded
+        and on the mesh, the mesh run against the unsharded one as
+        prefix's, ms/step beside the runs without it.
     (b) run_rbps_information_form at phase 8's cell (woodbury, f32, seed
         0) against phase 8's unsharded result: XNK 1e-4, XLK 1e-3; K4 =
-        578.
-    (c) sharded_resample_indices, both modes and three schemes at N =
-        2^20 against resample_indices: index for index but for knife-edge
-        flips, whose count is printed beside that of resample_indices
-        against a second call of itself.
+        578. Then 2 sweeps with a checkpoint directory and a resume to 3
+        (a generator seeded otherwise): every field bit-equal to that
+        mesh run, K4 = 578 for the pair.
+    (c) the CDF of ops/resampling.py (_cumsum_1d) at 100 to 2^24 entries,
+        twenty more calls each: its bits must not move (a plain 1-D
+        torch.cumsum's moves are printed beside it); resample_indices
+        stratified and multinomial at N = 100, 16384 and 2^20 against a
+        second call of itself: 0 flips (the plain cumsum's inverse CDF
+        printed beside it, and timed in turns with it at 2^20); at 2^20
+        each scheme's resample_indices and sharded_resample_local against
+        a second call (0 flips), and sharded_resample_indices in both
+        modes against resample_indices (replicated_cdf 0 flips, prefix
+        knife edges only) and against a second call of itself (0).
     (d) woodbury_rank_ny_rowsharded and quad_form_rowsharded at N=100,
         nl=512 against rbps_info._woodbury_rank_ny and v' W v.
     """
     import torch.distributed as dist
 
     from rbslam_tpu_torch.engines.rbps_info import _woodbury_rank_ny
-    from rbslam_tpu_torch.ops.resampling import resample_indices
+    from rbslam_tpu_torch.ops.resampling import _cumsum_1d, resample_indices
     from rbslam_tpu_torch.parallel import (
         collective_counts,
         make_mesh,
         quad_form_rowsharded,
         reset_collective_counts,
         sharded_resample_indices,
+        sharded_resample_local,
         woodbury_rank_ny_rowsharded,
     )
     from rbslam_tpu_torch.parallel.mesh import all_gather
@@ -1633,22 +1676,41 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
         gen = torch.Generator(device=device)
         expect_k = {**zero, "grad_basis": T}
 
-        def run(mode, seed):
+        def run(mode, seed, joseph=False):
             gen.manual_seed(seed)
             cfg = filter_config(n_particles, "bfloat16", "xla")._replace(
-                dist_resampling=mode or "replicated_cdf")
+                dist_resampling=mode or "replicated_cdf", joseph=joseph)
             res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
                            device=device, mesh=mesh if mode else None)
             sync(device)
             return res
 
-        def best_rate(mode):
+        def best_rate(mode, joseph=False, repeats=3):
             best = float("inf")
-            for i in range(3):
+            for i in range(repeats):
                 t0 = time.perf_counter()
-                run(mode, i + 1)
+                run(mode, i + 1, joseph)
                 best = min(best, time.perf_counter() - t0)
             return n_particles * T / best, best / T * 1e3
+
+        def flips_note(res, ref):
+            """(ok, note): ancestors equal up to the first knife-edge flip
+            (room for 0.5 % of the entries, each at most 8 indices away) and
+            traj_mean within 1e-5 of its scale up to there."""
+            ok, s0, differ = first_flip_ok(res.ancestors, ref.ancestors,
+                                           max(2, n_particles // 200), 8)
+            upto = T if s0 is None else s0 + 1
+            scale = float(ref.traj_mean[:upto].abs().max())
+            d = float((res.traj_mean[:upto] - ref.traj_mean[:upto])
+                      .abs().max())
+            where = ("equal at every step" if s0 is None else
+                     f"equal up to step {s0}, then {int(differ[s0])} entries")
+            note = (f"ancestors {where}"
+                    f" ({int((differ > 0).sum())} of {T - 1} steps "
+                    f"differ); max|d traj_mean| {d:.3e} up to there "
+                    f"(scale {scale:.3e}, tol 1e-5 of it); bit-equal "
+                    f"traj_mean: {torch.equal(res.traj_mean, ref.traj_mean)}")
+            return ok and d <= 1e-5 * scale, note
 
         def rmse(path):
             return float(torch.sqrt(torch.mean(torch.sum(
@@ -1693,39 +1755,71 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
                 if not bool(((anc >= 0) & (anc < n_particles)).all()):
                     raise AssertionError("local: a child left its shard")
                 # the accuracy guard (PERF.md §2): better than dead
-                # reckoning; the island comb's cumsum is summed in another
-                # order on each call, so the run is not reproducible bit
-                # for bit and its RMSE varies from call to call
+                # reckoning; and a second call of the same seed gives the
+                # same run (the island comb's CDF sums in a fixed order)
+                again = run(mode, 0)
+                same = (torch.equal(again.traj_mean, res.traj_mean)
+                        and torch.equal(again.ancestors, res.ancestors))
+                del again
                 r, r_odo = rmse(res.traj_mean), rmse(odo)
                 d = float((res.traj_mean[:, :3] - ref.traj_mean[:, :3])
                           .abs().max())
                 note = (f"every child on its shard; position RMSE {r:.4f} m "
                         f"(unsharded {rmse(ref.traj_mean):.4f}, odometry "
                         f"{r_odo:.4f}: guard, below it); max|d position| "
-                        f"from the unsharded run {d:.4f} m")
-                if not (math.isfinite(r) and r < r_odo):
+                        f"from the unsharded run {d:.4f} m; a second call: "
+                        f"traj_mean and ancestors bit-equal {same}")
+                if not (math.isfinite(r) and r < r_odo and same):
                     raise AssertionError(f"local: {note}")
             else:
-                # the CDF is summed in another order (prefix): room for
-                # 0.5 % of the entries, each at most 8 indices away
-                ok, s0, differ = first_flip_ok(res.ancestors, ref.ancestors,
-                                               max(2, n_particles // 200), 8)
-                upto = T if s0 is None else s0 + 1
-                scale = float(ref.traj_mean[:upto].abs().max())
-                d = float((res.traj_mean[:upto] - ref.traj_mean[:upto])
-                          .abs().max())
-                note = (f"ancestors {'equal at every step' if s0 is None else f'equal up to step {s0}, then {int(differ[s0])} entries'}"
-                        f" ({int((differ > 0).sum())} of {T - 1} steps "
-                        f"differ); max|d traj_mean| {d:.3e} up to there "
-                        f"(scale {scale:.3e}, tol 1e-5 of it); bit-equal "
-                        f"traj_mean: {torch.equal(res.traj_mean, ref.traj_mean)}")
-                if not (ok and d <= 1e-5 * scale):
+                # the CDF is summed in another order (prefix)
+                ok, note = flips_note(res, ref)
+                if not ok:
                     raise AssertionError(f"{mode}: {note}")
-            rate, ms = best_rate(mode)
-            log(f"[18a] {mode}: {note}; best of 3 {rate:.1f} particle-steps/s"
-                f" ({ms:.4f} ms/step; unsharded {rate_ref:.1f}, "
-                f"{ms_ref:.4f} ms/step: {ms / ms_ref:.3f}x) on {card}")
-        del problem, data, ref, res
+            rate, ms = best_rate(mode, repeats=1)
+            log(f"[18a] {mode}: {note}; one timed call {rate:.1f} "
+                f"particle-steps/s ({ms:.4f} ms/step; unsharded "
+                f"{rate_ref:.1f}, {ms_ref:.4f} ms/step: {ms / ms_ref:.3f}x) "
+                f"on {card}")
+            if mode == "replicated_cdf":
+                ms_mesh = ms
+
+        # (a') the Joseph form, unsharded and then on the mesh (its row-block
+        # form, ops/kalman.py::_finish): the same launches and collectives,
+        # the mesh run against the unsharded one as replicated_cdf above
+        jref = None
+        for mode in (None, "replicated_cdf"):
+            reset_launch_counts()
+            reset_collective_counts()
+            res = run(mode, 0, joseph=True)
+            counts, coll = launch_counts(), collective_counts()
+            check_result(res, T, n_particles, problem.potential.n_lin)
+            if counts != expect_k:
+                raise AssertionError(f"Joseph: launch counts {counts} != "
+                                     f"{expect_k}")
+            if mode is None:
+                jref = res
+                note = (f"position RMSE {rmse(res.traj_mean):.4f} m (without "
+                        f"Joseph {rmse(ref.traj_mean):.4f}, odometry "
+                        f"{rmse(odo):.4f})")
+                if not rmse(res.traj_mean) < rmse(odo):
+                    raise AssertionError(f"Joseph: {note}")
+            else:
+                want = mesh_counts(T - 1, mode)[1]
+                if coll != want:
+                    raise AssertionError(f"Joseph collectives {coll} != "
+                                         f"{want}")
+                ok, note = flips_note(res, jref)
+                note = f"against the unsharded Joseph run: {note}"
+                if not ok:
+                    raise AssertionError(f"Joseph on the mesh: {note}")
+            rate, ms = best_rate(mode, joseph=True, repeats=1)
+            base = ms_ref if mode is None else ms_mesh
+            log(f"[18a] joseph=True {mode or 'unsharded'}: launches {counts}; "
+                f"{note}; one timed call {rate:.1f} particle-steps/s "
+                f"({ms:.4f} ms/step; without Joseph {base:.4f}: "
+                f"{ms / base:.3f}x) on {card}")
+        del problem, data, ref, res, jref
 
         # (b) the information-form smoother at phase 8's cell
         cfg = RBPSConfig(n_particles=100, n_sweeps=3, resampling="systematic",
@@ -1760,27 +1854,88 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
         want = info_mesh_counts(T8, cfg.n_sweeps)
         if coll != want:
             raise AssertionError(f"collectives {coll} != {want}")
+        # (b') per-sweep checkpoints on the mesh: 2 sweeps, then a resume to
+        # 3 with a generator seeded otherwise, bit-equal to the run above
+        res_ck, t_first, t_resume, counts = resumed_run(
+            device, functools.partial(run_rbps_information_form, mesh=mesh),
+            problem8.rbpf_args(), cfg, 2, 0, expect_s)
+        assert_bit_equal("[18b] the resumed mesh smoother", res_ck, out)
+        log(f"[18b] on the mesh, 2 sweeps with checkpoints {t_first:.3f} s + "
+            f"a resume to 3 {t_resume:.3f} s = {t_first + t_resume:.3f} s "
+            f"(unbroken {wall:.3f} s) on {card}; every field bit-equal to "
+            f"the unbroken mesh run; launches {counts}")
+        del res_ck
 
-        # (c) the sharded resamplers at the terrain PF's size
+        # (c) the CDF every resampler sums with (ops/resampling.py::
+        # _cumsum_1d), call to call, beside a plain 1-D torch.cumsum: its
+        # bits must not move; then the resamplers, each against a second
+        # call of itself (0 flips), and the sharded ones at 2^20
         g = torch.Generator(device=device).manual_seed(18)
+        for n in (100, 1000, 4095, 4096, 16384, n_res, 1 << 24):
+            x = torch.rand(n, generator=g, device=device)
+            first_new, first_old = _cumsum_1d(x), torch.cumsum(x, dim=0)
+            moved_new = sum(not torch.equal(_cumsum_1d(x), first_new)
+                            for _ in range(cdf_calls))
+            moved_old = sum(not torch.equal(torch.cumsum(x, dim=0), first_old)
+                            for _ in range(cdf_calls))
+            log(f"[18c] the CDF of {n} uniforms, {cdf_calls} more calls: its "
+                f"bits moved in {moved_new} (a plain 1-D torch.cumsum's in "
+                f"{moved_old})")
+            if moved_new:
+                raise AssertionError(f"the CDF of {n} entries moved")
+        del x, first_new, first_old
+        for n in (100, 16384, n_res):
+            w = torch.softmax(2 * torch.randn(n, generator=g, device=device),
+                              dim=0)
+            for scheme in ("stratified", "multinomial"):
+                u = torch.rand(n, generator=g, device=device)
+                ai = resample_indices(u, w, n, scheme)
+                flips = knife_edges(u, w, scheme,
+                                    resample_indices(u, w, n, scheme), ai)[0]
+                old = plain_resample(u, w, n, scheme)
+                flips_old, dist_old = knife_edges(
+                    u, w, scheme, plain_resample(u, w, n, scheme), old)
+                note = (f"[18c] resample_indices {scheme} N={n} against a "
+                        f"second call: {flips} flips (the plain cumsum's "
+                        f"inverse CDF: {flips_old}, largest distance "
+                        f"{dist_old:.2e})")
+                if n == n_res:
+                    t = time_alternately({
+                        "plain": lambda: plain_resample(u, w, n, scheme),
+                        "fixed": lambda: resample_indices(u, w, n, scheme)},
+                        device)
+                    note += (f"; a call {fmt_stats(t['fixed'])} ms (the "
+                             f"plain cumsum's {fmt_stats(t['plain'])} ms, in "
+                             f"turns) on {card}")
+                log(note)
+                if flips:
+                    raise AssertionError(f"resample_indices {scheme} N={n} "
+                                         "is not reproducible")
         w = torch.softmax(2 * torch.randn(n_res, generator=g, device=device),
                           dim=0)
         for scheme in ("systematic", "stratified", "multinomial"):
             u = torch.rand(() if scheme == "systematic" else (n_res,),
                            generator=g, device=device)
             ref_ai = resample_indices(u, w, n_res, scheme)
-            # the control: the unsharded resampler against itself (a
-            # float scan on the card may sum in another order each call)
-            again, dist_again = knife_edges(
-                u, w, scheme, resample_indices(u, w, n_res, scheme), ref_ai)
-            log(f"[18c] resample_indices {scheme} N={n_res} against itself: "
-                f"{again} knife-edge flips (largest distance {dist_again:.2e})")
+            again = knife_edges(u, w, scheme,
+                                resample_indices(u, w, n_res, scheme),
+                                ref_ai)[0]
+            island = sharded_resample_local(u, w, mesh, scheme)[0]
+            island_again = knife_edges(
+                u, w, scheme, sharded_resample_local(u, w, mesh, scheme)[0],
+                island)[0]
+            log(f"[18c] {scheme} N={n_res}, a second call: resample_indices "
+                f"{again} flips, sharded_resample_local {island_again}")
+            if again or island_again:
+                raise AssertionError(f"{scheme}: a second call flipped")
             for mode in ("replicated_cdf", "prefix"):
                 reset_collective_counts()
                 out_ai = sharded_resample_indices(u, w, mesh, scheme, mode)
                 sync(device)
                 flips, dist_max = knife_edges(u, w, scheme, out_ai, ref_ai)
                 coll = collective_counts()
+                own = knife_edges(u, w, scheme, sharded_resample_indices(
+                    u, w, mesh, scheme, mode), out_ai)[0]
                 t_sh = time_ms(lambda: sharded_resample_indices(
                     u, w, mesh, scheme, mode), device)
                 t_1 = time_ms(lambda: resample_indices(u, w, n_res, scheme),
@@ -1788,13 +1943,16 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
                 log(f"[18c] sharded_resample_indices {mode} {scheme} N="
                     f"{n_res}: {flips} knife-edge flips against "
                     f"resample_indices (largest distance of a flipped comb "
-                    f"position from a CDF step {dist_max:.2e}, tol 5e-7); "
-                    f"collectives {coll}; {t_sh:.4f} ms a call against "
-                    f"{t_1:.4f} ms unsharded")
+                    f"position from a CDF step {dist_max:.2e}, tol 5e-7), "
+                    f"{own} against a second call of itself; collectives "
+                    f"{coll}; {t_sh:.4f} ms a call against {t_1:.4f} ms "
+                    f"unsharded")
                 if dist_max > 5e-7 or flips > n_res // 20:
                     raise AssertionError(f"{mode} {scheme}: a flip is not a "
                                          "knife edge")
-        del w, u, ref_ai, out_ai
+                if own or (mode == "replicated_cdf" and flips):
+                    raise AssertionError(f"{mode} {scheme}: not reproducible")
+        del w, u, ref_ai, out_ai, island
 
         # (d) the map-axis Woodbury transition and quadratic form
         g = torch.Generator(device=device).manual_seed(19)
@@ -1830,6 +1988,125 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125, T=1
             raise AssertionError("the map-axis functions disagree")
     finally:
         dist.destroy_process_group()
+
+
+def phase_kalman_one_particle(device, zero, n=16384, nl=128, ny=3,
+                              rows=(0, 1, 4097, 16383)):
+    """Phase 19: ops.kalman_update_dense (one particle; psd_cholesky and
+    two triangular solves) with joseph off and on, on the card, against
+    row i of kalman_update_dense_batched (the closed-form ny = 3 algebra)
+    at the headline shape (N=16384, n_lin=128, f32) for a few i: xl', P'
+    and logw within 1e-4 of each output's scale, retried equal. No
+    kernel launches."""
+    from rbslam_tpu_torch.ops import (
+        kalman_update_dense,
+        kalman_update_dense_batched,
+    )
+
+    g = torch.Generator(device=device).manual_seed(20)
+    A = torch.randn((n, nl, nl), generator=g, device=device)
+    P = A @ A.transpose(1, 2) / nl + torch.eye(nl, device=device)
+    del A
+    C = 0.5 * torch.randn((n, ny, nl), generator=g, device=device)
+    xl = torch.randn((n, nl), generator=g, device=device)
+    y = torch.randn(ny, generator=g, device=device)
+    R = 0.5 * torch.eye(ny, device=device)
+    reset_launch_counts()
+    worst = {}
+    for joseph in (False, True):
+        batched = kalman_update_dense_batched(C, P, xl, y, R, 1e-3, joseph)
+        for i in rows:
+            one = kalman_update_dense(C[i], P[i], xl[i], y, R, 1e-3, joseph)
+            if bool(one[3]) != bool(batched[3][i]):
+                raise AssertionError(f"row {i}: retried differs")
+            for name, a, b in zip(("xl", "P", "logw"), one, batched):
+                b = b[i]
+                err = float((a - b).abs().max()) / max(
+                    float(b.abs().max()), 1.0)
+                worst[joseph, name] = max(worst.get((joseph, name), 0.0), err)
+        del batched
+    counts = launch_counts()
+    log(f"[19] kalman_update_dense against rows {list(rows)} of "
+        f"kalman_update_dense_batched, N={n} n_lin={nl} ny={ny} f32: largest "
+        f"error over the scale "
+        + ", ".join(f"{name} (joseph={j}) {e:.2e}"
+                    for (j, name), e in worst.items())
+        + f" (tol 1e-4); launches {counts}")
+    if counts != zero:
+        raise AssertionError(f"launch counts {counts} != {zero}")
+    if max(worst.values()) > 1e-4:
+        raise AssertionError("the one-particle update disagrees")
+
+
+def phase_gates(device, card, zero, lowrank, problem8, data8, res8,
+                n_particles=16384, m=125, T=192):
+    """Phase 20, reported and not tuned: the headline lowrank filter
+    (phase 4) with stratified resampling under an ESS gate of 0.5, and the
+    mag3d information-form smoother at phase 8's cell with
+    suffix_precompute=False (the suffix pair downdated a step, :194-201);
+    each called twice with one seed: ms/step (the second call), position
+    RMSE beside the
+    odometry's (the smoother's aligned, of its last sweep), and whether
+    the calls are bit for bit equal. Launch counts those of phases 4 and
+    8."""
+    problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
+    gen = torch.Generator(device=device)
+    truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
+    odo = torch.as_tensor(data.odometry_path[:, :3], dtype=torch.float32,
+                          device=device)
+
+    def rmse(path):
+        return float(torch.sqrt(torch.mean(torch.sum((path - truth) ** 2,
+                                                     dim=-1))))
+
+    def calls(fn, expect, repeats):
+        """``repeats`` calls of fn (seed 0), the first counted; returns
+        (results, seconds of the best call after the first)."""
+        out, secs = [], []
+        for i in range(repeats):
+            reset_launch_counts()
+            gen.manual_seed(0)
+            t0 = time.perf_counter()
+            out.append(fn())
+            sync(device)
+            secs.append(time.perf_counter() - t0)
+            if i == 0 and launch_counts() != expect:
+                raise AssertionError(f"launch counts {launch_counts()} != "
+                                     f"{expect}")
+        return out, min(secs[1:])
+
+    cfg = filter_config(n_particles, "bfloat16", resampling="stratified",
+                        ess_threshold=0.5)
+    runs, best = calls(lambda: run_rbpf(*problem.rbpf_args(), cfg,
+                                        generator=gen, device=device),
+                       lowrank, repeats=2)
+    check_result(runs[0], T, n_particles, problem.potential.n_lin)
+    same = all(torch.equal(r.traj_mean, runs[0].traj_mean)
+               and torch.equal(r.ancestors, runs[0].ancestors)
+               for r in runs[1:])
+    resampled = int((runs[0].ess[:-1] <= 0.5 * n_particles).sum())
+    log(f"[20] headline lowrank r=8 bf16 stratified, ESS gate 0.5: "
+        f"{best / T * 1e3:.4f} ms/step on {card}; position RMSE "
+        f"{rmse(runs[0].traj_mean[:, :3]):.4f} m (odometry {rmse(odo):.4f}); "
+        f"resampled at {resampled} of {T - 1} steps (ESS at the gate); "
+        f"{len(runs)} calls bit-equal: {same}")
+    del problem, data, runs
+    scfg = RBPSConfig(n_particles=100, n_sweeps=3, resampling="systematic",
+                      ancestor_form="woodbury", suffix_precompute=False)
+    T8 = problem8.y.shape[0]
+    runs, best = calls(lambda: run_rbps_information_form(
+        *problem8.rbpf_args(), scfg, generator=gen, device=device),
+        {**zero, "grad_basis": 3 * T8 + 2}, repeats=2)
+    same = all(torch.equal(r.XNK, runs[0].XNK) for r in runs[1:])
+    r = float(aligned_position_rmse(data8.pos, runs[0].XNK[-1, :, :3]))
+    r_odo = float(aligned_position_rmse(data8.pos,
+                                        data8.odometry_path[:, :3]))
+    d = float((runs[0].XNK - res8.XNK).abs().max())
+    log(f"[20] mag3d info-form smoother, suffix_precompute=False, N_P=100 "
+        f"T={T8} 3 sweeps: {best / (T8 * 3) * 1e3:.4f} ms/step on {card}; "
+        f"aligned position RMSE of the last sweep {r:.4f} m (odometry "
+        f"{r_odo:.4f}); max|d XNK| from phase 8's precomputed-suffix run "
+        f"{d:.3e}; {len(runs)} calls bit-equal: {same}")
 
 
 def main() -> int:
@@ -1891,7 +2168,7 @@ def main() -> int:
     counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
                                         res)["jac3d"]
     phase_resume_info(device, card, zero, problem, res)
-    problem8, res8 = problem, res
+    problem8, data8, res8 = problem, data, res
     del problem, data, res
     phase_resume_radio(device, card, zero)
     counts_p = phase_kernel_parts(device, zero)
@@ -1907,6 +2184,8 @@ def main() -> int:
     phase_profiling(device, card, lowrank, rate4)
     phase_cli(device, card, zero)
     phase_mesh(device, card, zero, problem8, res8)
+    phase_kalman_one_particle(device, zero)
+    phase_gates(device, card, zero, lowrank, problem8, data8, res8)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

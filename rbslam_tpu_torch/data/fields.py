@@ -41,6 +41,12 @@ def _normal(z, shape, generator, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(z, dtype=like.dtype, device=like.device)
 
 
+def _sqrt_in(value: float, like: torch.Tensor) -> torch.Tensor:
+    """sqrt(value) computed in like's dtype, as the reference computes
+    the noise scale in the points' dtype."""
+    return torch.sqrt(torch.tensor(value, dtype=like.dtype))
+
+
 def draw_scalar_field(x, m: int, LL, theta, *,
                       generator: Optional[torch.Generator] = None,
                       z_w=None, z_n=None) -> ScalarFieldDraw:
@@ -63,8 +69,7 @@ def draw_scalar_field(x, m: int, LL, theta, *,
     )
     w = torch.sqrt(k) * _normal(z_w, (m,), generator, x)
     f = basis.phi(x) @ w
-    y = f + float(np.sqrt(np.float32(sigma2))) * _normal(
-        z_n, (x.shape[0],), generator, x)
+    y = f + _sqrt_in(sigma2, x) * _normal(z_n, (x.shape[0],), generator, x)
     return ScalarFieldDraw(f=f, y=y, weights=w)
 
 
@@ -93,5 +98,5 @@ def draw_scalar_potential_field(x, m: int, LL, theta, *,
     w = torch.sqrt(k) * z_w
     f = sp.potential_row(x) @ w
     df = torch.einsum("nij,j->ni", sp.grad_blocks(x), w)
-    y = df + float(np.sqrt(np.float32(sigma2))) * z_n
+    y = df + _sqrt_in(sigma2, x) * z_n
     return PotentialFieldDraw(f=f, df=df, y=y, weights=w)

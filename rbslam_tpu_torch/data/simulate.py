@@ -16,10 +16,10 @@ examples/slam-dense-radio/generateData_dense.m).
    heading (:317-319); planar families: the fully differenced noisy path
    (:320-321).
 
-Host-side float32 torch; the random draws come from one CPU
-``torch.Generator`` or are given. The grid's values are computed from the
-drawn weights and draw nothing, so a seed gives the same dataset with or
-without the grid.
+Host-side torch, float32 unless ``dtype`` says otherwise; the random
+draws come from one CPU ``torch.Generator`` or are given. The grid's
+values are computed from the drawn weights and draw nothing, so a seed
+gives the same dataset with or without the grid.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from ..basis.laplace import domain_center, hypercube_basis
 from ..basis.potential import ScalarPotentialBasis
 from ..math.quaternions import quat_to_rmat
-from .fields import draw_scalar_field, draw_scalar_potential_field
+from .fields import _sqrt_in, draw_scalar_field, draw_scalar_potential_field
 from .trajectories import generate_trajectory
 
 
@@ -76,7 +76,7 @@ def _grid_values(LL, m_sim, weights, is_6d, chunk=2000) -> dict:
     field. Points go through the basis in chunks, which bounds the
     [chunk, 3, 3 + m_sim] gradient blocks."""
     x1t, x2t, xt = _vis_grid(LL)
-    x = torch.as_tensor(xt - domain_center(LL), dtype=torch.float32)
+    x = torch.as_tensor(xt - domain_center(LL), dtype=weights.dtype)
     basis = hypercube_basis(m_sim, LL)
     sp = ScalarPotentialBasis(basis)
     f, df = [], []
@@ -101,7 +101,8 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
                            traj_kwargs: Optional[dict] = None,
                            field_weights=None, with_grid: bool = True, *,
                            generator: Optional[torch.Generator] = None,
-                           normals=None) -> DenseDataset:
+                           normals=None,
+                           dtype: torch.dtype = torch.float32) -> DenseDataset:
     """Simulate one dense dataset.
 
     ``dynamics(w, xn, u, dt, Q)`` with w a standard-normal [nw] draw
@@ -117,20 +118,21 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
     ``normals = (z_w, z_n, w_odo)``: field weights [m_sim] (3 + m_sim for
     6-D; unused with ``field_weights``), measurement noise [T] ([T, 3]),
     odometry [T-1, nw]; entries that are None, or all of them without
-    ``normals``, are drawn from ``generator`` in that order.
+    ``normals``, are drawn from ``generator`` in that order. ``dtype`` is
+    that of the simulation (the points, rotations, field, noise and
+    odometry) and of every tensor returned.
     """
     traj = generate_trajectory(traj_type, **(traj_kwargs or {}))
     is_6d = traj.quat is not None
     z_w, z_n, w_odo = normals if normals is not None else (None, None, None)
-    f32 = torch.float32
     T = traj.n_steps
-    pts = torch.as_tensor(traj.pos, dtype=f32)
+    pts = torch.as_tensor(traj.pos, dtype=dtype)
     if is_6d:
         LL = _domain_bounds(traj.pos, float(theta[1]), n_ll, three_d=True)
         draw = draw_scalar_potential_field(pts, m_sim, LL, theta,
                                            generator=generator, z_w=z_w,
                                            z_n=z_n)
-        Rn = quat_to_rmat(torch.as_tensor(traj.quat, dtype=f32))
+        Rn = quat_to_rmat(torch.as_tensor(traj.quat, dtype=dtype))
         y = torch.einsum("tij,tj->ti", Rn.transpose(-1, -2), draw.y[:T])
         weights = draw.weights
     else:
@@ -138,13 +140,13 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
         if field_weights is not None:
             # keep the same field, redraw the measurement noise
             basis = hypercube_basis(m_sim, LL)
-            weights = torch.as_tensor(field_weights, dtype=f32)
+            weights = torch.as_tensor(field_weights, dtype=dtype)
             f = basis.phi(pts - torch.as_tensor(domain_center(LL),
-                                                dtype=f32)) @ weights
+                                                dtype=dtype)) @ weights
             if z_n is None:
-                z_n = torch.randn((T,), generator=generator, dtype=f32)
-            y = f + float(np.sqrt(np.float32(theta[2]))) \
-                * torch.as_tensor(z_n, dtype=f32)
+                z_n = torch.randn((T,), generator=generator, dtype=dtype)
+            y = f + _sqrt_in(float(theta[2]), f) \
+                * torch.as_tensor(z_n, dtype=dtype)
         else:
             draw_s = draw_scalar_field(pts, m_sim, LL, theta,
                                        generator=generator, z_w=z_w, z_n=z_n)
@@ -154,14 +156,14 @@ def simulate_dense_dataset(traj_type: str, theta, Q, dt: float,
             if with_grid and (is_6d or field_weights is None) else None)
 
     # --- odometry corruption via the model's own dynamics ---
-    Q = torch.as_tensor(Q, dtype=f32)
+    Q = torch.as_tensor(Q, dtype=dtype)
     Qt = Q.expand((T - 1,) + Q.shape) if Q.dim() == 2 else Q
-    dx_clean = torch.as_tensor(traj.dx, dtype=f32)
-    x = torch.as_tensor(traj.init_state, dtype=f32)
+    dx_clean = torch.as_tensor(traj.dx, dtype=dtype)
+    x = torch.as_tensor(traj.init_state, dtype=dtype)
     if w_odo is None:
         w_odo = torch.randn((T - 1, Qt.shape[-1]), generator=generator,
-                            dtype=f32)
-    w_odo = torch.as_tensor(w_odo, dtype=f32)
+                            dtype=dtype)
+    w_odo = torch.as_tensor(w_odo, dtype=dtype)
     path, dqs = [x], []
     for t in range(T - 1):
         x = dynamics(w_odo[t], x, dx_clean[t], dt, Qt[t])

@@ -141,9 +141,6 @@ def _check_supported(model, config: RBPFConfig, mesh) -> None:
             "the KF kernel paths are single-device; use kf_kernel='xla' "
             "with mesh"
         )
-    if mesh is not None and config.joseph:
-        raise ValueError("the Joseph form is single-device (the map-axis "
-                         "update has none); use joseph=False with mesh")
     if config.dist_resampling not in ("replicated_cdf", "prefix", "local"):
         raise ValueError(
             f"unknown dist_resampling {config.dist_resampling!r}: expected "
@@ -316,8 +313,8 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     ``mesh`` (parallel.make_mesh: a DeviceMesh with dims ("particles",
     "map")) runs the xla path on this rank's block of N/S_p particles and
     of n_lin/S_map covariance rows, with ``config.dist_resampling``
-    (parallel/resampling.py) and explicit collectives; the kernel paths
-    and the Joseph form raise ValueError. Every rank passes the same
+    (parallel/resampling.py) and explicit collectives, the Joseph form
+    included; the kernel paths raise ValueError. Every rank passes the same
     arguments: the same ``noise``, or a generator seeded the same, from
     which it draws the global tensors and keeps its own rows (with
     ``dist_resampling="local"``, u is [T-1, S_p] for systematic: one

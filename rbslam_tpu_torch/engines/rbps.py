@@ -345,7 +345,7 @@ def _sweeps_like(device, with_generator: bool) -> dict:
 
 def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 config: RBPSConfig, generator, device, noise,
-                checkpoint_dir: Optional[str]) -> RBPSResult:
+                checkpoint_dir: Optional[str], mesh=None) -> RBPSResult:
     """Shared sweep loop: moves the inputs to ``device`` once, then runs
     ``config.n_sweeps`` sweeps, each conditioned on the trajectory the
     previous one kept. With ``checkpoint_dir``, each sweep k saves
@@ -353,7 +353,23 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     ``ancestors`` and ``kept`` included) and, with a generator, its state
     (uint8; 16 bytes for a CUDA generator); a call that finds checkpoints
     there starts at min(latest step, n_sweeps) (rbslam_tpu/engines/
-    rbps.py:325-390), restoring the generator, or at ``noise[start]``."""
+    rbps.py:325-390), restoring the generator, or at ``noise[start]``.
+
+    With a ``mesh`` (the sweep function's) the outputs are whole on every
+    rank but ``ancestors``, a rank's columns: the checkpoint holds all of
+    them (one all-gather over ``particles`` a sweep), the rank at mesh
+    coordinates (0, 0) writes it, and the ranks meet at a barrier before
+    the next sweep. On resume every rank reads the same file, keeps its
+    own columns and restores the same generator state (every rank draws
+    the global tensors)."""
+    if mesh is None:
+        ens, writer = Ensemble(config.n_particles), True
+    else:
+        from ..parallel.sharded import ShardedEnsemble
+
+        # the particles and the map rows divide over the mesh, or ValueError
+        ens = ShardedEnsemble(config.n_particles, mesh, model.n_lin)
+        writer = ens.ax.part_rank == 0 and ens.ax.map_rank == 0
     device = torch.device(device)
     y = torch.nan_to_num(_as(y, device))
     T = y.shape[0]
@@ -400,7 +416,7 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                           for f in SweepOut._fields))
 
     xnk = torch.zeros((T, model.n_nonlin), device=device)
-    outs = []
+    outs, saved = [], []     # saved: the outputs with every rank's ancestors
     start_k = 0
     if checkpoint_dir is not None:
         step = latest_step(checkpoint_dir)
@@ -410,8 +426,10 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             if noise is None:
                 generator.set_state(st["generator"])
             xnk = st["xnk"]
-            outs = [SweepOut(*(v[k] for v in st["sweeps"]))
-                    for k in range(step)]
+            saved = [SweepOut(*(v[k] for v in st["sweeps"]))
+                     for k in range(step)]
+            outs = [o._replace(ancestors=ens.local(o.ancestors, 1))
+                    for o in saved]
             start_k = min(step, config.n_sweeps)
 
     for k in range(start_k, config.n_sweeps):
@@ -420,10 +438,16 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         xnk = out.xnk
         outs.append(out)
         if checkpoint_dir is not None:
-            tree = {"xnk": xnk, "sweeps": stacked(outs)}
+            saved.append(out._replace(ancestors=ens.whole(out.ancestors, 1)))
+            tree = {"xnk": xnk, "sweeps": stacked(saved)}
             if noise is None:
                 tree["generator"] = generator.get_state()
-            save_checkpoint(checkpoint_dir, k + 1, tree)
+            if writer:
+                save_checkpoint(checkpoint_dir, k + 1, tree)
+            if mesh is not None:
+                # (p, m) waits for (0, m), which waited for (0, 0)
+                torch.distributed.barrier(group=ens.ax.map_group)
+                torch.distributed.barrier(group=ens.ax.part_group)
     res = stacked(outs)
     return RBPSResult(XNK=res.xnk, XLK=res.xlk, PK=res.Pk, ess=res.ess,
                       chol_retries=res.retries, ancestors=res.ancestors,

@@ -380,8 +380,10 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
     cuts to its particles). Result on every rank: XNK, XLK, PK, ess,
     chol_retries and kept are the whole run's, equal to the unsharded
     run's; ``ancestors`` holds the rank's particles' columns (global
-    indices). Checkpoints (``checkpoint_dir``) and the Joseph form are
-    single-process and raise ValueError with a mesh.
+    indices). Per-sweep checkpoints (``checkpoint_dir``, one directory
+    that every rank sees) and the Joseph form run on the mesh too; a
+    mesh checkpoint has the single-process layout, every rank's ancestors
+    included (engines/rbps.py::_run_sweeps).
     """
     del mask
     if not isinstance(model, DenseModel):
@@ -390,17 +392,9 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
             "(as the reference, src/particleSmootherInformationForm.m:77-80);"
             " use run_rbps for sparse models")
     _check_supported(model, config)
-    if mesh is not None:
-        from ..parallel.sharded import ShardedEnsemble
-
-        if checkpoint_dir is not None or config.joseph:
-            raise ValueError("per-sweep checkpoints and the Joseph form are "
-                             "single-process; drop them or the mesh")
-        # the particles and the map rows divide over the mesh, or ValueError
-        ShardedEnsemble(config.n_particles, mesh, model.n_lin)
     refuse_tf32(device, "the information-form smoother (it maintains W "
                 "by cancellation)")
     sweep = _info_sweep if mesh is None else partial(_info_sweep, mesh=mesh)
     return _run_sweeps(sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
                        Q, R, dt, config, generator, device, noise,
-                       checkpoint_dir)
+                       checkpoint_dir, mesh)

@@ -14,7 +14,9 @@ from .quaternions import (
     logq,
     mcross,
     qinv,
+    qleft,
     qmul,
+    qright,
     quat_to_euler,
     quat_to_rmat,
     rmat_to_quat,
@@ -25,6 +27,6 @@ __all__ = [
     "logsumexp_normalize", "psd_cholesky", "solve_psd", "symmetrize",
     "tril_solve",
     "ProcrustesTransform", "procrustes", "procrustes_transform",
-    "expq", "logq", "mcross", "qinv", "qmul", "quat_to_euler", "quat_to_rmat",
-    "rmat_to_quat",
+    "expq", "logq", "mcross", "qinv", "qleft", "qmul", "qright",
+    "quat_to_euler", "quat_to_rmat", "rmat_to_quat",
 ]

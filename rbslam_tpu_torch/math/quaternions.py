@@ -60,6 +60,28 @@ def qmul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, v], dim=-1)
 
 
+def qleft(q: torch.Tensor) -> torch.Tensor:
+    """Left multiplication matrix [..., 4, 4]: qleft(q) @ p == qmul(q, p)
+    (tools/qLeft.m)."""
+    w, v = q[..., :1], q[..., 1:]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    top = torch.cat([w, -v], dim=-1)[..., None, :]
+    bottom = torch.cat([v[..., :, None], w[..., None] * eye + mcross(v)],
+                       dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def qright(q: torch.Tensor) -> torch.Tensor:
+    """Right multiplication matrix [..., 4, 4]: qright(q) @ p == qmul(p, q)
+    (tools/qRight.m)."""
+    w, v = q[..., :1], q[..., 1:]
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    top = torch.cat([w, -v], dim=-1)[..., None, :]
+    bottom = torch.cat([v[..., :, None], w[..., None] * eye - mcross(v)],
+                       dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def qinv(q: torch.Tensor) -> torch.Tensor:
     """Conjugate of a unit quaternion (tools/qInv.m)."""
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)

@@ -6,15 +6,19 @@ where the alignment is estimated on the map and applied to both
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..math.procrustes import procrustes, procrustes_transform
 from ..math.quaternions import qinv, qmul, quat_to_euler
 
 
-def rms(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Root-mean-square along a dimension (MATLAB ``rms``)."""
-    return torch.sqrt(torch.mean(x**2, dim=dim))
+def rms(x, axis: int = 0, *, dim: Optional[int] = None) -> torch.Tensor:
+    """Root-mean-square along ``axis`` (MATLAB ``rms``); ``dim``, torch's
+    name for it, overrides ``axis``."""
+    x = torch.as_tensor(x)
+    return torch.sqrt(torch.mean(x**2, dim=axis if dim is None else dim))
 
 
 def aligned_position_rmse(truth, estimate, per_axis: bool = False):

@@ -1,4 +1,6 @@
 from .kalman import (
+    dense_log_weights,
+    kalman_update_dense,
     kalman_update_dense_batched,
     kalman_update_dense_batched_hld,
     kalman_update_masked,
@@ -14,6 +16,7 @@ from .resampling import (
 )
 
 __all__ = [
+    "dense_log_weights", "kalman_update_dense",
     "kalman_update_dense_batched", "kalman_update_dense_batched_hld",
     "kalman_update_masked", "kalman_update_masked_batched",
     "masked_log_weights",

@@ -1,5 +1,5 @@
-"""Batched per-particle Kalman measurement updates, dense models (port of
-rbslam_tpu/ops/kalman.py:107-324).
+"""Per-particle Kalman measurement updates, dense and masked (port of
+rbslam_tpu/ops/kalman.py): one particle's forms, and the whole ensemble's.
 
 Dense path (src/particleFilter.m:137-150,181-198): per particle i,
 
@@ -32,7 +32,8 @@ all-gather over the ``map`` group completes; the lax form contracts P's
 first axis, so its partial products are all-reduced. The gain, the
 weights and xl' are then whole on every rank, the downdate of the row
 block is local, and the symmetrization takes the row block of P'^T by one
-all-to-all of [N, nl/S, nl/S] tiles. With ``axis`` None, or one rank on
+all-to-all of [N, nl/S, nl/S] tiles. The Joseph form takes the row block
+the same way (:func:`_finish`). With ``axis`` None, or one rank on
 ``map``, the arithmetic is that of the unsharded update.
 """
 
@@ -51,6 +52,43 @@ from ..math.linalg import (
 )
 
 _LOG2PI = math.log(2.0 * math.pi)
+
+
+def innovation_cov(C, P, R):
+    """S = C P C' + R for one particle: C [ny, nl], P [nl, nl]. Returns
+    (S, CP)."""
+    CP = C @ P
+    return CP @ C.T + R, CP
+
+
+def dense_log_weights(C, P, xl, y, R, jitter: float):
+    """Marginal innovation log-likelihood of one particle
+    (src/particleFilter.m:137-150). Returns (logw, e, L, CP, retried)."""
+    e = y - C @ xl
+    S, CP = innovation_cov(C, P, R)
+    L, retried = psd_cholesky(S, jitter)
+    return gaussian_logpdf_chol(e, L), e, L, CP, retried
+
+
+def kalman_update_dense(C, P, xl, y, R, jitter: float, joseph: bool = False):
+    """One particle's KF measurement update: C [ny, nl], P [nl, nl], xl
+    [nl], y [ny]. Returns (xl', P', logw, retried).
+
+    ``joseph=True`` takes the Joseph-stabilized covariance update
+    (I - KC) P (I - KC)' + K R K', an option the float64 reference did
+    not need. The whole ensemble at once: :func:`kalman_update_dense_batched`.
+    """
+    logw, e, L, CP, retried = dense_log_weights(C, P, xl, y, R, jitter)
+    # K = P C' S^-1 by two triangular solves on (C P)' = P C'
+    K = solve_psd(L, CP).T                                   # [nl, ny]
+    xl_new = xl + K @ e
+    if joseph:
+        IKC = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device) - K @ C
+        P_new = IKC @ P @ IKC.T + K @ R @ K.T
+    else:
+        S = CP @ C.T + R
+        P_new = P - K @ S @ K.T
+    return xl_new, symmetrize(P_new), logw, retried
 
 
 def _chol_small_batched(S: torch.Tensor, jitter: float):
@@ -167,11 +205,10 @@ def kalman_update_dense_batched_hld(C, P, xl, y, R, jitter: float,
     form, ny > 3 the lax form.
 
     The downdate is formed in float32 and subtracted in P's storage dtype,
-    and a float32 C against a bf16 P is promoted to float32. The Joseph
-    form takes the whole P (no map ``axis``).
+    and a float32 C against a bf16 P is promoted to float32. ``joseph``
+    takes the Joseph form (:func:`_finish`), with or without a map
+    ``axis``.
     """
-    if joseph and axis is not None:
-        raise ValueError("the Joseph form has no map-axis (row block) form")
     if C.shape[1] <= 3:
         return _kalman_update_dense_batched_small(
             C, P, xl, y, R, jitter, joseph, symmetrize_out, axis)
@@ -188,15 +225,29 @@ def _symmetrize(A, axis):
     return symmetrize(A) if axis is None else axis.symmetrize(A)
 
 
-def _finish(K, Cf, P, R, downdate, joseph, symmetrize_out, axis=None):
-    """P' from the gain: the Joseph form, or P minus the float32
-    ``downdate()`` rounded to P's dtype; then the optional symmetrization."""
+def _finish(K, Cf, CP, P, R, downdate, joseph, symmetrize_out, axis=None):
+    """P' from the gain K [N, nl, ny] and CP = C P [N, ny, nl], both whole
+    on every rank: P minus the float32 ``downdate()`` rounded to P's dtype,
+    or the Joseph form (I - KC) P (I - KC)' + K R K' in float32; then the
+    optional symmetrization.
+
+    The Joseph form is taken on this rank's rows of P (all rows without a
+    map ``axis``) by rank-ny products, never forming I - KC:
+
+        A = P_rows - K_rows CP                 (the rows of (I - KC) P)
+        P'_rows = A - (A C' - K_rows R) K'
+
+    so no collective beyond those the gain needed. On one ``map`` rank the
+    rows are all rows and the operations those of the unsharded form:
+    equal to it bit for bit. Against the reference's (I - KC) P (I - KC)'
+    (rbslam_tpu/ops/kalman.py:263-269, 309-315) it is equal within float32
+    rounding of the products' order."""
     f32 = torch.float32
     if joseph:
-        n = P.shape[-1]
-        IKC = torch.eye(n, dtype=f32, device=P.device) - K @ Cf
-        P_new = torch.einsum("pij,pjk,plk->pil", IKC, P.to(f32), IKC) \
-            + K @ R @ K.transpose(-1, -2)
+        Kr = K[:, _rows(axis)]
+        A = torch.baddbmm(P.to(f32), Kr, CP, alpha=-1.0)
+        P_new = torch.baddbmm(A, A @ Cf.transpose(-1, -2) - Kr @ R,
+                              K.transpose(-1, -2), alpha=-1.0)
     else:
         P_new = P - downdate().to(P.dtype)
     if symmetrize_out:
@@ -232,7 +283,8 @@ def _kalman_update_dense_batched_small(C, P, xl, y, R, jitter, joseph,
         return sum(CP[:, j][:, rows, None] * X[:, j][:, None, :]
                    for j in range(ny))
 
-    P_new = _finish(K, Cf, P, R, downdate, joseph, symmetrize_out, axis)
+    P_new = _finish(K, Cf, CP, P, R, downdate, joseph, symmetrize_out,
+                    axis)
     return xl_new, P_new, logw, retried, hld
 
 
@@ -259,7 +311,7 @@ def _kalman_update_dense_batched_lax(C, P, xl, y, R, jitter, joseph,
     K = solve_psd(L, CP).transpose(-1, -2)                  # [N, nl, ny]
     xl_new = xl + torch.einsum("pij,pj->pi", K, e)
     P_new = _finish(
-        K, Cf, P, R,
+        K, Cf, CP, P, R,
         lambda: torch.einsum("pij,pjk,plk->pil", K[:, rows], S, K),
         joseph, symmetrize_out, axis)
     return xl_new, P_new, logw, retried, hld

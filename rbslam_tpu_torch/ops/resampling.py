@@ -4,7 +4,10 @@ rbslam_tpu/ops/resampling.py).
 All schemes consume *normalized* weights and the uniforms they need, and
 return int64 ancestor indices. The uniforms come from the caller
 (a ``torch.Generator`` draw, or injected draws in the tests), so the same
-inputs give the same ancestors in both packages.
+inputs give the same ancestors in both packages. Every CDF here, and in
+parallel/resampling.py, is summed by :func:`_cumsum_1d`, whose order
+is fixed by the length alone, so two calls on the card give the same
+ancestors.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 def _inverse_cdf(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Map uniforms u in [0,1) to categorical indices via the CDF of w."""
-    cdf = torch.cumsum(w, dim=0)
+    cdf = _cumsum_1d(w)
     cdf = cdf / cdf[-1]
     idx = torch.searchsorted(cdf, u, right=True)
     return torch.clamp(idx, 0, w.shape[0] - 1)
@@ -27,16 +30,33 @@ def sample_categorical(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _cumsum_1d(x: torch.Tensor) -> torch.Tensor:
-    """1-D inclusive cumsum, blocked as [rows, 128] row-cumsums plus
-    row offsets for large power-of-two-ish lengths — the summation order
-    of the reference's systematic resampler, so the CDF rounds the same
-    way at the headline ensemble sizes."""
+    """1-D inclusive cumsum whose summation order depends on the length
+    alone, on every device and every call.
+
+    Below 4096 entries it is ``torch.cumsum``, whose rounding on the CPU
+    the tests hold bit for bit against JAX's ``jnp.cumsum``; on the card
+    a scan of a few tiles, whose bits do not move from call to call
+    (chip_smoke.py phase 18c checks them). From 4096 on it is the
+    blocked form of the reference's systematic resampler
+    (rbslam_tpu/ops/resampling.py:_cumsum_1d): row cumsums of [rows, 128]
+    (zero-padded to a whole row) plus each row's offset, the exclusive
+    cumsum of the row sums, itself taken by this function. A plain 1-D
+    ``torch.cumsum`` of many tiles on the card adds the tiles' prefixes
+    in whatever order they finish, so its rounding, and the ancestors at
+    the CDF's knife edges, change from call to call; a row cumsum of a
+    2-D tensor does not. Equal to the reference's order up to 2^19
+    entries; above that its offsets are blocked too. Integer sums are
+    exact in any order, so an integer ``x`` takes ``torch.cumsum``.
+    """
     n = x.shape[0]
-    if n < 4096 or n % 128:
+    if n < 4096 or not x.is_floating_point():
         return torch.cumsum(x, dim=0)
-    within = torch.cumsum(x.reshape(n // 128, 128), dim=1)
-    offsets = torch.cumsum(within[:, -1], dim=0) - within[:, -1]
-    return (within + offsets[:, None]).reshape(n)
+    if n % 128:
+        x = torch.nn.functional.pad(x, (0, -n % 128))
+    within = torch.cumsum(x.reshape(-1, 128), dim=1)
+    ends = within[:, -1]
+    offsets = _cumsum_1d(ends) - ends
+    return (within + offsets[:, None]).reshape(-1)[:n]
 
 
 def systematic_resample(u0: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from ..ops.resampling import resample_indices
+from ..ops.resampling import _cumsum_1d, resample_indices
 from .mesh import all_gather, mesh_axes, reduce_scatter
 
 
@@ -70,13 +70,13 @@ def sharded_resample_indices(u, w, mesh, scheme: str = "systematic",
     sums = all_gather(torch.sum(w).reshape(1), ax.part_group)     # [S]
     # the same bounds on every rank, so ownership by search is unique: no
     # float gaps or overlaps between the shards' own interval tests
-    bounds = torch.cumsum(sums, dim=0)
+    bounds = _cumsum_1d(sums)
     off = torch.cat([torch.zeros_like(sums[:1]), bounds[:-1]])[ax.part_rank]
     q = _comb(u, n, scheme, w.dtype) * torch.sum(sums)             # [N]
     owner = torch.clamp(torch.searchsorted(bounds, q, right=True), 0,
                         ax.n_part - 1)
     # within-segment inverse CDF in global coordinates
-    cdf_seg = off + torch.cumsum(w, dim=0)
+    cdf_seg = off + _cumsum_1d(w)
     local_ai = torch.clamp(torch.searchsorted(cdf_seg, q, right=True), 0,
                            n_local - 1)
     ai = torch.where(owner == ax.part_rank, start + local_ai,
@@ -107,7 +107,7 @@ def sharded_resample_local(u, w, mesh, scheme: str = "systematic"):
     if scheme == "systematic":
         u_mine = u_mine[0]
     W = torch.clamp(torch.sum(w), min=1e-38)
-    cdf = torch.cumsum(w, dim=0)
+    cdf = _cumsum_1d(w)
     q = _comb(u_mine, n_local, scheme, w.dtype) * W
     local_ai = torch.clamp(torch.searchsorted(cdf, q, right=True), 0,
                            n_local - 1)

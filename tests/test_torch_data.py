@@ -181,3 +181,56 @@ def test_grid_draws_nothing(traj_type):
             field_weights=runs[1].field_weights,
             generator=torch.Generator().manual_seed(2))
         assert again.grid is None
+
+
+@pytest.mark.parametrize("traj_type", ["circle_2D", "bean_6D"])
+def test_dtype_float64_matches_jax(traj_type):
+    """dtype=float64 in both packages (JAX with 64-bit mode on for the call,
+    its normals drawn in float64 from the same keys): every tensor of the
+    dataset and the grid comes back float64 and equals JAX's to 1e-10 of
+    its scale, 1e-6 for bean_6D (in 64-bit mode JAX's trajectory generator
+    rounds the initial quaternion otherwise, by 4e-8, and the odometry
+    carries it); the default stays float32."""
+    jdyn, tdyn, Q, theta, _ = _case(traj_type)
+    kw, key = SMALL[traj_type], jax.random.PRNGKey(3)
+    with jax.enable_x64(True):
+        ref = jsimulate(key, traj_type, theta, jnp.asarray(Q, jnp.float64),
+                        1.0, jdyn, m_sim=M_SIM, traj_kwargs=kw,
+                        with_grid=True, dtype=jnp.float64)
+        T = ref.pos.shape[0]
+        key_field, _, key_odo = jax.random.split(key, 3)
+        kwk, kn = jax.random.split(key_field)
+        six_d = traj_type.endswith("6D")
+        f64 = jnp.float64
+        z_w = jax.random.normal(kwk, (3 + M_SIM if six_d else M_SIM,), f64)
+        z_n = jax.random.normal(kn, ((T + N_GRID, 3) if six_d
+                                     else (T + N_GRID,)), f64)[:T]
+        odo = []
+        for k in jax.random.split(key_odo, T - 1):
+            if six_d:
+                kp, kq = jax.random.split(k)
+                odo.append(jnp.concatenate([jax.random.normal(kp, (3,), f64),
+                                            jax.random.normal(kq, (3,), f64)]))
+            else:
+                odo.append(jax.random.normal(k, (2,), f64))
+        normals = tuple(np.asarray(a) for a in (z_w, z_n, jnp.stack(odo)))
+    port = simulate_dense_dataset(
+        traj_type, theta, Q, 1.0, tdyn, m_sim=M_SIM, traj_kwargs=kw,
+        with_grid=True, normals=normals, dtype=torch.float64)
+    tol = 1e-6 if six_d else 1e-10
+    for field in ("dx", "y", "init_state", "field_weights", "Q"):
+        a, b = getattr(port, field), np.asarray(getattr(ref, field))
+        assert a.dtype == torch.float64 and b.dtype == np.float64, field
+        np.testing.assert_allclose(_np(a), b, rtol=tol,
+                                   atol=tol * max(1.0, np.abs(b).max()),
+                                   err_msg=field)
+    for k in set(ref.grid) - {"x1t", "x2t"}:
+        assert port.grid[k].dtype == np.float64, k
+        np.testing.assert_allclose(port.grid[k], ref.grid[k], rtol=tol,
+                                   atol=tol * np.abs(ref.grid[k]).max(),
+                                   err_msg=k)
+    assert port.odometry_path.dtype == np.float64
+    default = simulate_dense_dataset(
+        traj_type, theta, Q, 1.0, tdyn, m_sim=M_SIM, traj_kwargs=kw,
+        with_grid=False, generator=torch.Generator().manual_seed(0))
+    assert default.dx.dtype == default.y.dtype == torch.float32

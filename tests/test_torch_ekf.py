@@ -27,18 +27,21 @@ from rbslam_tpu.math.quaternions import mcross as jmcross  # noqa: E402
 from rbslam_tpu.metrics import (  # noqa: E402
     orientation_rmse_deg as jorientation_rmse_deg,
 )
+from rbslam_tpu.metrics import rms as jrms  # noqa: E402
 from rbslam_tpu.ops.kalman import (  # noqa: E402
     _kalman_update_dense_batched_lax as jlax,
 )
 from rbslam_tpu.ops.kalman import (  # noqa: E402
     kalman_update_dense_batched_hld as jhld,
 )
+from rbslam_tpu.ops import kalman as jkalman  # noqa: E402
 from rbslam_tpu_torch.engines import (  # noqa: E402
     run_ekf_dense,
     run_ekf_dense_batched,
 )
 from rbslam_tpu_torch.math import mcross, psd_cholesky  # noqa: E402
-from rbslam_tpu_torch.metrics import orientation_rmse_deg  # noqa: E402
+from rbslam_tpu_torch.metrics import orientation_rmse_deg, rms  # noqa: E402
+from rbslam_tpu_torch.ops import kalman as tkalman  # noqa: E402
 from rbslam_tpu_torch.ops.kalman import (  # noqa: E402
     _kalman_update_dense_batched_lax,
     kalman_update_dense_batched_hld,
@@ -132,6 +135,19 @@ def test_orientation_rmse_matches_jax(ekf):
         rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_rms_axis_matches_jax(axis):
+    """rms(x, axis=...) as JAX's, on a tensor and on a numpy array, and
+    rms(x, dim=...) the same: rtol 1e-6."""
+    x = np.random.default_rng(3).normal(size=(5, 7, 3)).astype(np.float32)
+    ref = np.asarray(jrms(jnp.asarray(x), axis=axis))
+    for port in (rms(_t(x), axis=axis), rms(x, axis=axis), rms(_t(x), axis),
+                 rms(_t(x), dim=axis)):
+        np.testing.assert_allclose(_np(port), ref, rtol=1e-6)
+    np.testing.assert_allclose(_np(rms(_t(x))), np.asarray(jrms(x)),
+                               rtol=1e-6)
+
+
 def test_psd_cholesky_repairs_per_batch_member():
     """One indefinite and one definite matrix in a batch: the definite
     member keeps the factor it has alone and only the other is flagged, as
@@ -185,6 +201,69 @@ def test_lax_update_matches_jax_at_ny4(dtype, joseph, symmetrize_out):
             assert np.array_equal(a, b)
             continue
         assert np.abs(a - b).max() <= tol * max(np.abs(b).max(), 1.0), name
+
+
+def _one_particle(ny, indefinite):
+    """One particle's C [ny, 12], P, xl, y, R (float32); ``indefinite``
+    makes R strongly negative so that S = C P C' + R is not positive
+    definite and the factorization takes the jitter retry."""
+    C, P, xl, y, R = _ny4_inputs("float32", seed=11, n=1, ny=ny)
+    if indefinite:
+        R = R - 50.0 * np.eye(ny, dtype=np.float32)
+    return C[0], P[0], xl[0], y, R
+
+
+@pytest.mark.parametrize("ny", [3, 4])
+@pytest.mark.parametrize("indefinite", [False, True])
+def test_one_particle_dense_forms_match_jax(ny, indefinite):
+    """innovation_cov and dense_log_weights (the one-particle forms of
+    rbslam_tpu/ops/kalman.py:37-51) against JAX's: 1e-5 of each output's
+    scale, retried equal (True with the indefinite S)."""
+    C, P, xl, y, R = _one_particle(ny, indefinite)
+    S, CP = tkalman.innovation_cov(_t(C), _t(P), _t(R))
+    jS, jCP = jkalman.innovation_cov(*map(jnp.asarray, (C, P, R)))
+    port = tkalman.dense_log_weights(*map(_t, (C, P, xl, y, R)), 1e-3)
+    ref = jkalman.dense_log_weights(*map(jnp.asarray, (C, P, xl, y, R)),
+                                    1e-3)
+    assert bool(port[4]) == bool(ref[4]) == indefinite
+    for name, a, b in zip(("S", "CP", "logw", "e", "L", "CP"),
+                          (S, CP) + port[:4], (jS, jCP) + ref[:4]):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(_np(a), b, rtol=1e-5,
+                                   atol=1e-5 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("joseph", [False, True])
+@pytest.mark.parametrize("indefinite", [False, True])
+def test_kalman_update_dense_matches_jax_and_batched(joseph, indefinite):
+    """kalman_update_dense (one particle, ny = 3) against JAX's at 1e-4 of
+    each output's scale, retried equal; and against row 0 of the port's
+    batched update, which shares its arithmetic up to the order of the
+    products (1e-4 of the scale), where S needs no retry (the batched
+    form's closed-form retry scales its jitter by S's diagonal)."""
+    C, P, xl, y, R = _one_particle(3, indefinite)
+    port = tkalman.kalman_update_dense(*map(_t, (C, P, xl, y, R)), 1e-3,
+                                       joseph=joseph)
+    ref = jkalman.kalman_update_dense(*map(jnp.asarray, (C, P, xl, y, R)),
+                                      1e-3, joseph=joseph)
+    assert bool(port[3]) == bool(ref[3]) == indefinite
+    assert port[1].shape == (12, 12) and port[0].shape == (12,)
+    for name, a, b in zip(("xl", "P", "logw"), port[:3], ref[:3]):
+        b = np.asarray(b)
+        np.testing.assert_allclose(_np(a), b, rtol=1e-4,
+                                   atol=1e-4 * max(np.abs(b).max(), 1.0),
+                                   err_msg=name)
+    if not indefinite:
+        batched = tkalman.kalman_update_dense_batched(
+            _t(C[None]), _t(P[None]), _t(xl[None]), _t(y), _t(R), 1e-3,
+            joseph)
+        for name, a, b in zip(("xl", "P", "logw"), port[:3], batched[:3]):
+            b = _np(b[0])
+            np.testing.assert_allclose(_np(a), b, rtol=1e-4,
+                                       atol=1e-4 * max(np.abs(b).max(), 1.0),
+                                       err_msg=name)
 
 
 def test_dispatch_by_observation_rows():

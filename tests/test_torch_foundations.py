@@ -64,7 +64,7 @@ def test_symmetrize():
 
 
 @pytest.mark.parametrize("fn", ["qmul", "qinv", "expq", "quat_to_rmat",
-                                "rmat_to_quat"])
+                                "rmat_to_quat", "qleft", "qright"])
 def test_quaternions(fn):
     rng = np.random.default_rng(2)
     q1, q2 = unit_quats(rng, 64), unit_quats(rng, 64)
@@ -72,7 +72,7 @@ def test_quaternions(fn):
     phi[0] = 0.0                               # the sinc branch at |phi| = 0
     args = {
         "qmul": (q1, q2), "qinv": (q1,), "expq": (phi,),
-        "quat_to_rmat": (q1,),
+        "quat_to_rmat": (q1,), "qleft": (q1,), "qright": (q1,),
         "rmat_to_quat": (np.asarray(jquat.quat_to_rmat(jnp.asarray(q1))),),
     }[fn]
     port = getattr(tquat, fn)(*map(t, args))
@@ -90,6 +90,20 @@ def test_broadcast_qmul():
 def _bases(m=29):
     LL = np.array([[-9.0, -7.5, -2.4], [8.0, 6.5, 2.4]])
     return tbasis.hypercube_basis(m, LL), jbasis.hypercube_basis(m, LL), LL
+
+
+def test_product_matrices_batched():
+    """qleft(q) @ p == qmul(q, p) and qright(q) @ p == qmul(p, q) over two
+    leading axes, and each equals JAX's matrix; rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    q = t(unit_quats(rng, 12).reshape(3, 4, 4))
+    p = t(unit_quats(rng, 12).reshape(3, 4, 4))
+    left, right = tquat.qleft(q), tquat.qright(q)
+    assert left.shape == right.shape == (3, 4, 4, 4)
+    close(torch.einsum("...ij,...j->...i", left, p), tquat.qmul(q, p))
+    close(torch.einsum("...ij,...j->...i", right, p), tquat.qmul(p, q))
+    close(left, jquat.qleft(jnp.asarray(q.numpy())))
+    close(right, jquat.qright(jnp.asarray(q.numpy())))
 
 
 def test_basis_index_selection():

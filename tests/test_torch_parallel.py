@@ -13,7 +13,10 @@ atol 1e-5, xl_mean 1e-4, log_evidence and ess rtol 1e-4; the ESS-gated
 run traj_mean 1e-5; the information-form smoother XNK 1e-4, XLK 1e-3; the
 resamplers index for index at N=256; Woodbury atol 1e-5, hldM rtol 1e-5,
 the quadratic form rtol 1e-4; the island resampler's children on their
-shards, its mass atol 3e-3 over 200 draws.
+shards, its mass atol 3e-3 over 200 draws. The Joseph form on the mesh
+(the port's row-block algebra against JAX's (I - KC) P (I - KC)') is held
+at the same tolerances as the runs without it; a resumed mesh smoother
+equals the unbroken one bit for bit.
 """
 
 import numpy as np
@@ -185,6 +188,7 @@ def _inputs():
         "kalman": kalman, "sparse": sparse,
         "step": step, "radio": radio, "resample": resample, "island": island,
         "rbpf_full": rbpf(0, n_particles=16),
+        "rbpf_joseph": rbpf(6, n_particles=16, joseph=True),
         "rbpf_ess": rbpf(2, n_particles=16, ess_threshold=0.5),
         "rbpf_local": {"config": {"n_particles": 64,
                                   "resampling": "systematic",
@@ -192,6 +196,9 @@ def _inputs():
                        "u": u_loc, "w": w_loc, "key": 4},
         "info": {"config": {"n_particles": 16, "n_sweeps": 2},
                  "noise": info_noise},
+        "info_joseph": {"config": {"n_particles": 16, "n_sweeps": 2,
+                                   "joseph": True},
+                        "noise": info_noise},
         "woodbury": {"W": np.asarray(jnp.linalg.inv(M)),
                      "hldM": np.asarray(0.5 * jnp.linalg.slogdet(M)[1]),
                      "U": [np.asarray(Us[0]), np.asarray(0.2 * Us[1])],
@@ -225,7 +232,8 @@ def _jax_runs(inp):
     args = (jmodel, data.dx, data.y, data.init_state, jnp.zeros(basis.m),
             jnp.diag(k), Qr, jnp.array([[THETA[2]]]), 1.0)
     for name, shape in (("rbpf_full", (8, 1)), ("rbpf_full", (4, 2)),
-                        ("rbpf_ess", (8, 1)), ("rbpf_local", (8, 1))):
+                        ("rbpf_ess", (8, 1)), ("rbpf_local", (8, 1)),
+                        ("rbpf_joseph", (8, 1)), ("rbpf_joseph", (4, 2))):
         r = inp[name]
         out[name, shape] = jrun_rbpf(jax.random.PRNGKey(r["key"]), *args,
                                      JFConfig(**r["config"]),
@@ -233,9 +241,9 @@ def _jax_runs(inp):
     toy = inp["sparse"]["toy"]
     out["sparse"] = jrun_rbpf(jax.random.PRNGKey(5), *sparse_args(toy, 16, True),
                               JFConfig(n_particles=16), mesh=mesh42)
-    out["info"] = jrun_info(jax.random.PRNGKey(3), *args,
-                            JSConfig(n_particles=16, n_sweeps=2),
-                            mesh=mesh42)
+    for name in ("info", "info_joseph"):
+        out[name] = jrun_info(jax.random.PRNGKey(3), *args,
+                              JSConfig(**inp[name]["config"]), mesh=mesh42)
     mesh81 = _devices((8, 1))
     r = inp["resample"]
     for mode in ("replicated_cdf", "prefix"):
@@ -258,7 +266,7 @@ def _port_runs(inp):
     """The port's unsharded runs on the same inputs and draws."""
     out = {}
     args = radio_problem(inp["radio"]).rbpf_args()
-    for name in ("rbpf_full", "rbpf_ess"):
+    for name in ("rbpf_full", "rbpf_ess", "rbpf_joseph"):
         r = inp[name]
         out[name] = run_rbpf(*args, RBPFConfig(**r["config"]),
                              generator=None, device="cpu",
@@ -272,9 +280,10 @@ def _port_runs(inp):
     out["sparse"] = run_rbpf(*sparse_args(r["toy"], 16, False),
                              RBPFConfig(n_particles=16), generator=None,
                              device="cpu", noise=(r["u"], r["w"]))
-    out["info"] = run_rbps_information_form(
-        *args, RBPSConfig(**inp["info"]["config"]), generator=None,
-        device="cpu", noise=inp["info"]["noise"])
+    for name in ("info", "info_joseph"):
+        out[name] = run_rbps_information_form(
+            *args, RBPSConfig(**inp[name]["config"]), generator=None,
+            device="cpu", noise=inp[name]["noise"])
     r = inp["woodbury"]
     W, hldM = torch.tensor(r["W"]), torch.tensor(r["hldM"])
     for U, sign in zip(r["U"], r["sign"]):
@@ -292,9 +301,11 @@ def runs(tmp_path_factory):
     ranks = {
         (8, 1): Ranks(tmp / "m81", 8, (8, 1), [
             "step", "resamplers", "island", "rbpf_full", "rbpf_ess",
-            "rbpf_local", "kernel_refusal", "hybrid", "validation"], inp),
+            "rbpf_local", "rbpf_joseph", "kernel_refusal", "hybrid",
+            "validation"], inp),
         (4, 2): Ranks(tmp / "m42", 8, (4, 2), [
-            "step", "chain", "info", "rbpf_full", "woodbury", "sparse",
+            "step", "chain", "info", "info_joseph", "info_resume",
+            "rbpf_full", "rbpf_joseph", "woodbury", "sparse",
             "kalman_forms"],
             inp),
     }
@@ -342,10 +353,9 @@ def test_mesh_validation(runs):
         assert "3 x 2 != 8" in rank["validation"]
 
 
-@pytest.mark.parametrize("mesh_shape", [(4, 2)])
-def test_sharded_info_smoother_matches_single_device(runs, mesh_shape):
+def _assert_info_run(runs, mesh_shape, name):
     ranks = runs["ranks"][mesh_shape]
-    out, ref, port = ranks[0]["info"], runs["jax"]["info"], runs["port"]["info"]
+    out, ref, port = ranks[0][name], runs["jax"][name], runs["port"][name]
     for field, atol in (("XNK", 1e-4), ("XLK", 1e-3)):
         np.testing.assert_allclose(_np(out[field]),
                                    np.asarray(getattr(ref, field)),
@@ -356,7 +366,35 @@ def test_sharded_info_smoother_matches_single_device(runs, mesh_shape):
     assert torch.equal(out["ancestors"], port.ancestors)
     assert torch.equal(out["kept"], port.kept)
     # replicated on every rank
-    assert all(torch.equal(r["info"]["XNK"], out["XNK"]) for r in ranks)
+    assert all(torch.equal(r[name]["XNK"], out["XNK"]) for r in ranks)
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 2)])
+def test_sharded_info_smoother_matches_single_device(runs, mesh_shape):
+    _assert_info_run(runs, mesh_shape, "info")
+
+
+def test_sharded_info_smoother_joseph_matches_single_device(runs):
+    """joseph=True on (4, 2) (the row-block Joseph form of ops/kalman.py in
+    the forward pass) against JAX's mesh run and the port's unsharded run,
+    at the smoother's tolerances."""
+    _assert_info_run(runs, (4, 2), "info_joseph")
+
+
+def test_sharded_info_smoother_resumes_bit_equal(runs):
+    """On (4, 2), 1 sweep checkpointed and a resume to 2 (a generator seeded
+    otherwise, its state from the checkpoint) equal the unbroken 2-sweep
+    run in every field, bit for bit, on every rank; the checkpoint holds
+    every rank's ancestors, and each rank resumes with its own columns."""
+    for rank, r in enumerate(runs["ranks"][(4, 2)]):
+        out = r["info_resume"]
+        assert out["steps"] == [1, 2]
+        for field, a in out["unbroken"].items():
+            assert torch.equal(out["resumed"][field], a), (rank, field)
+        assert torch.equal(out["first"]["XNK"][0], out["unbroken"]["XNK"][0])
+        part = rank // 2
+        assert torch.equal(out["saved"][:, :, 4 * part:4 * part + 4],
+                           out["unbroken"]["ancestors"])
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
@@ -445,6 +483,21 @@ def test_full_rbpf_mesh_matches_single_device(runs, mesh_shape):
     assert out["counts"] == {
         "all_gather": 6 * n_steps + 2 + 4, "all_reduce": n_steps + 7,
         "reduce_scatter": 0, "all_to_all": n_steps + 1}
+
+
+@pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
+def test_joseph_rbpf_mesh_matches_single_device(runs, mesh_shape):
+    """run_rbpf with joseph=True on the mesh (the row-block Joseph form of
+    ops/kalman.py) against JAX's mesh run and the port's unsharded run, at
+    the full filter's tolerances; the same collectives as without it."""
+    ranks = runs["ranks"][mesh_shape]
+    out = ranks[0]["rbpf_joseph"]
+    _assert_full_run(out["whole"], runs["jax"]["rbpf_joseph", mesh_shape])
+    port = runs["port"]["rbpf_joseph"]
+    _assert_full_run(out["whole"], port)
+    np.testing.assert_allclose(_np(out["whole"]["P"]), _np(port.P),
+                               atol=1e-4)
+    assert out["counts"] == ranks[0]["rbpf_full"]["counts"]
 
 
 def test_sparse_rbpf_mesh_matches_single_device(runs):

@@ -125,3 +125,21 @@ def test_systematic_n_not_multiple_of_128_matches_jax(n):
             assert np.sum(ref != port) <= n // 1000
         assert np.all(np.diff(port) >= 0) and 0 <= port.min() \
             and port.max() < n
+
+
+@pytest.mark.parametrize("n", [4096, 1 << 16, (1 << 19) + 100])
+def test_cdf_helper_matches_torch_cumsum(n):
+    """The CDF helper every resampler sums with (``_cumsum_1d``): blocked
+    from 4096 entries, zero-padded to whole rows of 128 and its row
+    offsets blocked again above 2^19, it equals ``torch.cumsum`` on
+    normalized weights to one unit in the last place at 1 (2^-23), and
+    the float64 CDF to 1.5 units (one more rounding of the offsets)."""
+    rng = np.random.default_rng(n)
+    w = torch.tensor(_weights(rng, n, spread=2.0))
+    cdf = tres._cumsum_1d(w)
+    assert cdf.shape == (n,) and cdf.dtype == torch.float32
+    np.testing.assert_allclose(cdf.numpy(), torch.cumsum(w, 0).numpy(),
+                               rtol=0, atol=2.0**-23)
+    np.testing.assert_allclose(cdf.double().numpy(),
+                               torch.cumsum(w.double(), 0).numpy(), rtol=0,
+                               atol=1.5 * 2.0**-23)

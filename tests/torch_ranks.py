@@ -188,6 +188,11 @@ def rbpf_local(mesh, inp):
 
 
 @case
+def rbpf_joseph(mesh, inp):
+    return _rbpf(mesh, inp, "rbpf_joseph")
+
+
+@case
 def sparse(mesh, inp):
     """The pinhole (sparse, masked EKF) model on ``mesh``."""
     from rbslam_tpu_torch.engines import RBPFConfig, run_rbpf
@@ -249,12 +254,11 @@ def kernel_refusal(mesh, inp):
     return None
 
 
-@case
-def info(mesh, inp):
+def _info(mesh, inp, name):
     from rbslam_tpu_torch.engines import RBPSConfig, run_rbps_information_form
     from rbslam_tpu_torch.parallel.mesh import all_gather, mesh_axes
 
-    r = inp["info"]
+    r = inp[name]
     res = run_rbps_information_form(
         *radio_problem(inp["radio"]).rbpf_args(), RBPSConfig(**r["config"]),
         generator=None, device="cpu", noise=tuple(t(a) for a in r["noise"]),
@@ -263,6 +267,48 @@ def info(mesh, inp):
     out["ancestors"] = all_gather(res.ancestors, mesh_axes(mesh).part_group,
                                   2)
     return out
+
+
+@case
+def info(mesh, inp):
+    return _info(mesh, inp, "info")
+
+
+@case
+def info_joseph(mesh, inp):
+    return _info(mesh, inp, "info_joseph")
+
+
+@case
+def info_resume(mesh, inp):
+    """The information-form smoother on ``mesh`` from a generator: 2 sweeps
+    unbroken, then 1 sweep with a checkpoint directory (shared by the
+    ranks) and a resume to 2 whose generator is seeded otherwise (its
+    state comes from the checkpoint). Returns both results and the
+    checkpoint's ancestors."""
+    import numpy as np
+
+    from rbslam_tpu_torch.engines import RBPSConfig, run_rbps_information_form
+    from rbslam_tpu_torch.utils import latest_step
+
+    args = radio_problem(inp["radio"]).rbpf_args()
+    ckpt = Path(inp["run_dir"]) / "ckpt"
+
+    def run(n_sweeps, seed, directory=None):
+        return run_rbps_information_form(
+            *args, RBPSConfig(16, n_sweeps, resampling="stratified"),
+            generator=torch.Generator().manual_seed(seed), device="cpu",
+            mesh=mesh, checkpoint_dir=directory)
+
+    unbroken = run(2, 21)
+    first = run(1, 21, str(ckpt))
+    steps = [latest_step(str(ckpt))]
+    resumed = run(2, 99, str(ckpt))
+    steps.append(latest_step(str(ckpt)))
+    with np.load(ckpt / "ckpt_2.npz") as f:
+        saved = torch.from_numpy(f["['sweeps'].ancestors"])
+    return {"unbroken": _as_dict(unbroken), "resumed": _as_dict(resumed),
+            "first": _as_dict(first), "steps": steps, "saved": saved}
 
 
 @case
@@ -342,8 +388,8 @@ def main(directory, rank, world):
         world_size=world, timeout=timedelta(seconds=120))
     try:
         mesh = make_mesh(*job["mesh"], device_type="cpu")
-        out = {name: CASES[name](mesh, job["inputs"])
-               for name in job["cases"]}
+        inputs = dict(job["inputs"], run_dir=str(directory))
+        out = {name: CASES[name](mesh, inputs) for name in job["cases"]}
         out["imported_jax"] = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "rbslam_tpu"
