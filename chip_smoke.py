@@ -106,10 +106,17 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 20. reported, not gated: the headline lowrank filter with stratified
     resampling under an ESS gate of 0.5, and the mag3d smoother with
     suffix_precompute=False: ms/step, RMSE beside the odometry's, and
-    whether two calls are bit-equal.
+    whether two calls are bit-equal;
+21. the reproduction scripts (rbslam_tpu_torch/reproduce) at full width
+    and small depth: run_mc on line_3D and the JAX package's field (3
+    runs, 5 sweeps; K6), run_boxplot_lowrank (K1-K4) and run_boxplot (K4),
+    each with 2 seeds at o in {0, 10} and 2 sweeps: every key of the JAX
+    package's results file, finite values and the launch counts; then
+    compare.py's statistics against results/*.json, reported and not
+    gated (the samples are too small to judge).
 
-Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19
-and 20 sets every launch count to 0 just before it and reads the counts
+Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+20 and 21 sets every launch count to 0 just before it and reads the counts
 just after; the counts must be exactly those of its path (none for
 12-14 and 19, which are plain PyTorch, as the JAX package's paths are
 plain XLA). No phase imports the viz package: the card's machine has no
@@ -126,6 +133,7 @@ the card's peak for their type); the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import functools
 import glob
@@ -196,6 +204,12 @@ from rbslam_tpu_torch.workloads import (
     profile_kernel_parts,
     profile_terrain_pf,
     sparse_visual,
+)
+from rbslam_tpu_torch.reproduce import compare as verdicts
+from rbslam_tpu_torch.reproduce import (
+    run_boxplot,
+    run_boxplot_lowrank,
+    run_mc,
 )
 from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
 from rbslam_tpu_torch.models.pinhole2d import project
@@ -2109,6 +2123,96 @@ def phase_gates(device, card, zero, lowrank, problem8, data8, res8,
         f"{d:.3e}; {len(runs)} calls bit-equal: {same}")
 
 
+def missing_keys(got, ref, where=""):
+    """The keys of ``ref``, at every depth, that ``got`` lacks."""
+    if not isinstance(ref, dict):
+        return []
+    if not isinstance(got, dict):
+        return [where or "<top>"]
+    out = []
+    for k, v in ref.items():
+        if k not in got:
+            out.append(f"{where}/{k}")
+        else:
+            out += missing_keys(got[k], v, f"{where}/{k}")
+    return out
+
+
+def phase_reproduce(device, card, zero, n_mc=3, mc_sweeps=5, n_sim=2,
+                    box_sweeps=2, disturbances=(0.0, 10.0)):
+    """Phase 21: the reproduction scripts at full width, small depth. K6
+    launches of run_mc: per run T (filter) + sweeps T + sweeps - 1
+    (smoother); per boxplot run, the lowrank filter K4 = 1, K1 = K2 = 191,
+    K3 = 24 (phase 4's), the xla filter K4 = 192, and the smoother
+    K4 = sweeps T + sweeps - 1. compare.py's verdicts are printed as
+    REPORTED: at 2-3 runs a side they say nothing."""
+    check_tf32_off()
+    ref = verdicts.load_dir("results", verdicts.BOXPLOTS + verdicts.RADIO
+                            + ("line_figures_summary",))
+    port = {}
+    mc = run_mc.config("line_3D", n_mc=n_mc, n_sweeps=mc_sweeps)
+    T = mc.n_steps
+    runs = n_sim * len(disturbances)
+    smoother = box_sweeps * 192 + box_sweeps - 1
+    cases = [
+        ("dense_radio_line_mc100",
+         lambda: run_mc.run(mc, "jax", device=device),
+         {**zero, "phi_basis": n_mc * (T + mc_sweeps * T + mc_sweeps - 1)}),
+        ("dense_mag_boxplot_lowrank",
+         lambda: run_boxplot_lowrank.run(
+             dataclasses.replace(run_boxplot_lowrank.CONFIG,
+                                 n_sweeps=box_sweeps),
+             disturbances, n_sim, device=device),
+         {**zero, "jac3d_rows": runs * 191, "gather_cp": runs * 191,
+          "rebase": runs * 24, "grad_basis": runs * (1 + smoother)}),
+        ("dense_mag_boxplot",
+         lambda: run_boxplot.run(
+             dataclasses.replace(run_boxplot.CONFIG, n_sweeps=box_sweeps),
+             disturbances, n_sim, device=device),
+         {**zero, "grad_basis": runs * (192 + smoother)}),
+    ]
+    for stem, fn, expect in cases:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = json.loads(json.dumps(fn()))
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        log(f"[21] {stem}: {wall:.2f} s on {card}; launches {counts}")
+        if counts != expect:
+            raise AssertionError(f"launch counts {counts} != {expect}")
+        ref_keys = ref[stem]
+        if "raw" in ref_keys:
+            ref_keys = {**ref_keys,
+                        "raw": {o: ref_keys["raw"][o] for o in out["raw"]},
+                        "rmse_by_disturbance": {
+                            o: ref_keys["rmse_by_disturbance"][o]
+                            for o in out["raw"]}}
+        missing = missing_keys(out, ref_keys)
+        if missing:
+            raise AssertionError(f"{stem}: keys of the JAX results file "
+                                 f"missing: {missing}")
+        if "raw" in out:
+            values = [v for r in out["raw"].values() for vs in r.values()
+                      for v in vs]
+            log(f"[21] {stem}: NaN runs {out['nan_runs']}; raw "
+                f"{json.dumps(out['raw'])}")
+        else:
+            values = [v for row in out["rmse_filter_all"] for v in row] \
+                + out["rmse_smoother_per_sweep"] \
+                + out["rmse_smoother_final_all"]
+            log(f"[21] {stem}: filter max/mean {out['rmse_filter_max_mean']}"
+                f", smoother final per run {out['rmse_smoother_final_all']}")
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{stem}: non-finite RMSE")
+        port[stem] = out
+    v = verdicts.verdicts(port, ref)
+    log(f"[21] compare.py at {n_mc} radio runs and {n_sim} seeds a "
+        f"disturbance ({v['family']} Mann-Whitney tests, Holm at "
+        f"{v['alpha']}), reported:")
+    verdicts.print_verdicts(v, prefix="[21] ", status="REPORTED")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2186,6 +2290,7 @@ def main() -> int:
     phase_mesh(device, card, zero, problem8, res8)
     phase_kalman_one_particle(device, zero)
     phase_gates(device, card, zero, lowrank, problem8, data8, res8)
+    phase_reproduce(device, card, zero)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -151,11 +151,17 @@ def _make_plots(plot_dir, cfg, data, problem, res, res_s):
         )
 
 
-def run(cfg: DenseRadioConfig, *, device, plot_dir=None) -> dict:
+def run(cfg: DenseRadioConfig, *, device, plot_dir=None,
+        field_weights=None, on_run=None) -> dict:
     """Filter, then ``cfg.n_sweeps`` smoother sweeps, ``cfg.n_mc`` times on
     one field; Procrustes-aligned position RMSE of each. ``plot_dir``: write
     the first repetition's figures there (needs matplotlib; the dataset then
-    gets its grid, which draws nothing)."""
+    gets its grid, which draws nothing). ``field_weights`` [m_sim]: the
+    field of every repetition (by default the first one draws it).
+    ``on_run(i_mc, data, problem, res, res_s)`` is called after each
+    repetition (``res_s`` None without sweeps). Beside the JAX package's
+    keys, ``rmse_smoother_final_all`` keeps each repetition's final-sweep
+    RMSE."""
     if plot_dir is not None:
         require_matplotlib()
         cfg = replace(cfg, with_grid=True)
@@ -163,7 +169,6 @@ def run(cfg: DenseRadioConfig, *, device, plot_dir=None) -> dict:
     data_gen = torch.Generator().manual_seed(cfg.seed)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     rmse_filter, rmse_smoother, times = [], [], {}
-    field_weights = None
     for i_mc in range(cfg.n_mc):
         problem, data = build_problem(cfg, data_gen, field_weights,
                                       device=device)
@@ -202,6 +207,8 @@ def run(cfg: DenseRadioConfig, *, device, plot_dir=None) -> dict:
 
         if plot_dir is not None and i_mc == 0:
             _make_plots(plot_dir, cfg, data, problem, res, res_s)
+        if on_run is not None:
+            on_run(i_mc, data, problem, res, res_s)
 
     rf = np.asarray(rmse_filter)
     out = {
@@ -218,6 +225,7 @@ def run(cfg: DenseRadioConfig, *, device, plot_dir=None) -> dict:
         rs = np.asarray(rmse_smoother)
         out["rmse_smoother_per_sweep"] = rs.mean(0).tolist()
         out["rmse_smoother_final"] = float(rs[:, -1].mean())
+        out["rmse_smoother_final_all"] = rs[:, -1].tolist()
     return out
 
 

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from rbslam_tpu.workloads import dense_mag as jdense_mag  # noqa: E402
 from rbslam_tpu_torch.workloads import (  # noqa: E402
     check_lowrank_flagship,
+    check_smoother_bf16,
     common,
     dense_mag,
     profile_kernel_parts,
@@ -215,3 +216,24 @@ def test_check_lowrank_flagship_small():
     # f32 lowrank without symmetrization follows the xla path with it
     lo, xla = out["rows"][0], out["rows"][1]
     np.testing.assert_allclose(lo["rmse"], xla["rmse"], atol=5e-3)
+
+
+def test_check_smoother_bf16_small(capsys, monkeypatch):
+    out = check_smoother_bf16.run(2, device="cpu", m_basis=13,
+                                  n_particles=8, n_sweeps=2, n_laps=1,
+                                  m_sim=32)
+    assert [r["cov_dtype"] for r in out["rows"]] == list(
+        check_smoother_bf16.DTYPES)
+    for r in out["rows"]:
+        assert len(r["rmse"]) == 2 and r["n_nan"] == 0
+        assert r["rmse_median"] <= r["rmse_max"] < 1.0
+    f32, bf16 = out["rows"]
+    assert f32["rmse"] != bf16["rmse"]
+    # the command line passes the seed count and the dtypes through
+    calls = []
+    monkeypatch.setattr(check_smoother_bf16, "run",
+                        lambda *a, **k: calls.append((a, k)) or out)
+    check_smoother_bf16.main(["3", "--dtype", "bfloat16", "--device", "cpu"])
+    assert calls == [((3, ["bfloat16"]), {"device": "cpu"})]
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["workload"] == "check-smoother-bf16"
