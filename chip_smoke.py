@@ -113,10 +113,19 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     each with 2 seeds at o in {0, 10} and 2 sweeps: every key of the JAX
     package's results file, finite values and the launch counts; then
     compare.py's statistics against results/*.json, reported and not
-    gated (the samples are too small to judge).
+    gated (the samples are too small to judge);
+22. the benchmark entry point (rbslam_tpu_torch/bench.py): ``main(
+    ["--quick"])`` (the card's stamp, bench.py's rows with its four keys,
+    the quick filter's launches), then bench.py's 131,072-particle row at
+    full width (m=125, T=192, bf16, lowrank r=8, store_trajectories=False)
+    through ``bench_rbpf``: launches, ms/step and peak memory, and one
+    more run's result (finite, no history, position RMSE under the
+    odometry's). Phase 3 also holds K2 and K3 at bf16, N=16384, nl=128
+    against their plain versions at the sweep's factor widths rw = 12, 48,
+    96 and 192.
 
 Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-20 and 21 sets every launch count to 0 just before it and reads the counts
+20, 21 and 22 sets every launch count to 0 just before it and reads the counts
 just after; the counts must be exactly those of its path (none for
 12-14 and 19, which are plain PyTorch, as the JAX package's paths are
 plain XLA). No phase imports the viz package: the card's machine has no
@@ -184,7 +193,12 @@ from rbslam_tpu_torch.kernels import (
     rebase_plain,
     reset_launch_counts,
 )
-from rbslam_tpu_torch.kernels.kf_update import _block_plan
+from rbslam_tpu_torch.kernels.kf_update import (
+    _block_plan,
+    _gather_cp_plan,
+    _rebase_variant,
+)
+from rbslam_tpu_torch import bench
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
 from rbslam_tpu_torch import __main__ as cli
@@ -503,12 +517,12 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         raise AssertionError("a basis kernel's bits differ between launches "
                              "or from its direct form")
 
-    def factored(nn, nll, dt):
+    def factored(nn, nll, dt, rww=rw):
         B = torch.randn((nn, nll, nll), generator=g, device=device)
         P_base = (0.05 * (B + B.transpose(1, 2))
                   + 2.0 * torch.eye(nll, device=device)).to(dt)
         del B
-        Wt = (0.1 * torch.randn((nn, rw, nll), generator=g,
+        Wt = (0.1 * torch.randn((nn, rww, nll), generator=g,
                                 device=device)).to(dt)
         C = (0.3 * torch.randn((nn, ny, nll), generator=g,
                                device=device)).to(dt)
@@ -532,6 +546,24 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                     lambda: rebase_plain(bidx, Wt, P_base), device, dt, note,
                     (bidx, Wt, gathered), 2 * nn * rw * nll * nll, dt)
         rows.setdefault("rebase", r)
+        del bidx, C, Wt, P_base, gathered
+
+    # K2 and K3 at the factor widths rw = 3 r of the rebase-period sweep
+    # (workloads/sweep_lowrank.py, r = 4, 16, 32, 64) at the headline shape
+    for rww in (12, 48, 96, 192):
+        bidx, C, Wt, P_base = factored(n, nl, torch.bfloat16, rww)
+        note = (f"N={n} ny={ny} rw={rww} nl={nl} bfloat16 (K2 form "
+                f"{_gather_cp_plan(ny, rww, nl, 2)}, K3 form "
+                f"{_rebase_variant('kf_rebase', rww, nl, 2)})")
+        gathered = gathered_bytes(bidx, P_base)
+        compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
+                lambda: gather_cp_plain(bidx, C, Wt, P_base), device,
+                torch.bfloat16, note, (bidx, C, Wt, gathered),
+                2 * n * ny * nl * (nl + 2 * rww), torch.bfloat16)
+        compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
+                lambda: rebase_plain(bidx, Wt, P_base), device,
+                torch.bfloat16, note, (bidx, Wt, gathered),
+                2 * n * rww * nl * nl, torch.bfloat16)
         del bidx, C, Wt, P_base, gathered
 
     # K3 at other factor widths (the zero padding of rw to 16 at bf16), at
@@ -2213,6 +2245,89 @@ def phase_reproduce(device, card, zero, n_mc=3, mc_sweeps=5, n_sim=2,
     verdicts.print_verdicts(v, prefix="[21] ", status="REPORTED")
 
 
+def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
+    """Phase 22: the benchmark entry point (rbslam_tpu_torch/bench.py).
+    ``bench.main(["--quick"])`` on the card: the card's stamp, then the
+    terrain PF row and the headline row, each with bench.py's four keys and
+    finite positive values, and the quick filter's launches (a warm-up and
+    3 repeats at T=64: K4 1, K1 and K2 63, K3 8 a run). Then bench.py's
+    131,072-particle row at full width (m=125, n_lin 128, T=192, bf16,
+    lowrank r=8, store_trajectories=False) through ``bench_rbpf`` with one
+    repeat: phase 4's launches a run, ms/step and peak device memory; and
+    one more run of the same filter whose result is checked: finite logw,
+    traj_mean and P_mean, no history, position RMSE under the
+    odometry's."""
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--quick"])
+    counts = launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[22] {line}")
+    if not lines[0].startswith(f"card: {card}"):
+        raise AssertionError(f"bench's first line is not the card's stamp: "
+                             f"{lines[0]!r}")
+    rows = [json.loads(line) for line in lines[1:]]
+    names = [r["metric"].split("[")[0] for r in rows]
+    if names != ["terrain_pf_particle_steps_per_s",
+                 "rbpf_dense_mag_particle_steps_per_s"]:
+        raise AssertionError(f"bench --quick rows {names}")
+    for r in rows:
+        if set(r) != {"metric", "value", "unit", "vs_baseline"} or not (
+                math.isfinite(r["value"]) and r["value"] > 0):
+            raise AssertionError(f"bench row {r}")
+    if not (math.isfinite(rows[-1]["vs_baseline"])
+            and rows[-1]["vs_baseline"] > 0):
+        raise AssertionError(f"headline vs_baseline {rows[-1]}")
+    quick = {**zero, "grad_basis": 4, "jac3d_rows": 4 * 63,
+             "gather_cp": 4 * 63, "rebase": 4 * 8}
+    log(f"[22] bench --quick launches {counts}")
+    if counts != quick:
+        raise AssertionError(f"launch counts {counts} != {quick}")
+
+    kw = dict(cov_dtype="bfloat16", kf_kernel="lowrank",
+              store_trajectories=False)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    rate, best, T_b = bench.bench_rbpf(125, n_big, T, repeats=1,
+                                       device=device, **kw)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"[22] bench_rbpf N_P={n_big} m=125 (n_lin 128) T={T_b} bf16 lowrank "
+        f"r=8 no-traj, a warm-up and 1 repeat: {best:.4f} s = {rate:.1f} "
+        f"particle-steps/s ({best / T_b * 1e3:.4f} ms/step), peak device "
+        f"memory {peak / 2**30:.3f} GiB on {card}; launches {counts}")
+    expect = {k: 2 * v for k, v in lowrank.items()}
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    run, problem, data = bench.rbpf_case(125, n_big, T, device=device, **kw)
+    res = run(1)
+    for field, shape in (("traj_mean", (T, 7)), ("traj_max", (T, 7)),
+                         ("logw", (n_big,)), ("P_mean", (128, 128)),
+                         ("ancestors", (T - 1, n_big))):
+        t = getattr(res, field)
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{field} shape {tuple(t.shape)} != {shape}")
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{field} has non-finite values")
+    if res.xn_hist.numel() or res.xn_traj.numel():
+        raise AssertionError("store_trajectories=False kept a history")
+    truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
+    odo = torch.as_tensor(data.odometry_path[:, :3], dtype=torch.float32,
+                          device=device)
+    rmse = float(torch.sqrt(torch.mean(
+        torch.sum((res.traj_mean[:, :3] - truth) ** 2, dim=-1))))
+    rmse_odo = float(torch.sqrt(torch.mean(torch.sum((odo - truth) ** 2,
+                                                     dim=-1))))
+    log(f"[22] N_P={n_big} result: position RMSE of traj_mean {rmse:.4f} m "
+        f"(odometry {rmse_odo:.4f} m); chol_retries {int(res.chol_retries)}")
+    if not rmse < rmse_odo:
+        raise AssertionError(f"RMSE {rmse} not under the odometry's "
+                             f"{rmse_odo}")
+    del res, run, problem
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2291,6 +2406,7 @@ def main() -> int:
     phase_kalman_one_particle(device, zero)
     phase_gates(device, card, zero, lowrank, problem8, data8, res8)
     phase_reproduce(device, card, zero)
+    phase_bench(device, card, zero, lowrank)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

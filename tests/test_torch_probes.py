@@ -287,6 +287,32 @@ def test_gather_cp_plan_mirror(ny, rw, nl, itemsize, factor, plan):
     assert _gather_cp_plan(ny, rw, nl, itemsize, factor) == plan
 
 
+# the factor widths rw = 3 r of workloads/sweep_lowrank.py (r = 4 ... 64) at
+# the headline and reference map widths, worked out by hand from
+# csrc/kf_common.cuh: (K2 gather_cp_plan, K3 rebase_variant). At f32 nl=512
+# the staged Wt stops fitting from rw = 96 (K2 reads it from global memory,
+# K3 takes its wide form), at bf16 nl=512 K3's staged factor from rw = 192
+SWEEP_FORMS = {
+    (128, 2): [(2, 0)] * 5,
+    (128, 4): [(0, 0)] * 5,
+    (512, 2): [(2, 0)] * 4 + [(2, 1)],
+    (512, 4): [(0, 0)] * 3 + [(1, 1)] * 2,
+}
+
+
+@pytest.mark.parametrize("nl,itemsize", list(SWEEP_FORMS))
+@pytest.mark.parametrize("i,rw", list(enumerate((12, 24, 48, 96, 192))))
+def test_sweep_factor_widths_plan(nl, itemsize, i, rw):
+    from rbslam_tpu_torch.kernels.kf_update import (
+        _gather_cp_plan,
+        _rebase_variant,
+    )
+
+    assert (_gather_cp_plan(3, rw, nl, itemsize),
+            _rebase_variant("kf_rebase", rw, nl, itemsize)) == \
+        SWEEP_FORMS[nl, itemsize][i]
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():

@@ -503,3 +503,50 @@ def test_package_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_slice_no_trajectories_bf16_matches_jax(slice_run):
+    """store_trajectories=False on lowrank bf16 (the 131,072-particle bench
+    row's configuration) at the slice's size: no [T, N, dn] history in
+    either package (xn_hist and xn_traj empty), and P_mean summed with the
+    weights cast to the bf16 storage dtype (the JAX package's quirk,
+    rbslam_tpu/engines/rbpf.py:724-738). Tolerances of the r = 8 run:
+    ancestors equal; traj_mean and traj_max atol 1e-3; xl_mean 5e-3;
+    logw 1e-2; P_mean 2^-8 of its largest entry, as the bf16 run above."""
+    prob, jargs = slice_run["prob"], slice_run["jargs"]
+    kw = dict(cov_dtype="bfloat16", store_trajectories=False)
+    port = run_rbpf(*prob.rbpf_args(), _config(RBPFConfig, **kw),
+                    generator=None, device="cpu", noise=slice_run["noise"])
+    ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs, _config(JConfig, **kw))
+    for field in ("xn_hist", "xn_traj"):
+        assert getattr(port, field).numel() == 0
+        assert np.asarray(getattr(ref, field)).size == 0
+    np.testing.assert_array_equal(_np(port.ancestors), _np(ref.ancestors))
+    for field in ("traj_mean", "traj_max"):
+        np.testing.assert_allclose(_np(getattr(port, field)),
+                                   _np(getattr(ref, field)), atol=1e-3,
+                                   err_msg=field)
+    np.testing.assert_allclose(_np(port.xl_mean), _np(ref.xl_mean),
+                               atol=5e-3)
+    np.testing.assert_allclose(_np(port.logw), _np(ref.logw), atol=1e-2)
+    scale = float(np.abs(_np(ref.P_mean)).max())
+    np.testing.assert_allclose(_np(port.P_mean), _np(ref.P_mean),
+                               atol=2 ** -8 * scale)
+
+
+@pytest.mark.parametrize("period", [4, 16])
+def test_slice_rebase_period_matches_jax(slice_run, period):
+    """lowrank_period other than 8 (scripts/sweep_lowrank.py's r = 4 and
+    16, factor widths rw = 12 and 48): at r = 4 the 11 steps are two full
+    periods and a remainder of 3, at r = 16 one remainder period of 11.
+    The r = 8 run's tolerances (assert_runs_match, and traj_max atol
+    1e-3)."""
+    prob, jargs = slice_run["prob"], slice_run["jargs"]
+    port = run_rbpf(*prob.rbpf_args(),
+                    _config(RBPFConfig, lowrank_period=period),
+                    generator=None, device="cpu", noise=slice_run["noise"])
+    ref = jrun_rbpf(jax.random.PRNGKey(0), *jargs,
+                    _config(JConfig, lowrank_period=period))
+    assert_runs_match(port, ref)
+    np.testing.assert_allclose(_np(port.traj_max), _np(ref.traj_max),
+                               atol=1e-3)
