@@ -195,6 +195,7 @@ from rbslam_tpu_torch.kernels import (
 )
 from rbslam_tpu_torch.kernels.kf_update import (
     _block_plan,
+    _gather_cp,
     _gather_cp_plan,
     _rebase_variant,
 )
@@ -418,8 +419,126 @@ def k1_guard_bands(device, consts, pos, quat, nl, dtype, launches=20):
         f"written, max rel err {worst:.3e} (tol {TOL[dtype]:.0e})")
 
 
+def main_path_bases(device, n, T=192, r=8, ny=3):
+    """The lowrank loop's K2 launches over one run of bench.py's filter at
+    N_P = n (``bench.rbpf_case``: bean_6D, m=125, bf16, r=8, seed 1): for
+    each of the T - 1 steps its base indices (arange at each rebase,
+    composed with every step's systematic ancestors, as engines/rbpf.py
+    does) and its live factor rows, ny times the steps since the rebase."""
+    run, _, _ = bench.rbpf_case(125, n, T, device=device,
+                                cov_dtype="bfloat16", kf_kernel="lowrank",
+                                store_trajectories=False)
+    anc = run(1).ancestors
+    steps = []
+    for t in range(T - 1):
+        if t % r == 0:
+            b = torch.arange(n, dtype=torch.int32, device=device)
+        b = b[anc[t].long()]
+        steps.append((b, ny * (t % r)))
+    return steps
+
+
+def k2_bad_index(note, bidx, C, Wt, P_base, rows, out):
+    """Out-of-range base indices inside runs (and one outside) write NaN
+    for those particles alone; every other row keeps the bits of ``out``."""
+    n, n_base = bidx.shape[0], P_base.shape[0]
+    inside = (torch.nonzero(bidx[1:] == bidx[:-1]).flatten() + 1)[:3].tolist()
+    at = sorted({*inside, n // 2, n - 1})
+    bad = bidx.clone()
+    for j, i in enumerate(at):
+        bad[i] = (-1, n_base, -7, n_base + 5)[j % 4]
+    got = gather_cp(bad, C, Wt, P_base, rows)
+    keep = torch.ones(n, dtype=torch.bool, device=bidx.device)
+    keep[at] = False
+    if not (bool(torch.isnan(got[at]).all())
+            and torch.equal(got[keep], out[keep])):
+        raise AssertionError(f"gather_cp {note}: bad indices at {at} do not "
+                             "give NaN there alone")
+    log(f"[3] gather_cp {note}: bad indices at {at} ({len(inside)} inside "
+        f"runs of equal bases): NaN there, the other rows bit-equal")
+
+
+def k2_forms_in_turns(note, device, launches, bound_ms_):
+    """K2's runs form and its direct form on the same launches, in turns;
+    ms a launch (median, least, most over the groups)."""
+    def seq(direct):
+        return lambda: [_gather_cp(*a, direct=direct) for a in launches]
+
+    t = time_alternately({"runs": seq(False), "direct": seq(True)}, device)
+    per = {k: tuple(x / len(launches) for x in v) for k, v in t.items()}
+    log(f"[3] gather_cp {note}, in turns, ms a launch: runs form "
+        f"{per['runs'][0]:.4f} ({per['runs'][1]:.4f}-{per['runs'][2]:.4f}), "
+        f"direct form {per['direct'][0]:.4f} ({per['direct'][1]:.4f}-"
+        f"{per['direct'][2]:.4f}); bound {bound_ms_:.4f}")
+    return per
+
+
+def k2_main_path(device, g, n, nl=128, ny=3, rw=24):
+    """Phase 3, K2 (and K8) at bf16 on the main path's own indices at N_P =
+    n: the 191 launches of one filter run (see main_path_bases), on random
+    P_base, C and Wt. The 8 steps of the last full rebase period (steps
+    176-183, the runs of equal bases longest at its end): against the plain
+    version (bf16 2e-2 of the scale), a second launch bit-equal, ``rows``
+    bit-equal to all rows of a copy of Wt whose dead rows are zero; step
+    183 also with bad indices and K8. All 191 launches timed in the runs
+    and the direct form in turns, beside the bound of these indices (each
+    distinct P once, C, the live rows of Wt, bidx and CP; averaged over the
+    191)."""
+    steps = main_path_bases(device, n)
+    P_base = torch.randn((n, nl, nl), generator=g, device=device
+                         ).to(torch.bfloat16)
+    Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=device)
+          ).to(torch.bfloat16)
+    C = (0.3 * torch.randn((n, ny, nl), generator=g, device=device)
+         ).to(torch.bfloat16)
+    distinct = [int(torch.unique(b).numel()) for b, _ in steps]
+    note = f"N={n} ny={ny} rw={rw} nl={nl} bfloat16 main-path indices"
+    for t in range(176, 184):
+        b, rows = steps[t]
+        out = gather_cp(b, C, Wt, P_base, rows)
+        ref = gather_cp_plain(b, C, Wt, P_base, rows)
+        rel = float((out - ref).abs().max()) / float(ref.abs().max())
+        if not (rel <= TOL[torch.bfloat16]
+                and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"gather_cp {note} step {t}: rel err {rel}")
+        if not torch.equal(out, gather_cp(b, C, Wt, P_base, rows)):
+            raise AssertionError(f"gather_cp {note} step {t}: two launches "
+                                 "differ")
+        Wz = Wt.clone()
+        Wz[:, rows:] = 0
+        if not torch.equal(out, gather_cp(b, C, Wz, P_base)):
+            raise AssertionError(f"gather_cp {note} step {t}: rows={rows} "
+                                 "differs from all rows")
+        del Wz, ref
+        log(f"[3] gather_cp {note} step {t}: {distinct[t]} distinct of {n}, "
+            f"rows={rows}: rel err {rel:.3e} (tol 2e-02), two launches "
+            f"bit-equal, bit-equal to all {rw} rows with the dead rows zero")
+    b183 = steps[183][0]
+    k2_bad_index(f"{note} step 183", b183, C, Wt, P_base, steps[183][1], out)
+    Cf = C.float()
+    compare("probe_gather_cp", lambda: probe_gather_cp(b183, Cf, P_base),
+            lambda: probe_gather_cp_plain(b183, Cf, P_base), device,
+            torch.bfloat16, f"{note} step 183",
+            (b183, Cf, gathered_bytes(b183, P_base)), 2 * n * ny * nl * nl,
+            torch.bfloat16)
+    nbytes = sum(d * nl * nl * 2 + C.numel() * 2 + n * rows * nl * 2 + n * 4
+                 + n * ny * nl * 4 for d, (_, rows) in zip(distinct, steps))
+    flops = sum(2 * n * ny * nl * (nl + 2 * rows) for _, rows in steps)
+    bound = bound_ms(nbytes / len(steps), flops / len(steps),
+                     torch.bfloat16)[0]
+    log(f"[3] gather_cp {note}: distinct bases a step, mean over the run "
+        f"{sum(distinct) / len(distinct):.1f} of {n}; steps 176-183 "
+        f"{distinct[176:184]}; bound of these indices {bound:.4f} ms a "
+        f"launch (averaged over the {len(steps)} steps)")
+    per = k2_forms_in_turns(f"{note}, the run's {len(steps)} launches",
+                            device, [(b, C, Wt, P_base, rows)
+                                     for b, rows in steps], bound)
+    del P_base, Wt, C, Cf, steps
+    return per
+
+
 def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
-                  ny=3, rw=24):
+                  ny=3, rw=24, n_big=131072):
     """Phase 3: each kernel against its plain version on the card. The
     returned row of a kernel is the one at its main path's first shape.
     Operation counts: a multiply, an add and a sin or cos count one each."""
@@ -542,6 +661,14 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                     (bidx, C, Wt, gathered),
                     2 * nn * ny * nll * (nll + 2 * rw), dt)
         rows.setdefault("gather_cp", r)
+        if dt == torch.bfloat16:
+            out = gather_cp(bidx, C, Wt, P_base)
+            if not torch.equal(out, gather_cp(bidx, C, Wt, P_base)):
+                raise AssertionError(f"gather_cp {note}: two launches differ")
+            k2_bad_index(note, bidx, C, Wt, P_base, None, out)
+            k2_forms_in_turns(note + " (random indices)", device,
+                              [(bidx, C, Wt, P_base, None)], r["bound_ms"])
+            del out
         r = compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
                     lambda: rebase_plain(bidx, Wt, P_base), device, dt, note,
                     (bidx, Wt, gathered), 2 * nn * rw * nll * nll, dt)
@@ -556,15 +683,27 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                 f"{_gather_cp_plan(ny, rww, nl, 2)}, K3 form "
                 f"{_rebase_variant('kf_rebase', rww, nl, 2)})")
         gathered = gathered_bytes(bidx, P_base)
-        compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
-                lambda: gather_cp_plain(bidx, C, Wt, P_base), device,
-                torch.bfloat16, note, (bidx, C, Wt, gathered),
-                2 * n * ny * nl * (nl + 2 * rww), torch.bfloat16)
+        r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
+                    lambda: gather_cp_plain(bidx, C, Wt, P_base), device,
+                    torch.bfloat16, note, (bidx, C, Wt, gathered),
+                    2 * n * ny * nl * (nl + 2 * rww), torch.bfloat16)
+        out = gather_cp(bidx, C, Wt, P_base)
+        if not torch.equal(out, gather_cp(bidx, C, Wt, P_base)):
+            raise AssertionError(f"gather_cp {note}: two launches differ")
+        k2_bad_index(note, bidx, C, Wt, P_base, None, out)
+        k2_forms_in_turns(note, device, [(bidx, C, Wt, P_base, None)],
+                          r["bound_ms"])
+        del out
         compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
                 lambda: rebase_plain(bidx, Wt, P_base), device,
                 torch.bfloat16, note, (bidx, Wt, gathered),
                 2 * n * rww * nl * nl, torch.bfloat16)
         del bidx, C, Wt, P_base, gathered
+
+    # K2 and K8 on the main path's own indices (runs of equal bases, live
+    # factor rows 3 p) at the headline shape and at bench.py's 131k row
+    for nn in (n, n_big):
+        k2_main_path(device, g, nn, nl, ny, rw)
 
     # K3 at other factor widths (the zero padding of rw to 16 at bf16), at
     # a map width that is no power of two (ragged row blocks and items) and
@@ -2302,7 +2441,20 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
     run, problem, data = bench.rbpf_case(125, n_big, T, device=device, **kw)
-    res = run(1)
+    # this run under the profiler: K2's device time a launch on the 131k row
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = run(1)
+        sync(device)
+    k2 = [e for e in prof.key_averages() if "gather_cp" in e.key]
+    k2_us = sum(getattr(e, "device_time_total", 0) for e in k2)
+    k2_n = sum(e.count for e in k2)
+    if k2_n != lowrank["gather_cp"]:
+        raise AssertionError(f"the profiled 131k run shows {k2_n} K2 kernels "
+                             f"({[e.key for e in k2]})")
+    log(f"[22] N_P={n_big} K2 gather_cp on the card in the profiled run: "
+        f"{k2_n} launches, {k2_us / 1e3:.3f} ms in all, "
+        f"{k2_us / k2_n / 1e3:.4f} ms a launch ({k2[0].key[:60]})")
     for field, shape in (("traj_mean", (T, 7)), ("traj_max", (T, 7)),
                          ("logw", (n_big,)), ("P_mean", (128, 128)),
                          ("ancestors", (T - 1, n_big))):

@@ -55,6 +55,8 @@ __device__ __forceinline__ float storage_round(float v) {
   return to_float<T>(from_float<T>(v));
 }
 
+inline __host__ __device__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
 // shared memory one block may use on Hopper
 constexpr size_t kMaxSmem = 232448;
 
@@ -87,7 +89,8 @@ cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
 // does not take (more than 256 16-byte units a row, or a ring and C that do
 // not fit shared memory): CP[b] = round_T(C[b]) P_base[bidx[b]] -
 // round(C[b] Wt[b]^T) Wt[b], each thread on a column pair streaming every
-// row of P from global memory, Wt read from global memory twice.
+// row of P from global memory, Wt read from global memory twice. Only the
+// first `rows` factor rows of each particle are read (the others are zero).
 // C is read as TC and rounded to T (the identity where TC = T); with
 // kFactor false the factor term is compiled out and Wt is never read (K8).
 // Dynamic shared memory: (NY*nl + (kFactor ? NY*rw : 0)) floats.
@@ -97,7 +100,7 @@ __global__ void gather_cp_direct_kernel(const int* __restrict__ bidx,
                                  const T* __restrict__ Wt,
                                  const T* __restrict__ P_base,
                                  float* __restrict__ CP, long long n_base,
-                                 int rw, int nl) {
+                                 int rw, int rows, int nl) {
   extern __shared__ float smem[];
   float* Cs = smem;             // [NY][nl]
   float* CWt = smem + NY * nl;  // [NY][rw]
@@ -113,7 +116,7 @@ __global__ void gather_cp_direct_kernel(const int* __restrict__ bidx,
   if constexpr (kFactor) {
     // C Wt^T [NY, rw]: one warp per factor row r, lanes over the column j
     const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
-    for (int r = warp; r < rw; r += nwarps) {
+    for (int r = warp; r < rows; r += nwarps) {
       float acc[NY];
 #pragma unroll
       for (int i = 0; i < NY; ++i) acc[i] = 0.0f;
@@ -158,7 +161,7 @@ __global__ void gather_cp_direct_kernel(const int* __restrict__ bidx,
 #pragma unroll
     for (int i = 0; i < NY; ++i) corr[i][0] = corr[i][1] = 0.0f;
     if constexpr (kFactor) {
-      for (int r = 0; r < rw; ++r) {
+      for (int r = 0; r < rows; ++r) {
         const float2 w = load_pair(Wb + (long long)r * nl + k);
 #pragma unroll
         for (int i = 0; i < NY; ++i) {
@@ -530,7 +533,7 @@ constexpr int kCpMinBlocks = 4;   // caps registers at 56 a thread (3 blocks: sl
 constexpr int kCpStageBytes = 8192;
 constexpr int kCpThreads = kRowThreads + 32;   // consumers and the producer
 constexpr size_t kSmemBudget = kMaxSmem - 1024;   // room for static barriers
-enum : int { kCpStagedW = 0, kCpStaged = 1, kCpDirect = 2 };
+enum : int { kCpStagedW = 0, kCpStaged = 1, kCpDirect = 2, kCpRuns = 3 };
 
 inline __host__ __device__ int cp_stage_rows(int nl, int itemsize) {
   int rows = kCpStageBytes / (nl * itemsize);
@@ -547,27 +550,12 @@ inline size_t gather_cp_smem(int ny, int rw, int nl, int itemsize, bool factor,
          (factor ? 4 * (size_t)ny * rw : 0);
 }
 
-// kCpStagedW, kCpStaged (Wt from global memory; always so for K8) or
-// kCpDirect. At bf16 the direct form measured faster on the H100: its small
-// blocks (2 warps at nl=128, 32 an SM) keep more particles in flight than the
-// ring's, and than 256-thread blocks that each read one particle's P 16 bytes
-// a thread (4 an SM at 64 registers: 0.27 against 0.22 ms for K8).
-inline int gather_cp_plan(int ny, int rw, int nl, int itemsize, bool factor) {
-  if (itemsize == 4 && row_units(nl, itemsize) <= kRowThreads) {
-    if (factor && gather_cp_smem(ny, rw, nl, itemsize, true, true) <= kSmemBudget)
-      return kCpStagedW;
-    if (gather_cp_smem(ny, rw, nl, itemsize, factor, false) <= kSmemBudget)
-      return kCpStaged;
-  }
-  return kCpDirect;
-}
-
 template <typename T, typename TC, int NY, bool kFactor>
 __global__ void __launch_bounds__(kCpThreads, kCpMinBlocks)
 gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
                  const T* __restrict__ Wt, const T* __restrict__ P_base,
                  float* __restrict__ CP, long long n, long long n_base, int rw,
-                 int nl, int stage_w) {
+                 int live, int nl, int stage_w) {
   constexpr int E = Unit<T>::kElems;
   extern __shared__ __align__(128) unsigned char cp_smem[];
   __shared__ uint64_t full[kCpStages];
@@ -602,7 +590,7 @@ gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
       for (long long b = blockIdx.x; b < n; b += gridDim.x, ++it) {
         const long long src = bidx[b];
         if (staged_w) {
-          const uint32_t bytes = (uint32_t)((size_t)rw * nl * sizeof(T));
+          const uint32_t bytes = (uint32_t)((size_t)live * nl * sizeof(T));
           mbar_wait(&wempty, (it & 1) ^ 1);
           mbar_arrive_expect_tx(&wfull, bytes);
           if (bytes > 0) bulk_load(ws, Wt + b * (long long)rw * nl, bytes, &wfull);
@@ -644,7 +632,7 @@ gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
       if (staged_w) mbar_wait(&wfull, it & 1);
       // -round(C Wt^T) [NY, rw] while P's first stages land: a warp per
       // factor row, lanes over the columns
-      for (int r = warp; r < rw; r += kRowThreads / 32) {
+      for (int r = warp; r < live; r += kRowThreads / 32) {
         float cw[NY];
 #pragma unroll
         for (int i = 0; i < NY; ++i) cw[i] = 0.0f;
@@ -668,7 +656,7 @@ gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
       consumer_sync();
       // the factor rows as rows of the pass, before P's; then the staged
       // factor goes back to the producer for the next particle
-      cp_rows<T, NY>(Ws, 0, rw, nl, rs, CWt, rw, acc);
+      cp_rows<T, NY>(Ws, 0, live, nl, rs, CWt, rw, acc);
       if (staged_w) {
         __syncwarp();
         if (lane == 0) mbar_arrive(&wempty);
@@ -691,42 +679,6 @@ gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
       out[idx] = ok ? cp_partial_sum<NY>(part, sets, nl, idx) : quiet_nan();
     }
   }
-}
-
-// Launch K2 (kFactor) or K8 on n particles (n > 0) in the form `plan`, which
-// must be gather_cp_plan's choice (the wrapper's mirror of it).
-template <typename T, typename TC, int NY, bool kFactor>
-cudaError_t launch_gather_cp_kernel(const void* bidx, const void* C,
-                                    const void* Wt, const void* P_base,
-                                    void* CP, long long n, long long n_base,
-                                    int rw, int nl, int plan, cudaStream_t s) {
-  if (plan != gather_cp_plan(NY, rw, nl, sizeof(T), kFactor))
-    return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (plan == kCpDirect) {
-    int threads = ((nl / 2 + 31) / 32) * 32;   // one thread per column pair
-    if (threads > 256) threads = 256;
-    const size_t smem = (size_t)(NY * nl + (kFactor ? NY * rw : 0)) * sizeof(float);
-    if (smem > kSmemBudget) return cudaErrorInvalidValue;
-    err = allow_smem(gather_cp_direct_kernel<T, TC, NY, kFactor>, smem);
-    if (err != cudaSuccess) return err;
-    gather_cp_direct_kernel<T, TC, NY, kFactor><<<(unsigned)n, threads, smem, s>>>(
-        static_cast<const int*>(bidx), static_cast<const TC*>(C),
-        static_cast<const T*>(Wt), static_cast<const T*>(P_base),
-        static_cast<float*>(CP), n_base, rw, nl);
-    return cudaGetLastError();
-  }
-  const size_t smem = gather_cp_smem(NY, rw, nl, sizeof(T), kFactor, plan == kCpStagedW);
-  err = allow_smem(gather_cp_kernel<T, TC, NY, kFactor>, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = persistent_blocks(gather_cp_kernel<T, TC, NY, kFactor>, kCpThreads, smem, n, &blocks);
-  if (err != cudaSuccess) return err;
-  gather_cp_kernel<T, TC, NY, kFactor><<<(unsigned)blocks, kCpThreads, smem, s>>>(
-      static_cast<const int*>(bidx), static_cast<const TC*>(C),
-      static_cast<const T*>(Wt), static_cast<const T*>(P_base),
-      static_cast<float*>(CP), n, n_base, rw, nl, plan == kCpStagedW);
-  return cudaGetLastError();
 }
 
 // ---- the rebase ----------------------------------------------------------
@@ -783,8 +735,6 @@ template <> struct RebaseShape<float> {
   static constexpr int kRowBlock = 4;
   static constexpr int kStageBytes = 16384;
 };
-
-inline __host__ __device__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // rows of P in one stage: whole row blocks, about kStageBytes
 template <typename T>
@@ -1058,6 +1008,336 @@ rebase_kernel(const int* __restrict__ bidx, const T* __restrict__ Wt,
       }
     }
   }
+}
+
+// ---- the gathered C P at bf16: one read of P a run of equal bases -------
+// The bf16 form of K2 (and of K8, with the factor term compiled out):
+//     CP[b] = round(C[b]) P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]
+// with only the first `rows` factor rows of Wt[b] read (the rows from
+// `rows` on are zero, so they add nothing).
+// Bound: the bytes, each distinct P_base matrix of a tile read once, C and
+// the live rows of Wt read once, CP written once; the products, 2 ny nl
+// (nl + 2 rows) flops a particle, hide under them on the CUDA cores.
+// What the direct form above pays beyond that: it reads P again for every
+// particle of a run of equal base indices (on the filter's main path the
+// base indices are arange composed with sorted systematic ancestors, so
+// equal ones stand side by side), reads Wt twice from global memory (C Wt^T
+// with 2-byte loads, then the correction), and multiplies every factor row,
+// live or not.
+// Design: the direct form's shape, whose small blocks (one thread a column
+// pair of P, streamed from global memory) keep many independent loads in
+// flight, with
+//  - kRunTile consecutive particles a block: a run of equal valid base
+//    indices among them streams its P once, each row feeding every particle
+//    of the run (a run longer than a tile is read once a tile: neighbouring
+//    blocks run at about the same time, so the second read comes from L2);
+//  - the live factor rows of the tile's particles staged in shared memory
+//    once, kRunWRows rows of each at a time, by 16-byte cp.async copies
+//    (the first chunk lands while P streams); round(C Wt^T) from there
+//    (half a warp a factor row, 16-byte units, summed by shuffles), and the
+//    correction from there too, summed a factor row at a time in order in
+//    accumulators of its own and added to C P at the end, so that a zero
+//    factor row adds an exact zero and `rows` gives the bits of all rows.
+// A wider tile or a 256-thread block keeps fewer particles in flight (shared
+// memory per block grows with the tile) and measured slower on the H100; a
+// ring of bulk-copied stages fed by a producer warp, with the products on
+// the tensor cores, measured slower than the direct form even with its
+// arithmetic compiled out.
+// Shared memory: C rounded to bf16, as floats [kRunTile][NY][nl];
+// round(C Wt^T) [kRunTile][NY][kRunWRows]; the staged factor rows
+// [kRunTile][kRunWRows][nl] bf16.
+constexpr int kRunTile = 2;      // particles a block
+constexpr int kRunWRows = 16;    // factor rows of each particle a staged chunk
+constexpr int kRunMaxCols = 512;
+
+inline __host__ __device__ int run_threads(int nl) {   // one a column pair
+  return round_up(nl / 2, 32);
+}
+inline size_t gather_cp_runs_smem(int ny, int nl, bool factor) {
+  return (size_t)kRunTile * ny * nl * 4 +
+         (factor ? (size_t)kRunTile * (ny * kRunWRows * 4 + kRunWRows * nl * 2) : 0);
+}
+
+// acc[l] += round(C_l) P over P's rows, for this thread's column pair k:
+// the L particles whose C [NY][nl] follow each other from Cq share P [nl, nl]
+template <int NY, int L>
+__device__ __forceinline__ void run_pass(const __nv_bfloat16* __restrict__ Pb,
+                                         const float* Cq, int k, int nl,
+                                         float (&acc)[L][NY][2]) {
+#pragma unroll 8
+  for (int j = 0; j < nl; ++j) {
+    const float2 p = load_pair(Pb + (long long)j * nl + k);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        const float c = Cq[(l * NY + i) * nl + j];
+        acc[l][i][0] = fmaf(c, p.x, acc[l][i][0]);
+        acc[l][i][1] = fmaf(c, p.y, acc[l][i][1]);
+      }
+    }
+  }
+}
+
+// 8 elements of C from global memory, rounded to bf16, as floats
+__device__ __forceinline__ void load_c8(const __nv_bfloat16* p, float (&v)[8]) {
+  load_unit(p, v);
+}
+__device__ __forceinline__ void load_c8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = storage_round<__nv_bfloat16>(f[e]);
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, kept
+// in L2 only); cp_async_wait_all waits for this thread's copies
+__device__ __forceinline__ void cp_async_16(void* dst_smem, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst_smem)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <typename TC, int NY, bool kFactor>
+__global__ void __launch_bounds__(256)
+gather_cp_runs_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
+                      const __nv_bfloat16* __restrict__ Wt,
+                      const __nv_bfloat16* __restrict__ P_base,
+                      float* __restrict__ CP, long long n, long long n_base,
+                      int rw, int rows, int nl) {
+  using bf16 = __nv_bfloat16;
+  static_assert(kRunTile == 2, "a tile's runs are one pair or two singles");
+  extern __shared__ __align__(16) float run_smem[];
+  float* Cs = run_smem;                                         // [T][NY][nl]
+  float* CWt = Cs + kRunTile * NY * nl;                         // [T][NY][kRunWRows]
+  bf16* Ws = reinterpret_cast<bf16*>(CWt + kRunTile * NY * kRunWRows);  // [T][kRunWRows][nl]
+  __shared__ int src[kRunTile];   // base indices, -1 where out of range
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, half = lane >> 4, l16 = lane & 15;
+  const long long b0 = (long long)blockIdx.x * kRunTile;
+  const int cnt = (int)min((long long)kRunTile, n - b0);
+  const int k = 2 * tid;     // this thread's column pair
+  const int units = nl / 8;  // 16-byte units of a bf16 row
+  if (tid < cnt) {
+    const long long s = bidx[b0 + tid];
+    src[tid] = s >= 0 && s < n_base ? (int)s : -1;
+  }
+  // a chunk of up to kRunWRows live factor rows of each particle into
+  // shared memory, by cp.async (the first chunk flies while P streams)
+  auto stage_chunk = [&](int r0) {
+    const int nr = min(kRunWRows, rows - r0);
+    for (int e = tid; e < cnt * nr * units; e += nthreads) {
+      const int q = e / (nr * units), ru = e - q * nr * units;
+      cp_async_16(Ws + (size_t)q * kRunWRows * nl + 8 * ru,
+                  Wt + ((b0 + q) * rw + r0) * nl + 8 * ru);
+    }
+  };
+  if (kFactor && rows > 0) stage_chunk(0);
+  // C of the tile's particles (contiguous), rounded to bf16
+  const TC* Cb = C + b0 * NY * nl;
+  for (int u = tid; u < cnt * NY * units; u += nthreads) {
+    float v[8];
+    load_c8(Cb + 8 * u, v);
+    *reinterpret_cast<float4*>(Cs + 8 * u) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(Cs + 8 * u + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __syncthreads();
+  const int s0 = src[0], s1 = cnt > 1 ? src[1] : -1;
+  // C P: a run of two streams its P once for both
+  float acc[kRunTile][NY][2] = {};
+  if (k < nl) {
+    if (s0 >= 0 && s0 == s1) {
+      run_pass<NY, 2>(P_base + (long long)s0 * nl * nl, Cs, k, nl, acc);
+    } else {
+      float a1[1][NY][2] = {};
+      if (s0 >= 0) {
+        run_pass<NY, 1>(P_base + (long long)s0 * nl * nl, Cs, k, nl, a1);
+#pragma unroll
+        for (int i = 0; i < NY; ++i) acc[0][i][0] = a1[0][i][0], acc[0][i][1] = a1[0][i][1];
+      }
+      if (s1 >= 0) {
+        float a2[1][NY][2] = {};
+        run_pass<NY, 1>(P_base + (long long)s1 * nl * nl, Cs + NY * nl, k, nl, a2);
+#pragma unroll
+        for (int i = 0; i < NY; ++i) acc[1][i][0] = a2[0][i][0], acc[1][i][1] = a2[0][i][1];
+      }
+    }
+  }
+  if constexpr (kFactor) {
+    // the correction -round(C Wt^T) Wt, summed a factor row at a time in
+    // order (a zero row adds an exact zero), added to C P at the end
+    float cr[kRunTile][NY][2] = {};
+    for (int r0 = 0; r0 < rows; r0 += kRunWRows) {
+      const int nr = min(kRunWRows, rows - r0);
+      if (r0 > 0) stage_chunk(r0);
+      cp_async_wait_all();
+      __syncthreads();
+      // round(C Wt^T): half a warp a (particle, factor row); the loop runs
+      // alike for both halves of a warp (the shuffles take all its lanes)
+      for (int t2 = 2 * warp; t2 < cnt * nr; t2 += nthreads / 16) {
+        const int t = t2 + half, q = t / nr, r = t - q * nr;
+        const bool on = t < cnt * nr && src[q] >= 0;
+        float sum[NY];
+#pragma unroll
+        for (int i = 0; i < NY; ++i) sum[i] = 0.0f;
+        for (int u = l16; on && u < units; u += 16) {
+          float w[8];
+          load_unit(Ws + (q * kRunWRows + r) * nl + 8 * u, w);
+#pragma unroll
+          for (int i = 0; i < NY; ++i) {
+            const float* c = Cs + (q * NY + i) * nl + 8 * u;
+            const float4 c0 = *reinterpret_cast<const float4*>(c);
+            const float4 c1 = *reinterpret_cast<const float4*>(c + 4);
+            sum[i] = fmaf(c0.x, w[0], sum[i]);
+            sum[i] = fmaf(c0.y, w[1], sum[i]);
+            sum[i] = fmaf(c0.z, w[2], sum[i]);
+            sum[i] = fmaf(c0.w, w[3], sum[i]);
+            sum[i] = fmaf(c1.x, w[4], sum[i]);
+            sum[i] = fmaf(c1.y, w[5], sum[i]);
+            sum[i] = fmaf(c1.z, w[6], sum[i]);
+            sum[i] = fmaf(c1.w, w[7], sum[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NY; ++i) {
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1) {
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+          }
+        }
+        if (on && l16 == 0) {
+#pragma unroll
+          for (int i = 0; i < NY; ++i) {
+            CWt[(q * NY + i) * kRunWRows + r] = storage_round<bf16>(sum[i]);
+          }
+        }
+      }
+      __syncthreads();
+      if (k < nl) {
+#pragma unroll
+        for (int q = 0; q < kRunTile; ++q) {
+          if (q < cnt && src[q] >= 0) {
+            for (int r = 0; r < nr; ++r) {
+              const float2 w = load_pair(Ws + (q * kRunWRows + r) * nl + k);
+#pragma unroll
+              for (int i = 0; i < NY; ++i) {
+                const float c = CWt[(q * NY + i) * kRunWRows + r];
+                cr[q][i][0] = fmaf(-c, w.x, cr[q][i][0]);
+                cr[q][i][1] = fmaf(-c, w.y, cr[q][i][1]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();   // Ws and CWt are written again by the next chunk
+    }
+#pragma unroll
+    for (int q = 0; q < kRunTile; ++q) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        acc[q][i][0] += cr[q][i][0];
+        acc[q][i][1] += cr[q][i][1];
+      }
+    }
+  }
+  if (k >= nl) return;
+#pragma unroll
+  for (int q = 0; q < kRunTile; ++q) {
+    if (q < cnt) {
+      const bool ok = (q == 0 ? s0 : s1) >= 0;
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        store_pair(CP + ((b0 + q) * NY + i) * nl + k, ok ? acc[q][i][0] : quiet_nan(),
+                   ok ? acc[q][i][1] : quiet_nan());
+      }
+    }
+  }
+}
+
+// K2's form (K8's without the factor): at f32 kCpStagedW, kCpStaged (Wt
+// from global memory; always so for K8) or kCpDirect; at bf16 kCpRuns up to
+// nl = 512 (one thread a column pair, 256 at most), else kCpDirect. At bf16
+// the f32 ring lost to the direct form on the H100: the direct form's small
+// blocks (2 warps at nl=128, 32 an SM) keep more particles in flight than the
+// ring's, and than 256-thread blocks that each read one particle's P 16 bytes
+// a thread (4 an SM at 64 registers: 0.27 against 0.22 ms for K8).
+inline int gather_cp_plan(int ny, int rw, int nl, int itemsize, bool factor) {
+  if (itemsize == 2) {
+    return nl <= kRunMaxCols ? kCpRuns : kCpDirect;   // 64 KB of shared memory at most
+  }
+  if (row_units(nl, itemsize) <= kRowThreads) {
+    if (factor && gather_cp_smem(ny, rw, nl, itemsize, true, true) <= kSmemBudget)
+      return kCpStagedW;
+    if (gather_cp_smem(ny, rw, nl, itemsize, factor, false) <= kSmemBudget)
+      return kCpStaged;
+  }
+  return kCpDirect;
+}
+
+template <typename TC, int NY, bool kFactor>
+cudaError_t launch_gather_cp_runs(const void* bidx, const void* C, const void* Wt,
+                                  const void* P_base, void* CP, long long n,
+                                  long long n_base, int rw, int rows, int nl,
+                                  cudaStream_t s) {
+  const size_t smem = gather_cp_runs_smem(NY, nl, kFactor);
+  cudaError_t err = allow_smem(gather_cp_runs_kernel<TC, NY, kFactor>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (n + kRunTile - 1) / kRunTile;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  gather_cp_runs_kernel<TC, NY, kFactor><<<(unsigned)blocks, run_threads(nl), smem, s>>>(
+      static_cast<const int*>(bidx), static_cast<const TC*>(C),
+      static_cast<const __nv_bfloat16*>(Wt), static_cast<const __nv_bfloat16*>(P_base),
+      static_cast<float*>(CP), n, n_base, rw, rows, nl);
+  return cudaGetLastError();
+}
+
+// Launch K2 (kFactor) or K8 on n particles (n > 0) with the first `rows`
+// factor rows of each Wt[b] (0 <= rows <= rw) in the form `plan`, which
+// must be gather_cp_plan's choice (the wrapper's mirror of it); with
+// `direct` the direct form runs instead (to time the two forms).
+template <typename T, typename TC, int NY, bool kFactor>
+cudaError_t launch_gather_cp_kernel(const void* bidx, const void* C,
+                                    const void* Wt, const void* P_base,
+                                    void* CP, long long n, long long n_base,
+                                    int rw, int rows, int nl, int plan,
+                                    int direct, cudaStream_t s) {
+  if (plan != gather_cp_plan(NY, rw, nl, sizeof(T), kFactor) || rows < 0 || rows > rw)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (direct || plan == kCpDirect) {
+    int threads = ((nl / 2 + 31) / 32) * 32;   // one thread per column pair
+    if (threads > 256) threads = 256;
+    const size_t smem = (size_t)(NY * nl + (kFactor ? NY * rw : 0)) * sizeof(float);
+    if (smem > kSmemBudget) return cudaErrorInvalidValue;
+    err = allow_smem(gather_cp_direct_kernel<T, TC, NY, kFactor>, smem);
+    if (err != cudaSuccess) return err;
+    gather_cp_direct_kernel<T, TC, NY, kFactor><<<(unsigned)n, threads, smem, s>>>(
+        static_cast<const int*>(bidx), static_cast<const TC*>(C),
+        static_cast<const T*>(Wt), static_cast<const T*>(P_base),
+        static_cast<float*>(CP), n_base, rw, rows, nl);
+    return cudaGetLastError();
+  }
+  if (plan == kCpRuns) {
+    if constexpr (sizeof(T) == 2) {
+      return launch_gather_cp_runs<TC, NY, kFactor>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = gather_cp_smem(NY, rw, nl, sizeof(T), kFactor, plan == kCpStagedW);
+  err = allow_smem(gather_cp_kernel<T, TC, NY, kFactor>, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = persistent_blocks(gather_cp_kernel<T, TC, NY, kFactor>, kCpThreads, smem, n, &blocks);
+  if (err != cudaSuccess) return err;
+  gather_cp_kernel<T, TC, NY, kFactor><<<(unsigned)blocks, kCpThreads, smem, s>>>(
+      static_cast<const int*>(bidx), static_cast<const TC*>(C),
+      static_cast<const T*>(Wt), static_cast<const T*>(P_base),
+      static_cast<float*>(CP), n, n_base, rw, rows, nl, plan == kCpStagedW);
+  return cudaGetLastError();
 }
 
 // ---- the rebase where the ring and the staged factor do not fit ---------

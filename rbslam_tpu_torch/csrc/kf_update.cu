@@ -25,8 +25,17 @@
 //
 // K2 gather_cp  replaces rbslam_tpu/kernels/kf_update.py:_kernel_gather_cp
 //     CP[b] = C[b] P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]     -> [N, ny, nl] f32
-//   Bound: reading the gathered ancestor rows of P_base, N*nl*nl*itemsize
-//   bytes per step (0.54 GB at N=16384, nl=128, bf16). Design
+//   with only the first `rows` (live) factor rows of Wt[b] read.
+//   Bound: the bytes, each distinct ancestor matrix of P_base read once
+//   (at most N*nl*nl*itemsize a step: 0.54 GB at N=16384, nl=128, bf16),
+//   C and the live rows of Wt read once, CP written once. Design at bf16
+//   (gather_cp_runs_kernel of kf_common.cuh): the direct form's small
+//   blocks (one thread a column pair of P, streamed from global memory),
+//   each on two consecutive particles: a run of equal base indices (the
+//   main path's come side by side) streams its P once for both; the live
+//   factor rows are staged in shared memory once by cp.async while P
+//   streams, and round(C Wt^T) and the correction are formed from there.
+//   Design at f32
 //   (gather_cp_kernel of kf_common.cuh): persistent blocks walking the
 //   particles; a producer warp bulk-copies Wt[b] and then P_base[bidx[b]] in
 //   row stages through a four-stage ring that runs on across particles;
@@ -35,9 +44,9 @@
 //   with coefficients -round(C Wt^T), then form C P over each stage from
 //   shared memory (16-byte loads, partial sums per row group summed in a
 //   fixed order). No gathered copy of
-//   P_base is ever written to device memory. At bf16, and for rows of more
-//   than 256 16-byte units, the direct form runs (each thread streams a
-//   column pair of P; at bf16 nl=128 its small blocks measured faster).
+//   P_base is ever written to device memory. For rows of more than 256
+//   16-byte units at f32, or more than 512 columns at bf16, the direct form
+//   runs (each thread streams a column pair of P from global memory).
 //
 // K3 rebase  replaces rbslam_tpu/kernels/kf_update.py:_kernel_rebase
 //     P'[b] = P_base[bidx[b]] - round(Wt[b]^T Wt[b])                -> [N, nl, nl]
@@ -74,12 +83,12 @@ namespace {
 template <typename T>
 cudaError_t launch_gather_cp_ny(int ny, const void* bidx, const void* C,
                                 const void* Wt, const void* P_base, void* CP,
-                                long long n, long long n_base, int rw, int nl,
-                                int plan, cudaStream_t s) {
+                                long long n, long long n_base, int rw, int rows,
+                                int nl, int plan, int direct, cudaStream_t s) {
   switch (ny) {
-    case 1: return launch_gather_cp_kernel<T, T, 1, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, nl, plan, s);
-    case 2: return launch_gather_cp_kernel<T, T, 2, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, nl, plan, s);
-    case 3: return launch_gather_cp_kernel<T, T, 3, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, nl, plan, s);
+    case 1: return launch_gather_cp_kernel<T, T, 1, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
+    case 2: return launch_gather_cp_kernel<T, T, 2, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
+    case 3: return launch_gather_cp_kernel<T, T, 3, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -118,13 +127,14 @@ extern "C" int rbs_block_gather(const void* ai, const void* C, const void* e,
 
 extern "C" int rbs_gather_cp(const void* bidx, const void* C, const void* Wt,
                              const void* P_base, void* CP, long long n,
-                             long long n_base, int ny, int rw, int nl,
-                             int plan, int bf16, void* stream) {
+                             long long n_base, int ny, int rw, int rows,
+                             int nl, int plan, int direct, int bf16,
+                             void* stream) {
   if (nl % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_gather_cp_ny<__nv_bfloat16>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, nl, plan, s)
-           : launch_gather_cp_ny<float>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, nl, plan, s);
+      bf16 ? launch_gather_cp_ny<__nv_bfloat16>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s)
+           : launch_gather_cp_ny<float>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
   return (int)err;
 }
 

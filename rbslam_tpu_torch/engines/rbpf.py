@@ -515,8 +515,10 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 else:
                     C = _pad_last(_jacobian_batch(model, xn),
                                   nl_pad).to(cov_dtype)
+                # the rows of later phases are still zero: K2 skips them
                 xl, wnew, logw, bad = kf_update_lowrank(
-                    bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter
+                    bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter,
+                    live_rows=ny * phase,
                 )
                 # this phase's factor rows are still zero (gathers permute
                 # particles, not rows): write the new rows in place

@@ -65,8 +65,10 @@ _SIGNATURES = {
     #  u2, ustride, form, per_block, stream)
     "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
                   _I, _I, _P),
-    # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, nl, plan, bf16, stream)
-    "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P),
+    # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, rows, nl, plan, direct,
+    #  bf16, stream)
+    "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                      _I, _P),
     # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, variant, bf16, stream)
     "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     # (ai, C, e, xl, P_all, R, P_out, xl_out, logw, bad, n, n_all, ny, nl,

@@ -43,16 +43,23 @@ _STORAGE = (torch.float32, torch.bfloat16)
 _MAX_SMEM = 232448   # bytes of shared memory one block may use on Hopper
 
 
-def gather_cp_plain(bidx, C, Wt, P_base) -> torch.Tensor:
+def gather_cp_plain(bidx, C, Wt, P_base, rows=None) -> torch.Tensor:
     """Plain version of K2: C[b] P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]
     in float32, with C rounded to P's dtype and C Wt^T to Wt's dtype
-    (the reference's rounding points, kf_update.py:529,538)."""
+    (the reference's rounding points, kf_update.py:529,538), over the
+    factor rows Wt[:, :rows] (all rows where ``rows`` is None). The
+    correction is summed one factor row at a time, in order, so zero rows
+    beyond ``rows`` would add exact zeros: ``rows=k`` equals all rows, bit
+    for bit, where the rows from k on are zero."""
     f32 = torch.float32
     P = P_base[bidx.long()]
     CPb = torch.einsum("pij,pjk->pik", C.to(P.dtype).to(f32), P.to(f32))
-    Wf = Wt.to(f32)
-    CWt = torch.einsum("pij,prj->pir", C.to(Wt.dtype).to(f32), Wf)
-    corr = torch.einsum("pir,prk->pik", CWt.to(Wt.dtype).to(f32), Wf)
+    Cw = C.to(Wt.dtype).to(f32)
+    corr = torch.zeros_like(CPb)
+    for r in range(Wt.shape[1] if rows is None else rows):
+        w = Wt[:, r].to(f32)                               # [N, nl]
+        cw = (Cw * w[:, None, :]).sum(-1).to(Wt.dtype).to(f32)
+        corr += cw[:, :, None] * w[:, None, :]
     return CPb - corr
 
 
@@ -155,11 +162,15 @@ def _gather_cp_smem(ny, rw, nl, itemsize, factor, stage_w) -> int:
 
 def _gather_cp_plan(ny, rw, nl, itemsize, factor=True) -> int:
     """K2's form (K8's with ``factor`` False), the mirror of
-    ``gather_cp_plan``: 0 staged with Wt in shared memory, 1 staged with Wt
-    read from global memory (always so for K8), 2 the direct form (bf16,
-    rows of more than 256 16-byte units, or a ring that does not fit)."""
+    ``gather_cp_plan``: at f32 0 staged with Wt in shared memory, 1 staged
+    with Wt read from global memory (always so for K8), 2 the direct form
+    (rows of more than 256 16-byte units, or a ring that does not fit); at
+    bf16 3, one read of P a run of equal base indices (one thread a column
+    pair), up to nl = 512, else 2."""
     if nl % 8:
         raise ValueError(f"gather_cp kernel: nl={nl} must be a multiple of 8")
+    if itemsize == 2 and nl <= 512:
+        return 3
     if itemsize == 4 and nl * itemsize // 16 <= _ROW_THREADS:
         if factor and _gather_cp_smem(ny, rw, nl, itemsize, True, True) \
                 <= _SMEM_BUDGET:
@@ -208,15 +219,29 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def gather_cp(bidx, C, Wt, P_base) -> torch.Tensor:
+def gather_cp(bidx, C, Wt, P_base, rows=None) -> torch.Tensor:
     """Gather-fused effective-CP contraction (K2; replaces
     rbslam_tpu/kernels/kf_update.py:_kernel_gather_cp):
     CP[b] = C[b] (P_base[bidx[b]] - Wt[b]^T Wt[b]), [N, ny, nl] float32.
 
     bidx [N] int32 in [0, n_base); C [N, ny, nl], Wt [N, rw, nl] and
     P_base [n_base, nl, nl] in one storage dtype (float32 or bfloat16).
+    ``rows`` (0 <= rows <= rw; None: rw) reads only the factor rows
+    Wt[:, :rows]: where the rows from ``rows`` on are zero (the filter's
+    rows of later steps of a rebase period), the result equals the
+    all-rows one. At bf16 (``_gather_cp_plan`` form 3) two consecutive
+    particles with one base index read its P_base matrix once.
     """
+    return _gather_cp(bidx, C, Wt, P_base, rows, direct=False)
+
+
+def _gather_cp(bidx, C, Wt, P_base, rows, direct: bool) -> torch.Tensor:
+    """``gather_cp``; with ``direct`` the kernel runs its direct form
+    whatever the plan (to time the two forms on the same inputs)."""
     n, rw, nl = _check_factored(bidx, Wt, P_base)
+    rows = rw if rows is None else int(rows)
+    if not 0 <= rows <= rw:
+        raise ValueError(f"rows={rows} must lie in [0, {rw}]")
     if C.dim() != 3 or C.shape[0] != n or C.shape[2] != nl:
         raise ValueError(f"C must be [{n}, ny, {nl}], got {tuple(C.shape)}")
     ny = C.shape[1]
@@ -226,16 +251,16 @@ def gather_cp(bidx, C, Wt, P_base) -> torch.Tensor:
             or C.device != P_base.device:
         raise TypeError("C must be contiguous, on P_base's device and dtype")
     if _on_cpu(P_base):
-        return gather_cp_plain(bidx, C, Wt, P_base)
+        return gather_cp_plain(bidx, C, Wt, P_base, rows)
     plan = _gather_cp_plan(ny, rw, nl, P_base.element_size())
     CP = torch.empty((n, ny, nl), dtype=torch.float32, device=C.device)
     if CP.numel() == 0:
         return CP                       # nothing to launch, nothing counted
-    Wt, P_base = _aligned(Wt), _aligned(P_base)
+    C, Wt, P_base = _aligned(C), _aligned(Wt), _aligned(P_base)
     code = _lib.lib().rbs_gather_cp(
         bidx.data_ptr(), C.data_ptr(), Wt.data_ptr(), P_base.data_ptr(),
-        CP.data_ptr(), n, P_base.shape[0], ny, rw, nl, plan,
-        int(P_base.dtype == torch.bfloat16), _lib.stream_ptr(),
+        CP.data_ptr(), n, P_base.shape[0], ny, rw, rows, nl, plan,
+        int(direct), int(P_base.dtype == torch.bfloat16), _lib.stream_ptr(),
     )
     _lib.check(code, "gather_cp")
     return CP
@@ -267,20 +292,23 @@ def kf_rebase(bidx, Wt, P_base) -> torch.Tensor:
 
 
 def kf_update_lowrank(bidx, C, xl_gathered, Wt_gathered, P_base, y, R,
-                      jitter: float = 1e-3):
+                      jitter: float = 1e-3, live_rows=None):
     """Factored dense KF update with covariance P = P_base[bidx] - Wt^T Wt.
 
     C [N, ny, nl] rows-layout Jacobians in the storage dtype; xl_gathered
     [N, nl] float32; Wt_gathered [N, rw, nl] the accumulated (already
-    resampled) factor rows. Returns (xl', Wnew [N, ny, nl] storage dtype,
-    logw [N], retried [N]) where Wnew = L^-1 C P are the step's whitened
-    factor rows (Wnew^T Wnew is exactly the covariance downdate).
+    resampled) factor rows. ``live_rows`` (None: all rw) says that only
+    Wt_gathered[:, :live_rows] may be nonzero (the filter passes ny times
+    the steps since the last rebase), so the rest is never read. Returns
+    (xl', Wnew [N, ny, nl] storage dtype, logw [N], retried [N]) where
+    Wnew = L^-1 C P are the step's whitened factor rows (Wnew^T Wnew is
+    exactly the covariance downdate).
     """
     ny = C.shape[1]
     if ny > 3:
         raise ValueError("lowrank KF update supports ny <= 3")
     f32 = torch.float32
-    CP = gather_cp(bidx, C, Wt_gathered, P_base)        # [N, ny, nl]
+    CP = gather_cp(bidx, C, Wt_gathered, P_base, live_rows)   # [N, ny, nl]
     Cf = C.to(f32)
     S = torch.einsum("pij,pkj->pik", CP, Cf) + R.to(f32)[None]
     L, bad = _chol_small_batched(S, jitter)

@@ -121,7 +121,7 @@ def probe_gather_cp(bidx, C, P) -> torch.Tensor:
     CP = torch.empty((n, ny, nl), dtype=torch.float32, device=P.device)
     if CP.numel() == 0:
         return CP                       # nothing to launch, nothing counted
-    P = _aligned(P)
+    C, P = _aligned(C), _aligned(P)
     code = _lib.lib().rbs_probe_gather_cp(
         bidx.data_ptr(), C.data_ptr(), P.data_ptr(), CP.data_ptr(), n,
         P.shape[0], ny, nl, plan, int(P.dtype == torch.bfloat16),

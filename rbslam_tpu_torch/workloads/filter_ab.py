@@ -12,8 +12,9 @@ lists), imported under another name beside this one. Both build the
 same dataset (bean_6D, T=192, m_sim=512, seed 1) and run ``run_rbpf``
 with the same generator seed, as chip_smoke.py phases 4 and 5 do:
 ``headline`` N_P=16384, m=125, bf16; ``reference`` N_P=4096, m=509,
-f32; systematic resampling, no symmetrization, lowrank r=8 (the main
-path). After one warm-up
+f32; ``131k`` bench.py's 131,072-particle row (m=125, bf16, no
+trajectory history); systematic resampling, no symmetrization, lowrank
+r=8 (the main path). After one warm-up
 run each, ``--pairs`` pairs of timed runs (one run each, a wall ending in
 ``torch.cuda.synchronize()``), the order alternating (parent, this; this,
 parent; ...), each run with its own seed, the same in both trees. Needs a
@@ -35,8 +36,10 @@ import torch
 from .basis_kernel_times import load_port
 from .profile_dense_mag import count_syncs, sync_report
 
-SHAPES = {"headline": (16384, 125, "bfloat16"),
-          "reference": (4096, 509, "float32")}
+# (N_P, m, covariance dtype, store_trajectories)
+SHAPES = {"headline": (16384, 125, "bfloat16", True),
+          "reference": (4096, 509, "float32", True),
+          "131k": (131072, 125, "bfloat16", False)}
 T = 192
 
 
@@ -44,12 +47,13 @@ def _runner(package: str, shape: str, device):
     """run(seed) -> RBPFResult of the port imported as ``package``."""
     engines = importlib.import_module(f"{package}.engines")
     dense_mag = importlib.import_module(f"{package}.workloads.dense_mag")
-    n, m, cov_dtype = SHAPES[shape]
+    n, m, cov_dtype, store = SHAPES[shape]
     problem, _ = dense_mag.build_problem(m, T, seed=1, m_sim=512,
                                          device=device)
     cfg = engines.RBPFConfig(n_particles=n, resampling="systematic",
                              cov_dtype=cov_dtype, symmetrize_cov=False,
-                             kf_kernel="lowrank", lowrank_period=8)
+                             kf_kernel="lowrank", lowrank_period=8,
+                             store_trajectories=store)
     gen = torch.Generator(device=device)
 
     def run(seed):

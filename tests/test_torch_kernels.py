@@ -264,6 +264,60 @@ def test_lowrank_update_and_rebase_match_jax(jx, ny, dtype):
                   np.asarray(P_ref.astype(jnp.float32)), rel)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ny,k", [(1, 0), (1, 5), (2, 24), (3, 6), (3, 17)])
+def test_gather_cp_live_rows_equal_all_rows(dtype, ny, k):
+    """K2's plain version with ``rows=k`` on a Wt [N, 24, nl] whose rows
+    from k on are zero gives the bits of all rows, and of Wt[:, :k]: the
+    correction is summed one factor row at a time, so zero rows add
+    exact zeros."""
+    rng = np.random.default_rng(10 * ny + k)
+    N, nl, rw = 40, 136, 24
+    tdt = getattr(torch, dtype)
+    P = t(rng.normal(size=(N, nl, nl)).astype(np.float32)).to(tdt)
+    C = t((0.3 * rng.normal(size=(N, ny, nl))).astype(np.float32)).to(tdt)
+    Wt = np.zeros((N, rw, nl), np.float32)
+    Wt[:, :k] = 0.1 * rng.normal(size=(N, k, nl))
+    Wt = t(Wt).to(tdt)
+    bidx = t(rng.integers(0, N, size=N).astype(np.int32))
+    live = gather_cp(bidx, C, Wt, P, rows=k)
+    assert torch.equal(live, gather_cp(bidx, C, Wt, P))
+    assert torch.equal(live, gather_cp_plain(bidx, C,
+                                             Wt[:, :k].contiguous(), P))
+    with pytest.raises(ValueError, match="rows"):
+        gather_cp(bidx, C, Wt, P, rows=rw + 1)
+
+
+@pytest.mark.parametrize("ny", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lowrank_live_rows_match_jax(jx, ny, dtype):
+    """``kf_update_lowrank(..., live_rows=2 ny)`` (the factor rows of two
+    steps; _factored leaves the rest zero) against the JAX package's
+    kf_update_lowrank, which reads every row, at the tolerances of
+    test_lowrank_update_and_rebase_match_jax; and bit-equal to the port's
+    all-rows update."""
+    jnp = jx["jnp"]
+    bidx, C, xl, Wt, P_base, y, R = _factored(ny)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    Cs, Wts, Ps = (np.asarray(jnp.asarray(a).astype(jdt).astype(jnp.float32))
+                   for a in (C, Wt, P_base))
+    args = (t(bidx), t(Cs).to(tdt), t(xl), t(Wts).to(tdt), t(Ps).to(tdt),
+            t(y), t(R))
+    port = kf_update_lowrank(*args, live_rows=2 * ny)
+    ref = jx["lowrank"](jnp.asarray(bidx), jnp.asarray(Cs).astype(jdt),
+                        jnp.asarray(xl), jnp.asarray(Wts).astype(jdt),
+                        jnp.asarray(Ps).astype(jdt), jnp.asarray(y),
+                        jnp.asarray(R))
+    rel = 1e-4 if dtype == "float32" else 8e-3
+    _scaled_close(port[0].numpy(), ref[0], rel)
+    _scaled_close(port[1].float().numpy(),
+                  np.asarray(ref[1].astype(jnp.float32)), rel)
+    _scaled_close(port[2].numpy(), ref[2], rel)
+    np.testing.assert_array_equal(port[3].numpy(), np.asarray(ref[3]))
+    for a, b in zip(port, kf_update_lowrank(*args)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("rw", [8, 24, 40])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rebase_matches_jax_at_any_factor_width(jx, rw, dtype):
@@ -561,6 +615,115 @@ class TestOnCard:
         good = torch.ones(n, dtype=torch.bool, device=card)
         good[[7, 11]] = False
         assert bool(torch.isfinite(out[good]).all())
+
+    @staticmethod
+    def _runs_inputs(card, n, nl, rw, live, dtype, seed):
+        """P_base [n, nl, nl], Wt [n, rw, nl] with rows from ``live`` on
+        zero, C [n, 3, nl], all in ``dtype``."""
+        g = torch.Generator(device=card).manual_seed(seed)
+        P_base = torch.randn((n, nl, nl), generator=g, device=card).to(dtype)
+        Wt = torch.zeros((n, rw, nl), device=card, dtype=dtype)
+        Wt[:, :live] = (0.1 * torch.randn((n, live, nl), generator=g,
+                                          device=card)).to(dtype)
+        C = (0.3 * torch.randn((n, 3, nl), generator=g, device=card)
+             ).to(dtype)
+        return g, P_base, Wt, C
+
+    @staticmethod
+    def _pattern(name, n, g, card):
+        """Base indices: the main path's non-decreasing runs, runs that
+        cross the kernel's 32-particle tiles, one run over all particles,
+        runs of one, and unsorted indices with repeats."""
+        if name == "sorted_runs":
+            idx = torch.randint(0, n // 6, (n,), generator=g, device=card)
+            return torch.sort(idx).values.to(torch.int32)
+        if name == "runs_over_tile_edges":
+            return ((torch.arange(n, device=card) + 29) // 7).to(torch.int32)
+        if name == "one_run":
+            return torch.full((n,), 5, dtype=torch.int32, device=card)
+        if name == "runs_of_one":
+            return torch.arange(n, dtype=torch.int32, device=card)
+        return torch.randint(0, n, (n,), generator=g, device=card,
+                             dtype=torch.int32)
+
+    @pytest.mark.parametrize("pattern", ["sorted_runs",
+                                         "runs_over_tile_edges", "one_run",
+                                         "runs_of_one", "unsorted"])
+    def test_gather_cp_runs_index_patterns(self, card, pattern):
+        """K2's bf16 form (one read of P a run of equal base indices) and
+        K8 against their plain versions on every index pattern, at the
+        headline width; two launches give the same bits, K8 those of K2
+        with Wt = 0, and the direct form agrees with the plain version."""
+        from rbslam_tpu_torch.kernels.kf_update import _gather_cp
+        from rbslam_tpu_torch.kernels.probes import (
+            probe_gather_cp,
+            probe_gather_cp_plain,
+        )
+
+        n, nl, rw = 1000, 128, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, rw,
+                                             torch.bfloat16, 17)
+        bidx = self._pattern(pattern, n, g, card)
+        out = gather_cp(bidx, C, Wt, P_base)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base),
+                    torch.bfloat16)
+        assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
+        self._check(_gather_cp(bidx, C, Wt, P_base, None, direct=True),
+                    gather_cp_plain(bidx, C, Wt, P_base), torch.bfloat16)
+        k8 = probe_gather_cp(bidx, C.float(), P_base)
+        self._check(k8, probe_gather_cp_plain(bidx, C.float(), P_base),
+                    torch.bfloat16)
+        assert torch.equal(k8, gather_cp(bidx, C, torch.zeros_like(Wt),
+                                         P_base))
+
+    def test_gather_cp_runs_bad_index_inside_a_run(self, card):
+        """An index outside [0, n_base) in the middle of a run writes NaN
+        for that particle alone; its neighbours in the run are unchanged."""
+        n, nl, rw = 500, 128, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, 12,
+                                             torch.bfloat16, 5)
+        bidx = self._pattern("sorted_runs", n, g, card)
+        good = gather_cp(bidx, C, Wt, P_base, rows=12)
+        bad_at = [40, 41, 77, 300]
+        bidx[40], bidx[41], bidx[77], bidx[300] = -1, n, -7, n + 3
+        out = gather_cp(bidx, C, Wt, P_base, rows=12)
+        keep = torch.ones(n, dtype=torch.bool, device=card)
+        keep[bad_at] = False
+        assert bool(torch.isnan(out[bad_at]).all())
+        assert torch.equal(out[keep], good[keep])
+
+    @pytest.mark.parametrize("live", [0, 5, 16, 17])
+    def test_gather_cp_runs_live_rows_bit_equal(self, card, live):
+        """``rows=k`` gives the bits of all 24 rows where the rows from k on
+        are zero, in the runs form and in the direct form."""
+        from rbslam_tpu_torch.kernels.kf_update import _gather_cp
+
+        n, nl, rw = 700, 128, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, live,
+                                             torch.bfloat16, live)
+        bidx = self._pattern("sorted_runs", n, g, card)
+        out = gather_cp(bidx, C, Wt, P_base, rows=live)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base, live),
+                    torch.bfloat16)
+        assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
+        assert torch.equal(_gather_cp(bidx, C, Wt, P_base, live, True),
+                           _gather_cp(bidx, C, Wt, P_base, None, True))
+
+    @pytest.mark.parametrize("nl", [16, 136, 512])
+    @pytest.mark.parametrize("rw", [12, 48, 96, 192])
+    def test_gather_cp_runs_widths(self, card, nl, rw):
+        """The runs form at factor widths 12-192 (the rebase-period sweep)
+        and map widths of one n8 pair, a ragged 136 and 512, on sorted runs
+        with all but 5 rows live: against the plain version, live rows bit
+        for bit against all rows."""
+        n = 300
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, rw - 5,
+                                             torch.bfloat16, nl + rw)
+        bidx = self._pattern("sorted_runs", n, g, card)
+        out = gather_cp(bidx, C, Wt, P_base, rows=rw - 5)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base),
+                    torch.bfloat16)
+        assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
 
     def test_empty_inputs_launch_nothing(self, card):
         """An empty ensemble returns an empty output without a launch, so

@@ -273,10 +273,10 @@ def test_block_plan_mirror(ny, nl, itemsize, plan):
 
 
 # (ny, rw, nl, itemsize, factor) -> csrc/kf_common.cuh:gather_cp_plan: 0 Wt
-# staged beside the ring, 1 Wt from global memory (always K8's), 2 direct
-# (always at bf16)
+# staged beside the ring, 1 Wt from global memory (always K8's at f32), 2
+# direct, 3 one read of P a run of equal indices (bf16 up to 512 columns)
 @pytest.mark.parametrize("ny,rw,nl,itemsize,factor,plan", [
-    (3, 24, 128, 2, True, 2), (3, 24, 512, 4, True, 0),
+    (3, 24, 128, 2, True, 3), (3, 24, 512, 4, True, 0),
     (3, 40, 512, 4, True, 0), (3, 24, 512, 4, False, 1),
     (3, 24, 128, 4, True, 0), (3, 24, 2048, 4, True, 2),
     (3, 40, 4096, 2, True, 2),
@@ -291,11 +291,12 @@ def test_gather_cp_plan_mirror(ny, rw, nl, itemsize, factor, plan):
 # the headline and reference map widths, worked out by hand from
 # csrc/kf_common.cuh: (K2 gather_cp_plan, K3 rebase_variant). At f32 nl=512
 # the staged Wt stops fitting from rw = 96 (K2 reads it from global memory,
-# K3 takes its wide form), at bf16 nl=512 K3's staged factor from rw = 192
+# K3 takes its wide form), at bf16 nl=512 K3's staged factor from rw = 192;
+# K2's bf16 form streams Wt in 16-row chunks, so rw does not move it
 SWEEP_FORMS = {
-    (128, 2): [(2, 0)] * 5,
+    (128, 2): [(3, 0)] * 5,
     (128, 4): [(0, 0)] * 5,
-    (512, 2): [(2, 0)] * 4 + [(2, 1)],
+    (512, 2): [(3, 0)] * 4 + [(3, 1)],
     (512, 4): [(0, 0)] * 3 + [(1, 1)] * 2,
 }
 

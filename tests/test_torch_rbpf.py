@@ -550,3 +550,30 @@ def test_slice_rebase_period_matches_jax(slice_run, period):
     assert_runs_match(port, ref)
     np.testing.assert_allclose(_np(port.traj_max), _np(ref.traj_max),
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("cov_dtype", ["float32", "bfloat16"])
+def test_slice_live_rows_equal_all_rows(slice_run, monkeypatch, cov_dtype):
+    """The lowrank loop passes K2 ``live_rows`` = ny times the phase of the
+    rebase period (the later rows of Wt are still zero): the run equals,
+    bit for bit in every result field, the same run with every factor row
+    read (``live_rows`` dropped)."""
+    import rbslam_tpu_torch.engines.rbpf as engine
+
+    prob = slice_run["prob"]
+    cfg = _config(RBPFConfig, cov_dtype=cov_dtype)
+    live = run_rbpf(*prob.rbpf_args(), cfg, generator=None, device="cpu",
+                    noise=slice_run["noise"])
+    update = engine.kf_update_lowrank
+    seen = []
+
+    def all_rows(*args, live_rows=None, **kw):
+        seen.append(live_rows)
+        return update(*args, **kw)
+
+    monkeypatch.setattr(engine, "kf_update_lowrank", all_rows)
+    full = run_rbpf(*prob.rbpf_args(), cfg, generator=None, device="cpu",
+                    noise=slice_run["noise"])
+    assert seen == [3 * (t % 8) for t in range(slice_run["T"] - 1)]
+    for field, a in live._asdict().items():
+        assert torch.equal(a, getattr(full, field)), field
