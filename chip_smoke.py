@@ -80,12 +80,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     8's unbroken run (K4 counted); then run_rbps (CPF-AS) on the radio
     problem at phase 7's size (m=128, N_P=100, T=32), 4 sweeps unbroken
     against 2 and a resume to 4 (K6 counted); the seconds of each run;
-16. the profiling helpers: one headline lowrank filter call (phase 4's
-    configuration) inside ``trace_to`` and ``phase_annotation(
-    "rbpf_lowrank")``: the Chrome trace must name the annotation and the
-    kernels of K1-K3 (``jac_table_kernel``, ``gather_cp``, ``rebase``);
-    ``ThroughputMeter``'s particle-steps/s of the traced call and of an
-    untraced one beside phase 4's best of 3;
+16. the engine's phase spans on the profiler's clock: one headline lowrank
+    filter call (phase 4's configuration) inside ``trace_to`` and
+    ``recording()``: the Chrome trace must name the spans and the kernels
+    of K1-K3; each launch of K1, K2 and K3, found by its runtime call's
+    correlation id, must start inside a ``jacobian``, ``update`` or
+    ``rebase`` span (191, 191 and 24 launches) and the spans' launch
+    counters must agree; the per-phase table (benchmark/spans.py);
 17. the command line: ``rbslam_tpu_torch.__main__.main(["dense-radio",
     "--quick"])`` in this process, on the card: finite RMSE lines, K6
     counted;
@@ -141,6 +142,7 @@ the card's peak for their type); the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
@@ -205,10 +207,9 @@ from rbslam_tpu_torch.basis.laplace import domain_center
 from rbslam_tpu_torch import __main__ as cli
 from rbslam_tpu_torch.metrics import aligned_position_rmse
 from rbslam_tpu_torch.utils import (
-    ThroughputMeter,
     ekf_inputs,
     latest_step,
-    phase_annotation,
+    recording,
     trace_to,
 )
 from rbslam_tpu_torch.workloads import (
@@ -1597,70 +1598,71 @@ def phase_resume_radio(device, card, zero, n_sweeps=4, n_first=2, seed=3):
         f"launches {counts} each way")
 
 
-def phase_profiling(device, card, expect, rate4, n_particles=16384,
-                    m=125, T=192):
+def phase_profiling(device, card, expect, n_particles=16384, m=125, T=192):
     """Phase 16: one headline lowrank filter call (phase 4's configuration)
-    inside trace_to and phase_annotation; the Chrome trace must name the
-    annotation and the kernels of K1-K3. ThroughputMeter (synchronized
-    before stop) times three untraced calls before the trace, the traced
-    call, and three untraced calls after it."""
+    inside trace_to and recording(). The Chrome trace names the engine's
+    spans and K1-K3. The shared clock: every K1, K2 and K3 launch, by the
+    start of the runtime call with its correlation id, lies inside a
+    ``jacobian``, ``update`` or ``rebase`` span, and those spans' launch
+    counters hold every launch of their kernel."""
+    from benchmark import spans as bench_spans
+    from benchmark.roofline import family
+
     problem, _ = build_problem(m, T, seed=1, m_sim=512, device=device)
     cfg = filter_config(n_particles, "bfloat16")
     gen = torch.Generator(device=device)
 
-    def run(seed, meter):
+    def run(seed):
         gen.manual_seed(seed)
-        meter.start()
         run_rbpf(*problem.rbpf_args(), cfg, generator=gen, device=device)
         sync(device)
-        meter.stop(n_particles, T)
 
-    def untraced(seeds):
-        """ThroughputMeter over one call per seed, and its best call."""
-        meter, best = ThroughputMeter(), 0.0
-        for i in seeds:
-            t = meter.elapsed
-            run(i, meter)
-            best = max(best, n_particles * T / (meter.elapsed - t))
-        return meter.particle_steps_per_s, best
-
-    run(0, ThroughputMeter())                         # warm-up
-    before = untraced((1, 2, 3))
-    traced = ThroughputMeter()
+    run(0)                                             # warm-up
     with tempfile.TemporaryDirectory() as logdir:
         reset_launch_counts()
-        with trace_to(logdir), phase_annotation("rbpf_lowrank"):
-            run(5, traced)
+        with trace_to(logdir) as prof, recording() as rec:
+            t0 = time.perf_counter()
+            run(5)
+            wall = time.perf_counter() - t0
         counts = launch_counts()
         files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
         if len(files) != 1:
             raise AssertionError(f"trace_to wrote {files}")
         size = os.path.getsize(files[0])
         with open(files[0]) as f:
-            events = json.load(f)["traceEvents"]
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    annotated = sum(e.get("name") == "rbpf_lowrank" for e in events)
-    found = {k: [e["dur"] for e in kernels if k in e.get("name", "")]
-             for k in ("jac_table_kernel", "gather_cp", "rebase")}
-    log(f"[16] trace_to + phase_annotation('rbpf_lowrank') over one headline "
-        f"lowrank call: {size} bytes of Chrome trace, {len(kernels)} kernel "
-        f"events ({sum(e['dur'] for e in kernels) / 1e3:.3f} ms on the "
-        f"device), the annotation {annotated} times; by name: "
-        + ", ".join(f"{k} {len(d)} launches {sum(d) / 1e3:.3f} ms"
-                    for k, d in found.items()) + f"; launches {counts}")
-    if not (annotated and all(found.values())):
-        raise AssertionError("the trace lacks the annotation or a kernel")
-    after = untraced((6, 7, 8))
-    busy = sum(e["dur"] for e in kernels) / 1e6
-    log(f"[16] device busy {busy:.4f} s, {busy / traced.elapsed:.3f} of the "
-        f"traced call's wall ({traced.elapsed:.4f} s)")
-    log(f"[16] ThroughputMeter particle-steps/s: traced "
-        f"{traced.particle_steps_per_s:.1f}; untraced, three calls before the "
-        f"trace {before[0]:.1f} (best call {before[1]:.1f}), three after "
-        f"{after[0]:.1f} (best {after[1]:.1f}); phase 4 best of 3 {rate4:.1f} "
-        f"on {card}")
+    call = bench_spans.collect(rec.spans, prof, wall)
+    owners = bench_spans.device_owners(call)
+    where = {"K1": "jacobian", "K2": "update", "K3": "rebase"}
+    counter = {"K1": "jac3d_rows", "K2": "gather_cp", "K3": "rebase"}
+    found = {k: [] for k in where}
+    for (name, *_), o in zip(call.device, owners):
+        fam = family(name)
+        if fam in found:
+            found[fam].append(bench_spans.OUTSIDE if o == bench_spans.OUTSIDE
+                              else rec.spans[o].name)
+    log(bench_spans.table(call, T))
+    log(f"[16] trace_to + recording() over one headline lowrank call: "
+        f"{size} bytes of Chrome trace, {len(rec.spans)} spans, "
+        f"{len(call.device)} device ops, {len(call.runtime)} runtime calls; "
+        "K1-K3 launches by the span that holds their runtime call: "
+        + ", ".join(f"{k} {dict(collections.Counter(v))}"
+                    for k, v in found.items()) + f"; launches {counts}")
+    for k, span in where.items():
+        in_spans = sum(s.launches.get(counter[k], 0) for s in rec.spans
+                       if s.name == span)
+        if found[k] != [span] * expect[counter[k]] \
+                or in_spans != expect[counter[k]]:
+            raise AssertionError(
+                f"{k}: launches by span {collections.Counter(found[k])}, "
+                f"{in_spans} counted in {span} spans; expected "
+                f"{expect[counter[k]]} in {span}")
+    missing = {"rbpf", "step", "jacobian", "update", "rebase"} - names
+    if missing or not any("gather_cp" in str(n) for n in names):
+        raise AssertionError(f"the Chrome trace lacks {missing} or K2")
+    log(f"[16] {wall:.4f} s a traced call on {card}")
 
 
 def phase_cli(device, card, zero):
@@ -2509,7 +2511,7 @@ def main() -> int:
     # and a remainder period of 7, each closed by one rebase (K3)
     lowrank = {**zero, "grad_basis": 1, "jac3d_rows": 191,
                "gather_cp": 191, "rebase": 24}
-    counts, rate4 = run_path("4", device, 125, 192,
+    counts, _ = run_path("4", device, 125, 192,
                              filter_config(16384, "bfloat16"), card, lowrank)
     run_path("5", device, 509, 192, filter_config(4096, "float32"), card,
              lowrank)
@@ -2552,7 +2554,7 @@ def main() -> int:
     phase_terrain_pf(device, card, zero)
     phase_mag_localization(device, card, zero)
     phase_sparse_visual(device, card, zero)
-    phase_profiling(device, card, lowrank, rate4)
+    phase_profiling(device, card, lowrank)
     phase_cli(device, card, zero)
     phase_mesh(device, card, zero, problem8, res8)
     phase_kalman_one_particle(device, zero)

@@ -66,6 +66,7 @@ from ..ops.kalman import (
     kalman_update_masked_batched,
 )
 from ..ops.resampling import _SCHEMES, resample_indices
+from ..utils.profiling import phase_annotation, spanned
 from ..kernels.kf_update import (
     kf_rebase,
     kf_update_block_gather,
@@ -290,6 +291,7 @@ def _check_noise(noise, T, n_p, n_noise, resampling, extra=(),
             f"{resampling} resampling")
 
 
+@spanned("rbpf")
 def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
              config: RBPFConfig, *, generator: Optional[torch.Generator],
              device, noise=None, mask=None, mesh=None) -> RBPFResult:
@@ -345,7 +347,7 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             f"3; this model ({type(model).__name__}, ny={model.ny}) runs "
             "the 'xla' path, which launches none of the Kalman update "
             "kernels",
-            stacklevel=2,
+            stacklevel=3,      # the caller's line, past @spanned's frame
         )
     block_gather = config.kf_kernel == "block_gather" and kernel_model
     # T == 1 has no steps: the lowrank config runs step 0 as the xla path
@@ -380,18 +382,25 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         ens = ShardedEnsemble(n_p, mesh, model.n_lin,
                               config.dist_resampling)
 
-    def dense_update(t, xn, xl, P, symmetrize_out):
+    def jacobian(xn):
+        """The dense Jacobian of xn padded to the map's width (nl_pad); a
+        sparse model's comes with its prediction inside the update
+        (None)."""
+        if sparse:
+            return None
+        return _pad_last(_jacobian_batch(model, xn), nl_pad)
+
+    def dense_update(t, C, xn, xl, P, symmetrize_out):
         """Step t's measurement update (the xla path): the dense update
-        with the Jacobian of xn, or the masked update of a sparse model.
+        with the Jacobian C, or the masked update of a sparse model.
         Returns (xl', P', logw, retried)."""
         if sparse:
             yhat, H = model.measure(xn, xl)
             return kalman_update_masked_batched(
                 yhat, H, P, xl, y[t], R, mask[t], config.jitter, ens.map)
         return kalman_update_dense_batched(
-            _pad_last(_jacobian_batch(model, xn), P.shape[-1]), P, xl, y[t],
-            R, config.jitter, config.joseph, symmetrize_out=symmetrize_out,
-            axis=ens.map)
+            C, P, xl, y[t], R, config.jitter, config.joseph,
+            symmetrize_out=symmetrize_out, axis=ens.map)
 
     u_shape = ens.u_shape(config.resampling)
     if noise is None and generator is None:
@@ -445,11 +454,13 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     P0 = P0.expand((ens.n_local,) + P0.shape)
 
     # --- step t = 0: no prediction (src/particleFilter.m:103) ---
-    xl, P, logw1, retried0 = dense_update(
-        0, xn0, xl0, P0, block_gather or lowrank or config.symmetrize_cov)
-    del P0
-    retries = retried0.sum()
-    w1, logw1n, logz0, logw1_all = ens.normalize(logw1)
+    with phase_annotation("step0", memory_of=device):
+        xl, P, logw1, retried0 = dense_update(
+            0, jacobian(xn0), xn0, xl0, P0,
+            block_gather or lowrank or config.symmetrize_cov)
+        del P0
+        retries = retried0.sum()
+        w1, logw1n, logz0, logw1_all = ens.normalize(logw1)
     logw_n, logw_all = logw1n, logw1_all
     log_np = math.log(n_p)
 
@@ -490,115 +501,140 @@ def run_rbpf(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             xn_hist[t + 1] = xn
         return logw_n, logw_all
 
-    if lowrank:
-        # --- low-rank factored covariance loop ------------------------
-        ny = model.ny
-        r = config.lowrank_period
-        P_base = P
-        t = 0
-        while t < n_steps:
-            length = min(r, n_steps - t)
-            Wt = torch.zeros((n_p, ny * length, nl_pad), dtype=cov_dtype,
-                             device=device)
-            bidx = ar
-            for phase in range(length):
-                u, w_dyn = draw(t)
-                ai, logw_prev = resample(u, logw_n, logw_all)
-                xn_a, xl_a = xn, xl
-                if ai is not None:
-                    xn_a, xl_a = xn[ai], xl[ai]
-                    bidx = bidx[ai]
-                    Wt = Wt[ai]
-                xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
-                if model.meas_jacobian_batch_rows is not None:
-                    C = model.meas_jacobian_batch_rows(xn, nl_pad, cov_dtype)
-                else:
-                    C = _pad_last(_jacobian_batch(model, xn),
-                                  nl_pad).to(cov_dtype)
-                # the rows of later phases are still zero: K2 skips them
-                xl, wnew, logw, bad = kf_update_lowrank(
-                    bidx, C, xl_a, Wt, P_base, y[t + 1], R, config.jitter,
-                    live_rows=ny * phase,
-                )
-                # this phase's factor rows are still zero (gathers permute
-                # particles, not rows): write the new rows in place
-                Wt[:, ny * phase:ny * phase + ny] = wnew
-                retries = retries + bad.sum()
-                logw_n, logw_all = record(t, ai, logw_prev, logw, logw_n)
-                t += 1
-            P_base = kf_rebase(bidx, Wt, P_base)
-        P = P_base
-    else:
-        # --- dense per-step loop: xla or block_gather -------------------
-        for t in range(n_steps):
-            u, w_dyn = draw(t)
-            ai, logw_prev = resample(u, logw_n, logw_all)
-            xn_a, xl_a = ((xn, xl) if ai is None
-                          else (ens.take(xn, ai), ens.take(xl, ai)))
-            xn = _dynamics_batch(model, w_dyn, xn_a, dx[t], dt[t], Q[t])
-            if block_gather:
-                # K5 gathers the pre-resampling P itself
-                C = _pad_last(_jacobian_batch(model, xn), nl_pad)
-                xl, P, logw, bad = kf_update_block_gather(
-                    ar if ai is None else ai, C, xl_a, P, y[t + 1], R,
-                    config.jitter,
-                )
-            else:
-                xl, P, logw, bad = dense_update(
-                    t + 1, xn, xl_a, P if ai is None else ens.take(P, ai),
-                    config.symmetrize_cov)
-            retries = retries + bad.sum()
-            logw_n, logw_all = record(t, ai, logw_prev, logw, logw_n)
+    with phase_annotation("loop", memory_of=device):
+        if lowrank:
+            # --- low-rank factored covariance loop --------------------
+            ny = model.ny
+            r = config.lowrank_period
+            P_base = P
+            t = 0
+            while t < n_steps:
+                length = min(r, n_steps - t)
+                Wt = torch.zeros((n_p, ny * length, nl_pad),
+                                 dtype=cov_dtype, device=device)
+                bidx = ar
+                for phase in range(length):
+                    with phase_annotation("step", t=t + 1):
+                        with phase_annotation("resample"):
+                            u, w_dyn = draw(t)
+                            ai, logw_prev = resample(u, logw_n, logw_all)
+                            xn_a, xl_a = xn, xl
+                            if ai is not None:
+                                xn_a, xl_a = xn[ai], xl[ai]
+                                bidx = bidx[ai]
+                                Wt = Wt[ai]
+                        with phase_annotation("dynamics"):
+                            xn = _dynamics_batch(model, w_dyn, xn_a, dx[t],
+                                                 dt[t], Q[t])
+                        with phase_annotation("jacobian"):
+                            if model.meas_jacobian_batch_rows is not None:
+                                C = model.meas_jacobian_batch_rows(
+                                    xn, nl_pad, cov_dtype)
+                            else:
+                                C = jacobian(xn).to(cov_dtype)
+                        with phase_annotation("update"):
+                            # the rows of later phases are still zero: K2
+                            # skips them
+                            xl, wnew, logw, bad = kf_update_lowrank(
+                                bidx, C, xl_a, Wt, P_base, y[t + 1], R,
+                                config.jitter, live_rows=ny * phase,
+                            )
+                            # this phase's factor rows are still zero
+                            # (gathers permute particles, not rows): write
+                            # the new rows in place
+                            Wt[:, ny * phase:ny * phase + ny] = wnew
+                            retries = retries + bad.sum()
+                        with phase_annotation("weights"):
+                            logw_n, logw_all = record(t, ai, logw_prev, logw,
+                                                      logw_n)
+                    t += 1
+                with phase_annotation("rebase", t=t):
+                    P_base = kf_rebase(bidx, Wt, P_base)
+            P = P_base
+        else:
+            # --- dense per-step loop: xla or block_gather ---------------
+            for t in range(n_steps):
+                with phase_annotation("step", t=t + 1):
+                    with phase_annotation("resample"):
+                        u, w_dyn = draw(t)
+                        ai, logw_prev = resample(u, logw_n, logw_all)
+                        xn_a, xl_a = ((xn, xl) if ai is None
+                                      else (ens.take(xn, ai),
+                                            ens.take(xl, ai)))
+                        if ai is not None and not block_gather:
+                            P = ens.take(P, ai)   # K5 gathers P itself
+                    with phase_annotation("dynamics"):
+                        xn = _dynamics_batch(model, w_dyn, xn_a, dx[t],
+                                             dt[t], Q[t])
+                    with phase_annotation("jacobian"):
+                        C = jacobian(xn)
+                    with phase_annotation("update"):
+                        if block_gather:
+                            xl, P, logw, bad = kf_update_block_gather(
+                                ar if ai is None else ai, C, xl_a, P,
+                                y[t + 1], R, config.jitter,
+                            )
+                        else:
+                            xl, P, logw, bad = dense_update(
+                                t + 1, C, xn, xl_a, P,
+                                config.symmetrize_cov)
+                        retries = retries + bad.sum()
+                    with phase_annotation("weights"):
+                        logw_n, logw_all = record(t, ai, logw_prev, logw,
+                                                  logw_n)
 
-    # prepend step-0 outputs
-    top0, mean0 = ens.top_and_mean(xn0, w1, logw1_all)
-    traj_max = torch.cat([top0[None], traj_max_t])
-    traj_mean = torch.cat([mean0[None], traj_mean_t])
-    ess = torch.cat([ess_from_logw(logw1_all)[None], ess_t])
-    log_evidence = (logz0 - log_np) + torch.sum(logz_t)
+    with phase_annotation("finish", memory_of=device):
+        # prepend step-0 outputs
+        top0, mean0 = ens.top_and_mean(xn0, w1, logw1_all)
+        traj_max = torch.cat([top0[None], traj_max_t])
+        traj_mean = torch.cat([mean0[None], traj_mean_t])
+        ess = torch.cat([ess_from_logw(logw1_all)[None], ess_t])
+        log_evidence = (logz0 - log_np) + torch.sum(logz_t)
 
-    iw_max = torch.argmax(logw_all)
-    if xn_hist is not None:
-        xn_traj = reconstruct_trajectories(ens.whole(xn_hist, 1),
-                                           ens.whole(ancestors, 1))
-        traj_sample_iwmax = xn_traj.index_select(1, iw_max.reshape(1))[:, 0]
-        xn_traj = ens.local(xn_traj, 1)
-    else:
-        xn_hist = torch.zeros((0,), device=device)
-        xn_traj = traj_sample_iwmax = torch.zeros((0,), device=device)
+        iw_max = torch.argmax(logw_all)
+        if xn_hist is not None:
+            xn_traj = reconstruct_trajectories(ens.whole(xn_hist, 1),
+                                               ens.whole(ancestors, 1))
+            traj_sample_iwmax = xn_traj.index_select(
+                1, iw_max.reshape(1))[:, 0]
+            xn_traj = ens.local(xn_traj, 1)
+        else:
+            xn_hist = torch.zeros((0,), device=device)
+            xn_traj = traj_sample_iwmax = torch.zeros((0,), device=device)
 
-    xl_f = xl[..., :n_lin]
-    P_f = P[..., :n_lin]
-    if nl_pad != n_lin:
-        P_f = P_f[:, :n_lin]
-    if config.store_trajectories:
-        P_f = P_f.to(f32)
-    w_f = torch.exp(logw_n)
-    xl_mean = ens.sum(torch.sum(xl_f * w_f[:, None], dim=0))
-    dev = xl_mean[None, :] - xl_f
-    P_mean = ens.whole_rows(
-        ens.sum(_weighted_sum(w_f.to(P_f.dtype), P_f))
-        + ens.sum(torch.einsum("p,pi,pj->ij", w_f, dev[:, ens.map_rows], dev)),
-        0)
-    return RBPFResult(
-        traj_max=traj_max,
-        traj_mean=traj_mean,
-        xl_max=ens.row(xl_f, iw_max),
-        xl_mean=xl_mean,
-        P_max=ens.whole_rows(ens.row(P_f, iw_max).to(f32), 0),
-        P_mean=P_mean,
-        traj_sample_iwmax=traj_sample_iwmax,
-        xn_traj=xn_traj,
-        xn_hist=xn_hist,
-        ancestors=ancestors,
-        logw=logw_n,
-        xn=xn,
-        xl=xl_f,
-        P=P_f,
-        ess=ess,
-        log_evidence=log_evidence,
-        chol_retries=ens.sum(retries),
-    )
+        xl_f = xl[..., :n_lin]
+        P_f = P[..., :n_lin]
+        if nl_pad != n_lin:
+            P_f = P_f[:, :n_lin]
+        if config.store_trajectories:
+            P_f = P_f.to(f32)
+        w_f = torch.exp(logw_n)
+        xl_mean = ens.sum(torch.sum(xl_f * w_f[:, None], dim=0))
+        dev = xl_mean[None, :] - xl_f
+        P_mean = ens.whole_rows(
+            ens.sum(_weighted_sum(w_f.to(P_f.dtype), P_f))
+            + ens.sum(torch.einsum("p,pi,pj->ij", w_f, dev[:, ens.map_rows],
+                                   dev)),
+            0)
+        return RBPFResult(
+            traj_max=traj_max,
+            traj_mean=traj_mean,
+            xl_max=ens.row(xl_f, iw_max),
+            xl_mean=xl_mean,
+            P_max=ens.whole_rows(ens.row(P_f, iw_max).to(f32), 0),
+            P_mean=P_mean,
+            traj_sample_iwmax=traj_sample_iwmax,
+            xn_traj=xn_traj,
+            xn_hist=xn_hist,
+            ancestors=ancestors,
+            logw=logw_n,
+            xn=xn,
+            xl=xl_f,
+            P=P_f,
+            ess=ess,
+            log_evidence=log_evidence,
+            chol_retries=ens.sum(retries),
+        )
 
 
 def _row_at_max(x, logw):

@@ -59,6 +59,7 @@ from ..ops.kalman import (
 )
 from ..ops.resampling import _SCHEMES, resample_indices, sample_categorical
 from ..utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from ..utils.profiling import phase_annotation, spanned
 from .rbpf import (
     _DTYPES,
     Ensemble,
@@ -343,6 +344,7 @@ def _sweeps_like(device, with_generator: bool) -> dict:
     return like
 
 
+@spanned("rbps")
 def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
                 config: RBPSConfig, generator, device, noise,
                 checkpoint_dir: Optional[str], mesh=None) -> RBPSResult:
@@ -433,11 +435,14 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
             start_k = min(step, config.n_sweeps)
 
     for k in range(start_k, config.n_sweeps):
-        out = sweep_fn(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
-                       config, xnk, k == 0, draws_of(k))
+        with phase_annotation("sweep", k=k):
+            out = sweep_fn(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                           config, xnk, k == 0, draws_of(k))
         xnk = out.xnk
         outs.append(out)
-        if checkpoint_dir is not None:
+        if checkpoint_dir is None:
+            continue
+        with phase_annotation("checkpoint", k=k):
             saved.append(out._replace(ancestors=ens.whole(out.ancestors, 1)))
             tree = {"xnk": xnk, "sweeps": stacked(saved)}
             if noise is None:

@@ -64,6 +64,7 @@ from ..ops.kalman import (
 )
 from ..ops.resampling import sample_categorical
 from ..parallel.map_axis import quad_partial
+from ..utils.profiling import phase_annotation
 from .rbpf import (
     _DTYPES,
     Ensemble,
@@ -201,165 +202,181 @@ def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     n_p = config.n_particles
     T, ny = y.shape
     device = y.device
-    n_lin = model.n_lin
-    cov_dtype = _DTYPES[config.cov_dtype]
-    Rinv = torch.linalg.inv(R)
-    if mesh is None:
-        ens = Ensemble(n_p)
-    else:
-        from ..parallel.sharded import ShardedEnsemble
+    with phase_annotation("setup", memory_of=device):
+        n_lin = model.n_lin
+        cov_dtype = _DTYPES[config.cov_dtype]
+        Rinv = torch.linalg.inv(R)
+        if mesh is None:
+            ens = Ensemble(n_p)
+        else:
+            from ..parallel.sharded import ShardedEnsemble
 
-        ens = ShardedEnsemble(n_p, mesh, n_lin)
-    axis, rows, n_loc = ens.map, ens.map_rows, ens.n_local
-    # the reference particle (the last) on this process: its local index
-    ref = n_p - 1 - ens.start
-    has_ref = 0 <= ref < n_loc
+            ens = ShardedEnsemble(n_p, mesh, n_lin)
+        axis, rows, n_loc = ens.map, ens.map_rows, ens.n_local
+        # the reference particle (the last) on this process: its local index
+        ref = n_p - 1 - ens.start
+        has_ref = 0 <= ref < n_loc
 
-    xn = ens.local(x0_nonlin.expand(n_p, -1)).clone()
-    if not is_first and has_ref:
-        xn[ref] = xnk[0]
-    xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
-    xl0 = ens.local(xl0)
+        xn = ens.local(x0_nonlin.expand(n_p, -1)).clone()
+        if not is_first and has_ref:
+            xn[ref] = xnk[0]
+        xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
+        xl0 = ens.local(xl0)
 
-    # initial information pair; P0 treated as diagonal (:110-115)
-    p0_diag = torch.diagonal(P0_lin)
-    Imat0_single = torch.diag(1.0 / p0_diag)
-    ivec0 = xl0 / p0_diag[None, :]
-    hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_loc)
-    P0 = P0_lin.to(cov_dtype)[rows]
-    P0 = P0.expand((n_loc,) + P0.shape)
-    Imat0 = Imat0_single.to(cov_dtype)[rows]
-    Imat0 = Imat0.expand((n_loc,) + Imat0.shape)
-    half_logdet_R = 0.5 * torch.linalg.slogdet(R)[1]
+        # initial information pair; P0 treated as diagonal (:110-115)
+        p0_diag = torch.diagonal(P0_lin)
+        Imat0_single = torch.diag(1.0 / p0_diag)
+        ivec0 = xl0 / p0_diag[None, :]
+        hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_loc)
+        P0 = P0_lin.to(cov_dtype)[rows]
+        P0 = P0.expand((n_loc,) + P0.shape)
+        Imat0 = Imat0_single.to(cov_dtype)[rows]
+        Imat0 = Imat0.expand((n_loc,) + Imat0.shape)
+        half_logdet_R = 0.5 * torch.linalg.slogdet(R)[1]
 
-    woodbury = config.ancestor_form == "woodbury"
-    precomp = config.suffix_precompute and not is_first
-    ivec_add = Imat_add = None
-    if not is_first:
-        C_ref = _jacobian_batch(model, xnk)                  # [T, ny, n_lin]
-        # whole-trajectory suffix pair (:132-146)
-        terms_iv = torch.einsum("tik,ij,tj->tk", C_ref, Rinv, y)
-        ivec_add = torch.sum(terms_iv, dim=0)
-        Imat_add = torch.einsum("tki,kl,tlj->ij", C_ref, Rinv, C_ref)
-        if precomp:
-            # suffix sums for every t at once: ivec_adds[t] =
-            # sum_{j >= t} C_j' R^-1 y_j (one reverse cumulative sum per
-            # sweep instead of T sequential downdates)
-            ivec_adds = torch.flip(
-                torch.cumsum(torch.flip(terms_iv, (0,)), dim=0), (0,))
-            if not woodbury:
-                terms_im = torch.einsum("tki,kl,tlj->tij", C_ref, Rinv, C_ref)
-                Imat_adds = torch.flip(
-                    torch.cumsum(torch.flip(terms_im, (0,)), dim=0), (0,))
-                del terms_im
+        woodbury = config.ancestor_form == "woodbury"
+        precomp = config.suffix_precompute and not is_first
+        ivec_add = Imat_add = None
+        if not is_first:
+            C_ref = _jacobian_batch(model, xnk)          # [T, ny, n_lin]
+            # whole-trajectory suffix pair (:132-146)
+            terms_iv = torch.einsum("tik,ij,tj->tk", C_ref, Rinv, y)
+            ivec_add = torch.sum(terms_iv, dim=0)
+            Imat_add = torch.einsum("tki,kl,tlj->ij", C_ref, Rinv, C_ref)
+            if precomp:
+                # suffix sums for every t at once: ivec_adds[t] =
+                # sum_{j >= t} C_j' R^-1 y_j (one reverse cumulative sum per
+                # sweep instead of T sequential downdates)
+                ivec_adds = torch.flip(
+                    torch.cumsum(torch.flip(terms_iv, (0,)), dim=0), (0,))
+                if not woodbury:
+                    terms_im = torch.einsum("tki,kl,tlj->tij", C_ref, Rinv,
+                                            C_ref)
+                    Imat_adds = torch.flip(
+                        torch.cumsum(torch.flip(terms_im, (0,)), dim=0), (0,))
+                    del terms_im
 
-    # Woodbury ancestor form: carry W = (Imat+ImatAdd)^-1 in the Imat slot
-    # and hldM = 0.5 log|Imat+ImatAdd| alongside, maintained by exact
-    # rank-ny transitions instead of per-step factorizations
-    use_wood = woodbury and not is_first
-    RiT = torch.linalg.inv(torch.linalg.cholesky(R)).T       # U = C' L_R^-T
+        # Woodbury ancestor form: carry W = (Imat+ImatAdd)^-1 in the Imat slot
+        # and hldM = 0.5 log|Imat+ImatAdd| alongside, maintained by exact
+        # rank-ny transitions instead of per-step factorizations
+        use_wood = woodbury and not is_first
+        RiT = torch.linalg.inv(torch.linalg.cholesky(R)).T   # U = C' L_R^-T
 
-    def meas_all(xn, xl, P, ivec, Imat, hldp, y_t):
-        C = _jacobian_batch(model, xn)
-        return (C,) + _kf_info_update_batched(
-            C, P, xl, ivec, Imat, hldp, y_t, R, Rinv, half_logdet_R,
-            config.jitter, config.joseph, config.symmetrize_cov,
-            update_imat=not use_wood, axis=axis,
+        def meas_all(xn, xl, P, ivec, Imat, hldp, y_t):
+            C = _jacobian_batch(model, xn)
+            return (C,) + _kf_info_update_batched(
+                C, P, xl, ivec, Imat, hldp, y_t, R, Rinv, half_logdet_R,
+                config.jitter, config.joseph, config.symmetrize_cov,
+                update_imat=not use_wood, axis=axis,
+            )
+
+        # t = 0
+        C0, xl, P, ivec, Imat, hldp, logw1, retried0 = meas_all(
+            xn, xl0, P0, ivec0, Imat0, hldp0, y[0]
         )
+        retries = retried0.sum()
+        # factorizations every process does alike (counted once)
+        retries_shared = torch.zeros((), dtype=retries.dtype, device=device)
+        _, logw_n, _, logw_all = ens.normalize(logw1)
 
-    # t = 0
-    C0, xl, P, ivec, Imat, hldp, logw1, retried0 = meas_all(
-        xn, xl0, P0, ivec0, Imat0, hldp0, y[0]
-    )
-    retries = retried0.sum()
-    # factorizations every process does alike (counted once)
-    retries_shared = torch.zeros((), dtype=retries.dtype, device=device)
-    _, logw_n, _, logw_all = ens.normalize(logw1)
+        if use_wood:
+            # W(1) = (Imat(0 post) + ImatAdd_[1:T))^-1. All rows of xn are the
+            # broadcast initial state except the pinned reference particle
+            # (the last), so two nl x nl factorizations cover the ensemble.
+            C2 = ens.rows_at(C0, torch.tensor([0, n_p - 1], device=device))
+            D2 = torch.einsum("pki,kl,plj->pij", C2, Rinv, C2)
+            Add1 = Imat_add - C_ref[0].T @ Rinv @ C_ref[0]
+            M2 = Imat0_single[None] + D2 + Add1[None]
+            L2, retried_w1 = psd_cholesky(M2, config.jitter)
+            W2 = torch.cholesky_solve(
+                torch.eye(n_lin, device=device).expand(2, n_lin, n_lin), L2)
+            hld2 = half_logdet(L2)
+            Imat = W2[0, rows].to(cov_dtype).expand(n_loc, -1, -1).clone()
+            hldM = hld2[0].expand(n_loc).clone()
+            if has_ref:
+                Imat[ref] = W2[1, rows].to(cov_dtype)
+                hldM[ref] = hld2[1]
+            retries_shared = retries_shared + retried_w1.sum()
+        else:
+            hldM = torch.zeros((n_loc,), device=device)
 
-    if use_wood:
-        # W(1) = (Imat(0 post) + ImatAdd_[1:T))^-1. All rows of xn are the
-        # broadcast initial state except the pinned reference particle
-        # (the last), so two nl x nl factorizations cover the ensemble.
-        C2 = ens.rows_at(C0, torch.tensor([0, n_p - 1], device=device))
-        D2 = torch.einsum("pki,kl,plj->pij", C2, Rinv, C2)
-        Add1 = Imat_add - C_ref[0].T @ Rinv @ C_ref[0]
-        M2 = Imat0_single[None] + D2 + Add1[None]
-        L2, retried_w1 = psd_cholesky(M2, config.jitter)
-        W2 = torch.cholesky_solve(
-            torch.eye(n_lin, device=device).expand(2, n_lin, n_lin), L2)
-        hld2 = half_logdet(L2)
-        Imat = W2[0, rows].to(cov_dtype).expand(n_loc, -1, -1).clone()
-        hldM = hld2[0].expand(n_loc).clone()
-        if has_ref:
-            Imat[ref] = W2[1, rows].to(cov_dtype)
-            hldM[ref] = hld2[1]
-        retries_shared = retries_shared + retried_w1.sum()
-    else:
-        hldM = torch.zeros((n_loc,), device=device)
-
-    xn_hist = torch.empty((T, n_loc, xn.shape[-1]), device=device)
-    xn_hist[0] = xn
-    ancestors = torch.empty((T - 1, n_loc), dtype=torch.int32, device=device)
-    ess = torch.empty((T,), device=device)
-    ess[0] = _ess(logw_all)
+        xn_hist = torch.empty((T, n_loc, xn.shape[-1]), device=device)
+        xn_hist[0] = xn
+        ancestors = torch.empty((T - 1, n_loc), dtype=torch.int32,
+                                device=device)
+        ess = torch.empty((T,), device=device)
+        ess[0] = _ess(logw_all)
 
     for t in range(1, T):
-        i = t - 1
-        u_res, w_dyn, u_anc = draws.step(i)
-        ai, _ = ens.resample(u_res, torch.exp(logw_n), config.resampling)
-        if not is_first:
-            if precomp:
-                ivec_add = ivec_adds[t]
-                if not use_wood:
-                    Imat_add = Imat_adds[t]
-            else:
-                # downdate the suffix pair by the (t-1) term (:194-201)
-                CtRinv_prev = C_ref[t - 1].T @ Rinv
-                ivec_add = ivec_add - CtRinv_prev @ y[t - 1]
-                Imat_add = Imat_add - CtRinv_prev @ C_ref[t - 1]
+        with phase_annotation("step", memory_of=device, t=t):
+            i = t - 1
+            with phase_annotation("resample"):
+                u_res, w_dyn, u_anc = draws.step(i)
+                ai, _ = ens.resample(u_res, torch.exp(logw_n),
+                                     config.resampling)
+            if not is_first:
+                with phase_annotation("ancestor"):
+                    if precomp:
+                        ivec_add = ivec_adds[t]
+                        if not use_wood:
+                            Imat_add = Imat_adds[t]
+                    else:
+                        # downdate the suffix pair by the (t-1) term
+                        # (:194-201)
+                        CtRinv_prev = C_ref[t - 1].T @ Rinv
+                        ivec_add = ivec_add - CtRinv_prev @ y[t - 1]
+                        Imat_add = Imat_add - CtRinv_prev @ C_ref[t - 1]
 
-            logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i], dt[i], Q[i])
+                    logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i],
+                                                dt[i], Q[i])
+                    if use_wood:
+                        logw_meas = _woodbury_future_log_weights(
+                            ivec, Imat, P, hldp, hldM, ivec_add, axis
+                        )
+                    else:
+                        logw_meas, retried = _info_future_log_weights(
+                            ivec, Imat, P, hldp, ivec_add, Imat_add,
+                            config.jitter, axis
+                        )
+                        retries = retries + retried.sum()
+                    pa_all = ens.normalize(logw_n + logw_dyn + logw_meas)[3]
+                    anc = sample_categorical(u_anc, torch.exp(pa_all))
+                    if has_ref:
+                        ai[ref] = anc
+
+            with phase_annotation("dynamics"):
+                xn = _dynamics_batch(model, ens.local(w_dyn),
+                                     ens.take(xn, ai), dx[i], dt[i], Q[i])
+                if not is_first and has_ref:
+                    xn[ref] = xnk[t]
+            with phase_annotation("update"):
+                hldM = ens.take(hldM, ai)
+                C_t, xl, P, ivec, Imat, hldp, logw, retried_kf = meas_all(
+                    xn, ens.take(xl, ai), ens.take(P, ai),
+                    ens.take(ivec, ai), ens.take(Imat, ai),
+                    ens.take(hldp, ai), y[t]
+                )
+                retries = retries + retried_kf.sum()
             if use_wood:
-                logw_meas = _woodbury_future_log_weights(
-                    ivec, Imat, P, hldp, hldM, ivec_add, axis
-                )
-            else:
-                logw_meas, retried = _info_future_log_weights(
-                    ivec, Imat, P, hldp, ivec_add, Imat_add, config.jitter,
-                    axis
-                )
-                retries = retries + retried.sum()
-            pa_all = ens.normalize(logw_n + logw_dyn + logw_meas)[3]
-            anc = sample_categorical(u_anc, torch.exp(pa_all))
-            if has_ref:
-                ai[ref] = anc
+                with phase_annotation("woodbury"):
+                    # W: M(t) -> M(t+1) = M(t) + C_t' R^-1 C_t
+                    #                           - C_ref' R^-1 C_ref
+                    U = torch.einsum("pki,km->pim", C_t, RiT)
+                    Imat, hldM, r_u = _woodbury_rank_ny(
+                        Imat, hldM, U, 1.0, config.jitter, axis)
+                    Vb = (C_ref[t].T @ RiT)[None].expand(n_loc, n_lin, ny)
+                    Imat, hldM, r_d = _woodbury_rank_ny(
+                        Imat, hldM, Vb, -1.0, config.jitter, axis)
+                    retries = retries + r_u.sum() + r_d.sum()
+            with phase_annotation("weights"):
+                _, logw_n, _, logw_all = ens.normalize(logw)
+                xn_hist[t] = xn
+                ancestors[i] = ai
+                ess[t] = _ess(logw_all)
 
-        xn = _dynamics_batch(model, ens.local(w_dyn), ens.take(xn, ai),
-                             dx[i], dt[i], Q[i])
-        if not is_first and has_ref:
-            xn[ref] = xnk[t]
-        hldM = ens.take(hldM, ai)
-        C_t, xl, P, ivec, Imat, hldp, logw, retried_kf = meas_all(
-            xn, ens.take(xl, ai), ens.take(P, ai), ens.take(ivec, ai),
-            ens.take(Imat, ai), ens.take(hldp, ai), y[t]
-        )
-        retries = retries + retried_kf.sum()
-        if use_wood:
-            # W: M(t) -> M(t+1) = M(t) + C_t' R^-1 C_t - C_ref' R^-1 C_ref
-            U = torch.einsum("pki,km->pim", C_t, RiT)
-            Imat, hldM, r_u = _woodbury_rank_ny(Imat, hldM, U, 1.0,
-                                                config.jitter, axis)
-            Vb = (C_ref[t].T @ RiT)[None].expand(n_loc, n_lin, ny)
-            Imat, hldM, r_d = _woodbury_rank_ny(Imat, hldM, Vb, -1.0,
-                                                config.jitter, axis)
-            retries = retries + r_u.sum() + r_d.sum()
-        _, logw_n, _, logw_all = ens.normalize(logw)
-        xn_hist[t] = xn
-        ancestors[i] = ai
-        ess[t] = _ess(logw_all)
-
-    return _finish_sweep(xn_hist, ancestors, logw_all, xl, P, ess, retries,
-                         draws, ens, retries_shared)
+    with phase_annotation("finish", memory_of=device):
+        return _finish_sweep(xn_hist, ancestors, logw_all, xl, P, ess,
+                             retries, draws, ens, retries_shared)
 
 
 def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,

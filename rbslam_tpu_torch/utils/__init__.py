@@ -1,5 +1,5 @@
-"""Problem construction from numpy arrays, per-sweep checkpoints and
-profiling helpers.
+"""Problem construction from numpy arrays, per-sweep checkpoints, and the
+engines' phase spans and profiling helpers.
 
 The JAX package's ``utils/cache.py`` (XLA's persistent compilation cache)
 has no counterpart here: the port compiles its CUDA kernels once per
@@ -15,8 +15,8 @@ from .interop import (
     problem_from_numpy,
     radio_problem_from_numpy,
 )
-from .profiling import ThroughputMeter, phase_annotation, trace_to
+from .profiling import phase_annotation, recording, trace_to
 
 __all__ = ["Problem", "ekf_inputs", "problem_from_numpy",
            "radio_problem_from_numpy", "save_checkpoint", "load_checkpoint",
-           "latest_step", "phase_annotation", "ThroughputMeter", "trace_to"]
+           "latest_step", "phase_annotation", "recording", "trace_to"]

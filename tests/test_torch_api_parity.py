@@ -30,6 +30,9 @@ ALLOWED = {
         "rbslam_tpu_torch/kernels/_lib.py does its job",
     ("rbslam_tpu.utils.cache", "enable_compilation_cache"):
         "re-exported by rbslam_tpu.utils from the module above",
+    ("rbslam_tpu.utils.profiling", "ThroughputMeter"):
+        "read by no path of the port; the benchmark's host clock times "
+        "engine calls (benchmark/run.py)",
     ("rbslam_tpu.kernels.basis_eval", "grad_basis_pallas"):
         "the Pallas entry; the CUDA wrapper is grad_basis",
     ("rbslam_tpu.kernels.basis_eval", "phi_basis_pallas"):

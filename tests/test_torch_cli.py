@@ -4,7 +4,6 @@ package's, and its profiling helpers (utils/profiling.py), on the CPU."""
 import glob
 import json
 import os
-import time
 
 import pytest
 
@@ -13,7 +12,6 @@ torch = pytest.importorskip("torch")
 from rbslam_tpu import __main__ as jmain  # noqa: E402
 from rbslam_tpu_torch import __main__ as tmain  # noqa: E402
 from rbslam_tpu_torch.utils import (  # noqa: E402
-    ThroughputMeter,
     phase_annotation,
     trace_to,
 )
@@ -56,18 +54,6 @@ def test_phase_annotation_names_a_profiler_scope():
         with phase_annotation("rbpf_step"):
             x @ x
     assert "rbpf_step" in {e.key for e in prof.key_averages()}
-
-
-def test_throughput_meter():
-    meter = ThroughputMeter()
-    assert meter.particle_steps_per_s == 0.0
-    meter.start()
-    time.sleep(0.01)
-    meter.stop(100, 5)
-    meter.start().stop(100, 5)
-    assert meter.particle_steps == 1000
-    assert meter.elapsed >= 0.01
-    assert meter.particle_steps_per_s == pytest.approx(1000 / meter.elapsed)
 
 
 def test_trace_to_writes_a_chrome_trace(tmp_path):
