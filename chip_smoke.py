@@ -2,6 +2,12 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
+``--k2`` runs phases 1 and 2 and then only phase 3's K2 and K8 on the
+main paths' own base indices (bf16 at N_P = 16384 and 131072, f32 at the
+benchmark cell's N_P = 12288, n_lin 640); ``--k2 --parent DIR`` also
+times the K2 of the checkout at DIR in turns with this one and counts
+the launches on which the two give equal bits.
+
 Phases (each prints its own lines; any failure raises, exit code != 0):
  1. require CUDA; print the card's name and power limit; turn TF32 off;
  2. build the CUDA kernels from rbslam_tpu_torch/csrc (one nvcc per
@@ -123,7 +129,13 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     more run's result (finite, no history, position RMSE under the
     odometry's). Phase 3 also holds K2 and K3 at bf16, N=16384, nl=128
     against their plain versions at the sweep's factor widths rw = 12, 48,
-    96 and 192.
+    96 and 192, and K2 and K8 on the base indices of a recorded lowrank
+    run (k2_main_path) at bf16, N=16384 and 131072, nl=128, and at f32,
+    N=12288, nl=640 (the benchmark cell's shape): against the plain
+    version, bit-equal between launches, with live rows, with bad indices
+    inside runs, K8 against K2 with Wt = 0, at f32 K2's own count of the
+    P_base matrices it read against the host's count of its pieces, and
+    timed in turns with the direct form.
 
 Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
 20, 21 and 22 sets every launch count to 0 just before it and reads the counts
@@ -142,12 +154,14 @@ the card's peak for their type); the last line is
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
 import datetime
 import functools
 import glob
+import importlib
 import io
 import json
 import math
@@ -196,6 +210,7 @@ from rbslam_tpu_torch.kernels import (
     reset_launch_counts,
 )
 from rbslam_tpu_torch.kernels.kf_update import (
+    _CP_RUN,
     _block_plan,
     _gather_cp,
     _gather_cp_plan,
@@ -209,6 +224,7 @@ from rbslam_tpu_torch.metrics import aligned_position_rmse
 from rbslam_tpu_torch.utils import (
     ekf_inputs,
     latest_step,
+    phase_annotation,
     recording,
     trace_to,
 )
@@ -420,16 +436,19 @@ def k1_guard_bands(device, consts, pos, quat, nl, dtype, launches=20):
         f"written, max rel err {worst:.3e} (tol {TOL[dtype]:.0e})")
 
 
-def main_path_bases(device, n, T=192, r=8, ny=3):
+def main_path_bases(device, n, m=125, dtype="bfloat16", T=192, r=8, ny=3):
     """The lowrank loop's K2 launches over one run of bench.py's filter at
-    N_P = n (``bench.rbpf_case``: bean_6D, m=125, bf16, r=8, seed 1): for
-    each of the T - 1 steps its base indices (arange at each rebase,
-    composed with every step's systematic ancestors, as engines/rbpf.py
-    does) and its live factor rows, ny times the steps since the rebase."""
-    run, _, _ = bench.rbpf_case(125, n, T, device=device,
-                                cov_dtype="bfloat16", kf_kernel="lowrank",
+    N_P = n, m basis functions and covariance dtype ``dtype``
+    (``bench.rbpf_case``: bean_6D, r=8, seed 1): for each of the T - 1
+    steps its base indices (arange at each rebase, composed with every
+    step's systematic ancestors, as engines/rbpf.py does) and its live
+    factor rows, ny times the steps since the rebase."""
+    run, _, _ = bench.rbpf_case(m, n, T, device=device, cov_dtype=dtype,
+                                kf_kernel="lowrank",
                                 store_trajectories=False)
     anc = run(1).ancestors
+    del run
+    torch.cuda.empty_cache()
     steps = []
     for t in range(T - 1):
         if t % r == 0:
@@ -437,6 +456,28 @@ def main_path_bases(device, n, T=192, r=8, ny=3):
         b = b[anc[t].long()]
         steps.append((b, ny * (t % r)))
     return steps
+
+
+def k2_pieces(b, n_base):
+    """The P_base matrices K2's float32 form reads for base indices ``b``:
+    its pieces, the runs of equal valid indices cut every _CP_RUN
+    particles from the run's start (an index outside [0, n_base) reads
+    nothing)."""
+    ok = (b >= 0) & (b < n_base)
+    start = torch.ones_like(ok)
+    start[1:] = (b[1:] != b[:-1]) | ~ok[1:]
+    idx = torch.arange(b.numel(), device=b.device)
+    run0 = torch.cummax(torch.where(start, idx, torch.zeros_like(idx)), 0)[0]
+    return int(((idx - run0) % _CP_RUN == 0).logical_and(ok).sum())
+
+
+def plain_in_chunks(bidx, C, Wt, P_base, rows, chunk=1024):
+    """gather_cp_plain a chunk of particles at a time (each particle's row
+    is its own: the bits are those of one call), so that the gathered
+    copy of P_base stays small at the float32 cell's 20 GB."""
+    return torch.cat([gather_cp_plain(bidx[i:i + chunk], C[i:i + chunk],
+                                      Wt[i:i + chunk], P_base, rows)
+                      for i in range(0, bidx.shape[0], chunk)])
 
 
 def k2_bad_index(note, bidx, C, Wt, P_base, rows, out):
@@ -459,49 +500,68 @@ def k2_bad_index(note, bidx, C, Wt, P_base, rows, out):
         f"runs of equal bases): NaN there, the other rows bit-equal")
 
 
-def k2_forms_in_turns(note, device, launches, bound_ms_):
-    """K2's runs form and its direct form on the same launches, in turns;
-    ms a launch (median, least, most over the groups)."""
-    def seq(direct):
-        return lambda: [_gather_cp(*a, direct=direct) for a in launches]
+def k2_forms_in_turns(note, device, launches, bound_ms_, parent=None,
+                      reps=10):
+    """K2's form for the inputs and its direct form on the same launches,
+    in turns, and with ``parent`` (another checkout's kernels package) the
+    parent's K2 too; ms a launch (median, least, most over the groups)."""
+    def seq(k2):
+        return lambda: [k2(*a) for a in launches]
 
-    t = time_alternately({"runs": seq(False), "direct": seq(True)}, device)
+    fns = {"runs": seq(gather_cp),
+           "direct": seq(lambda *a: _gather_cp(*a, direct=True))}
+    if parent is not None:
+        fns["parent"] = seq(parent.gather_cp)
+    t = time_alternately(fns, device, reps)
     per = {k: tuple(x / len(launches) for x in v) for k, v in t.items()}
-    log(f"[3] gather_cp {note}, in turns, ms a launch: runs form "
-        f"{per['runs'][0]:.4f} ({per['runs'][1]:.4f}-{per['runs'][2]:.4f}), "
-        f"direct form {per['direct'][0]:.4f} ({per['direct'][1]:.4f}-"
-        f"{per['direct'][2]:.4f}); bound {bound_ms_:.4f}")
+    log(f"[3] gather_cp {note}, in turns, ms a launch: " + ", ".join(
+        f"{k} form {v[0]:.4f} ({v[1]:.4f}-"
+        f"{v[2]:.4f})" for k, v in per.items()) + f"; bound {bound_ms_:.4f}")
     return per
 
 
-def k2_main_path(device, g, n, nl=128, ny=3, rw=24):
-    """Phase 3, K2 (and K8) at bf16 on the main path's own indices at N_P =
-    n: the 191 launches of one filter run (see main_path_bases), on random
-    P_base, C and Wt. The 8 steps of the last full rebase period (steps
-    176-183, the runs of equal bases longest at its end): against the plain
-    version (bf16 2e-2 of the scale), a second launch bit-equal, ``rows``
-    bit-equal to all rows of a copy of Wt whose dead rows are zero; step
-    183 also with bad indices and K8. All 191 launches timed in the runs
-    and the direct form in turns, beside the bound of these indices (each
-    distinct P once, C, the live rows of Wt, bidx and CP; averaged over the
-    191)."""
-    steps = main_path_bases(device, n)
-    P_base = torch.randn((n, nl, nl), generator=g, device=device
-                         ).to(torch.bfloat16)
+def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24,
+                 parent=None):
+    """Phase 3, K2 (and K8) on the main path's own indices at N_P = n, m
+    basis functions (n_lin m + 3 padded to a multiple of 128, as the
+    engine does) and covariance dtype ``dtype``: the 191 launches of one
+    filter run (see main_path_bases), on random P_base, C and Wt. The 8
+    steps of the last full rebase period (steps 176-183, the runs of equal
+    bases longest at its end): against the plain version (the dtype's
+    tolerance of the scale; at f32 also elementwise), a second launch
+    bit-equal, ``rows`` bit-equal to all rows of a copy of Wt whose dead
+    rows are zero; step 183 also with bad indices inside runs and K8,
+    bit-equal to K2 with Wt = 0. At f32 the P_base matrices K2 counts
+    (``recording()``, one span a launch) must equal the host's count of
+    its pieces (k2_pieces) at every launch. All 191 launches timed in K2's
+    form and its direct form in turns (and with ``parent``, another
+    checkout's kernels package, the parent's K2, its bits compared and
+    reported), beside the bound of these indices (each distinct P once,
+    C, the live rows of Wt, bidx and CP; averaged over the 191); at f32
+    also on arange indices (runs of one)."""
+    steps = main_path_bases(device, n, m, str(dtype).split(".")[1])
+    nl = -(-(m + 3) // 128) * 128
+    item = torch.tensor([], dtype=dtype).element_size()
+    f32 = dtype == torch.float32
+    P_base = torch.randn((n, nl, nl), generator=g, device=device).to(dtype)
     Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=device)
-          ).to(torch.bfloat16)
+          ).to(dtype)
     C = (0.3 * torch.randn((n, ny, nl), generator=g, device=device)
-         ).to(torch.bfloat16)
+         ).to(dtype)
     distinct = [int(torch.unique(b).numel()) for b, _ in steps]
-    note = f"N={n} ny={ny} rw={rw} nl={nl} bfloat16 main-path indices"
+    note = f"N={n} ny={ny} rw={rw} nl={nl} {str(dtype)[6:]} main-path indices"
+    tol = TOL[dtype]
     for t in range(176, 184):
         b, rows = steps[t]
         out = gather_cp(b, C, Wt, P_base, rows)
-        ref = gather_cp_plain(b, C, Wt, P_base, rows)
-        rel = float((out - ref).abs().max()) / float(ref.abs().max())
-        if not (rel <= TOL[torch.bfloat16]
-                and bool(torch.isfinite(out).all())):
+        ref = plain_in_chunks(b, C, Wt, P_base, rows)
+        scale = float(ref.abs().max())
+        rel = float((out - ref).abs().max()) / scale
+        if not (rel <= tol and bool(torch.isfinite(out).all())):
             raise AssertionError(f"gather_cp {note} step {t}: rel err {rel}")
+        if f32 and not torch.allclose(out, ref, rtol=tol, atol=1e-6 * scale):
+            raise AssertionError(f"gather_cp {note} step {t}: elementwise "
+                                 f"error above rtol {tol}")
         if not torch.equal(out, gather_cp(b, C, Wt, P_base, rows)):
             raise AssertionError(f"gather_cp {note} step {t}: two launches "
                                  "differ")
@@ -512,34 +572,86 @@ def k2_main_path(device, g, n, nl=128, ny=3, rw=24):
                                  "differs from all rows")
         del Wz, ref
         log(f"[3] gather_cp {note} step {t}: {distinct[t]} distinct of {n}, "
-            f"rows={rows}: rel err {rel:.3e} (tol 2e-02), two launches "
+            f"rows={rows}: rel err {rel:.3e} (tol {tol:.0e}), two launches "
             f"bit-equal, bit-equal to all {rw} rows with the dead rows zero")
     b183 = steps[183][0]
     k2_bad_index(f"{note} step 183", b183, C, Wt, P_base, steps[183][1], out)
     Cf = C.float()
-    compare("probe_gather_cp", lambda: probe_gather_cp(b183, Cf, P_base),
-            lambda: probe_gather_cp_plain(b183, Cf, P_base), device,
-            torch.bfloat16, f"{note} step 183",
-            (b183, Cf, gathered_bytes(b183, P_base)), 2 * n * ny * nl * nl,
-            torch.bfloat16)
-    nbytes = sum(d * nl * nl * 2 + C.numel() * 2 + n * rows * nl * 2 + n * 4
-                 + n * ny * nl * 4 for d, (_, rows) in zip(distinct, steps))
-    flops = sum(2 * n * ny * nl * (nl + 2 * rows) for _, rows in steps)
-    bound = bound_ms(nbytes / len(steps), flops / len(steps),
-                     torch.bfloat16)[0]
+    k8 = probe_gather_cp(b183, Cf, P_base)
+    if not torch.equal(k8, gather_cp(b183, C, torch.zeros_like(Wt),
+                                     P_base)):
+        raise AssertionError(f"probe_gather_cp {note} step 183: differs "
+                             "from K2 with Wt = 0")
+    log(f"[3] probe_gather_cp {note} step 183: bit-equal to K2 with Wt = 0")
+    if not f32:
+        compare("probe_gather_cp", lambda: probe_gather_cp(b183, Cf, P_base),
+                lambda: probe_gather_cp_plain(b183, Cf, P_base), device,
+                dtype, f"{note} step 183",
+                (b183, Cf, gathered_bytes(b183, P_base)),
+                2 * n * ny * nl * nl, dtype)
+    del k8, Cf
+    if f32:
+        with recording() as rec:
+            for b, rows in steps:
+                with phase_annotation("k2"):
+                    gather_cp(b, C, Wt, P_base, rows)
+        counted = [s.k2_p_reads for s in rec.spans]
+        want = [k2_pieces(b, n) for b, _ in steps]
+        if counted != want:
+            bad = [t for t, (c, w) in enumerate(zip(counted, want)) if c != w]
+            raise AssertionError(
+                f"gather_cp {note}: K2 counted {[counted[t] for t in bad[:4]]}"
+                f" P_base reads at steps {bad[:4]}, its pieces are "
+                f"{[want[t] for t in bad[:4]]}")
+        log(f"[3] gather_cp {note}: K2's count of the P_base matrices it "
+            f"read equals its pieces at each of the {len(steps)} launches: "
+            f"{sum(want) / (n * len(steps)):.4f} a particle, distinct bases "
+            f"{sum(distinct) / (n * len(steps)):.4f}")
+
+    def bound_of(counts):
+        nbytes = sum(d * nl * nl * item + C.numel() * item
+                     + n * rows * nl * item + n * 4 + n * ny * nl * 4
+                     for d, (_, rows) in zip(counts, steps))
+        flops = sum(2 * n * ny * nl * (nl + 2 * rows) for _, rows in steps)
+        return bound_ms(nbytes / len(steps), flops / len(steps), dtype)[0]
+
+    bound = bound_of(distinct)
     log(f"[3] gather_cp {note}: distinct bases a step, mean over the run "
         f"{sum(distinct) / len(distinct):.1f} of {n}; steps 176-183 "
         f"{distinct[176:184]}; bound of these indices {bound:.4f} ms a "
         f"launch (averaged over the {len(steps)} steps)")
+    launches = [(b, C, Wt, P_base, rows) for b, rows in steps]
+    if parent is not None:
+        same = sum(torch.equal(gather_cp(*a), parent.gather_cp(*a))
+                   for a in launches)
+        log(f"[3] gather_cp {note}: bit-equal to the parent's K2 at {same} "
+            f"of {len(launches)} launches")
+    reps = 1 if f32 else 10
     per = k2_forms_in_turns(f"{note}, the run's {len(steps)} launches",
-                            device, [(b, C, Wt, P_base, rows)
-                                     for b, rows in steps], bound)
-    del P_base, Wt, C, Cf, steps
+                            device, launches, bound, parent, reps)
+    if f32:
+        one = torch.arange(n, dtype=torch.int32, device=device)
+        k2_forms_in_turns(f"N={n} ny={ny} rw={rw} nl={nl} float32 runs of "
+                          f"one, the run's live rows", device,
+                          [(one, C, Wt, P_base, rows) for _, rows in steps],
+                          bound_of([n] * len(steps)), parent, reps)
+    del P_base, Wt, C, steps, launches
     return per
 
 
+def k2_main_paths(device, g, parent=None, ny=3, rw=24):
+    """K2 and K8 on the main path's own indices (runs of equal bases, live
+    factor rows 3 p) at the headline shape, at bench.py's 131k row (bf16,
+    m=125) and at the float32 benchmark cell's shape (N_P = 12,288,
+    m = 512, n_lin 640)."""
+    for n, m, dtype in ((16384, 125, torch.bfloat16),
+                        (131072, 125, torch.bfloat16),
+                        (12288, 512, torch.float32)):
+        k2_main_path(device, g, n, m, dtype, ny, rw, parent)
+
+
 def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
-                  ny=3, rw=24, n_big=131072):
+                  ny=3, rw=24):
     """Phase 3: each kernel against its plain version on the card. The
     returned row of a kernel is the one at its main path's first shape.
     Operation counts: a multiply, an add and a sin or cos count one each."""
@@ -701,10 +813,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                 2 * n * rww * nl * nl, torch.bfloat16)
         del bidx, C, Wt, P_base, gathered
 
-    # K2 and K8 on the main path's own indices (runs of equal bases, live
-    # factor rows 3 p) at the headline shape and at bench.py's 131k row
-    for nn in (n, n_big):
-        k2_main_path(device, g, nn, nl, ny, rw)
+    k2_main_paths(device, g, ny=ny, rw=rw)
 
     # K3 at other factor widths (the zero padding of rw to 16 at bf16), at
     # a map width that is no power of two (ragged row blocks and items) and
@@ -2482,7 +2591,16 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
     del res, run, problem
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k2", action="store_true",
+                    help="phases 1-2, then only phase 3's K2 and K8 on the "
+                         "main paths' own indices (k2_main_paths)")
+    ap.add_argument("--parent", default=None,
+                    help="with --k2: the root of another checkout of the "
+                         "port, whose K2 is timed in turns with this one "
+                         "and held against it bit for bit (reported)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "needs one NVIDIA GPU")
@@ -2504,6 +2622,14 @@ def main() -> int:
             else f"nvcc {_lib.build_seconds:.2f} s")
     log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"({nvcc})")
+    if args.k2:
+        parent = None
+        if args.parent:
+            basis_kernel_times.load_port(args.parent, "parent_port")
+            parent = importlib.import_module("parent_port.kernels")
+        k2_main_paths(device, torch.Generator(device=device).manual_seed(0),
+                      parent)
+        return 0
 
     rows = phase_compare(device)
     zero = dict.fromkeys(_lib.KERNEL_NAMES, 0)

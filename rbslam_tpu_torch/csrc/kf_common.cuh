@@ -512,28 +512,41 @@ __device__ __forceinline__ void consumer_sync() {
 
 // ---- the gathered C P with the factor term (K2; K8 without it) -----------
 // CP[b] = round_T(C[b]) P_base[bidx[b]] - round(C[b] Wt[b]^T) Wt[b]
-// Bound: the gathered read of P_base (Wt, C and CP are small beside it).
-// Design: persistent blocks (as many as the card holds at once), each with
-// a producer warp and eight consumer warps, walking the particles b =
-// blockIdx.x, + gridDim.x, ... The producer brings Wt[b] into shared memory
-// by one bulk copy, then P_base[bidx[b]] in stages of whole rows (about
-// 8 KB) through a ring of kCpStages by bulk copies on full / empty
-// mbarriers, and goes straight on to the next particle's Wt and rows as the
-// consumers free them, so the ring never drains between particles. The
-// consumers form round(C Wt^T) from the staged Wt; the factor rows enter
-// the row-split pass as rows of their own, with the coefficients
-// -round(C Wt^T), while P's stages are still landing; then the consumers
-// take each stage of P as it lands (16-byte shared loads) and release it.
-// Where Wt does not fit beside the ring it is read from global memory
-// instead (the same code: a generic pointer); at bf16, where a row has more
-// than 256 units, or where the ring does not fit, the direct form runs. At
-// f32 nl=512, rw=24 a block takes 98 KB, so two share an SM.
+// with only the first `live` factor rows of Wt[b] read (the others are
+// zero). The float32 form, where round_T is the identity.
+// Bound: the bytes, each P_base matrix read once a run of equal base
+// indices (on the filter's main path the base indices are arange composed
+// with sorted systematic ancestors, so equal ones stand side by side), C
+// and the live rows of Wt read once, CP written once; the products, 2 ny nl
+// (nl + 2 live) flops a particle, hide under the bytes on the CUDA cores.
+// Design: the particles fall into pieces, each a run of equal valid base
+// indices cut every kCpRun particles from the run's start (an index outside
+// [0, n_base) is a piece of its own and reads nothing). Persistent blocks,
+// each with a producer warp and eight consumer warps, take equal shares of
+// the pieces in order: every block counts the pieces of all of bidx (a
+// scan over the consumer threads' chunks: no helper kernel, no atomics)
+// and walks its own contiguous share. For each piece the producer
+// bulk-copies the piece's C into one of two buffers, then streams through
+// a ring of kCpStages stages of whole rows (about 8 KB), on full / empty
+// mbarriers, P_base[bidx[b]] once and then each particle's live factor
+// rows; the ring runs on across pieces, so no consumer waits on a global
+// load. Each consumer thread keeps, for every particle of the piece, the
+// partial sums of its 16-byte unit of columns over its row group (the
+// row-split pass) and takes each staged row of P once for all of them;
+// the sums of the sets go out in a fixed order. Then each staged factor row
+// gets its coefficient -round(C Wt^T) (a warp a row, lanes over the
+// columns) and enters a particle's correction, summed by the same split in
+// 12 registers of its own and added to the output: no sums of P stay live
+// through it, which kept the pass free of register spills. At 4 particles
+// a piece (48 sums a thread) the pass keeps pace with the memory; at 5 it
+// fell behind on the H100. At nl = 640 a block takes 92 KB and two share
+// an SM.
+constexpr int kCpRun = 4;         // particles a piece: 4 x NY x 4 sums a thread
 constexpr int kCpStages = 4;
-constexpr int kCpMinBlocks = 4;   // caps registers at 56 a thread (3 blocks: slower)
 constexpr int kCpStageBytes = 8192;
 constexpr int kCpThreads = kRowThreads + 32;   // consumers and the producer
 constexpr size_t kSmemBudget = kMaxSmem - 1024;   // room for static barriers
-enum : int { kCpStagedW = 0, kCpStaged = 1, kCpDirect = 2, kCpRuns = 3 };
+enum : int { kCpRunsF32 = 0, kCpDirect = 2, kCpRuns = 3 };
 
 inline __host__ __device__ int cp_stage_rows(int nl, int itemsize) {
   int rows = kCpStageBytes / (nl * itemsize);
@@ -541,143 +554,371 @@ inline __host__ __device__ int cp_stage_rows(int nl, int itemsize) {
   return rows < nl ? rows : nl;
 }
 
-inline size_t gather_cp_smem(int ny, int rw, int nl, int itemsize, bool factor,
-                             bool stage_w) {
-  const int units = row_units(nl, itemsize);
-  return (size_t)kCpStages * cp_stage_rows(nl, itemsize) * nl * itemsize +
-         (factor && stage_w ? (size_t)rw * nl * itemsize : 0) +
-         4 * (size_t)ny * nl * (1 + row_sets(units)) +
+// sets of partial sums that K2's float32 form sums through shared memory:
+// none where each thread holds whole sums of its own columns
+inline __host__ __device__ int cp_part_sets(int nl) {
+  const int units = row_units(nl, 4);
+  return row_sets(units) == 1 && !row_shfl(units) ? 0 : row_sets(units);
+}
+
+// the ring, two buffers of a piece's C [kCpRun][NY][nl], the sets of
+// partial sums of one particle, its -round(C Wt^T) [NY][rw]
+inline size_t gather_cp_smem(int ny, int rw, int nl, bool factor) {
+  return (size_t)kCpStages * cp_stage_rows(nl, 4) * nl * 4 +
+         4 * (size_t)ny * nl * (2 * kCpRun + cp_part_sets(nl)) +
          (factor ? 4 * (size_t)ny * rw : 0);
 }
 
+// the piece that starts at particle b: its particles (1 to kCpRun) and its
+// base index (-1 where out of range)
+__device__ __forceinline__ int piece_at(const int* __restrict__ bidx,
+                                        long long b, long long n,
+                                        long long n_base, long long* src) {
+  const int s = bidx[b];
+  const bool ok = s >= 0 && s < n_base;
+  int len = 1;
+  if (ok) {
+    while (len < kCpRun && b + len < n && bidx[b + len] == s) ++len;
+  }
+  *src = ok ? s : -1;
+  return len;
+}
+
+// An exclusive scan over the kRowThreads consumer threads (a sum, or with
+// kMax a maximum with -1 for nothing); *tot gets the whole reduction.
+// scratch: kRowThreads / 32 values.
+template <bool kMax>
+__device__ long long consumer_scan(long long v, long long* scratch,
+                                   long long* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long none = kMax ? -1 : 0;
+  long long inc = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc = kMax ? max(inc, y) : inc + y;
+  }
+  const long long up = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 31) scratch[warp] = inc;
+  consumer_sync();
+  long long before = none, all = none;
+  for (int w = 0; w < kRowThreads / 32; ++w) {
+    const long long x = scratch[w];
+    if (w < warp) before = kMax ? max(before, x) : before + x;
+    all = kMax ? max(all, x) : all + x;
+  }
+  consumer_sync();   // scratch is written again by the next scan
+  *tot = all;
+  const long long in_warp = lane == 0 ? none : up;
+  return kMax ? max(before, in_warp) : before + in_warp;
+}
+
+// particles of [a, b) a multiple of kCpRun after the run start r <= a
+__device__ __forceinline__ long long cuts_in(long long a, long long b,
+                                             long long r) {
+  if (b <= a) return 0;
+  const long long lo = a - 1 - r >= 0 ? (a - 1 - r) / kCpRun : -1;
+  return (b - 1 - r) / kCpRun - lo;
+}
+
+// This block's share of the pieces, by the consumer threads: its first
+// particle into *first and its number of pieces into *count. Each thread
+// takes a chunk of bidx; a particle starts a run where its index differs
+// from its predecessor's or is out of range.
+__device__ void block_pieces(const int* __restrict__ bidx, long long n,
+                             long long n_base, long long* scratch,
+                             long long* first, long long* count) {
+  const int tid = threadIdx.x;
+  const long long ch = (n + kRowThreads - 1) / kRowThreads;
+  const long long lo = min(n, tid * ch), hi = min(n, lo + ch);
+  // the last run start of the chunk, and the pieces from its first on
+  long long first_rs = -1, rs = -1, mine = 0;
+  int prev = lo > 0 ? bidx[lo - 1] : -1;
+#pragma unroll 8
+  for (long long i = lo; i < hi; ++i) {
+    const int s = bidx[i];
+    if (i == 0 || s != prev || s < 0 || s >= n_base) {
+      rs = i;
+      if (first_rs < 0) first_rs = i;
+    }
+    prev = s;
+    if (rs >= 0 && (i - rs) % kCpRun == 0) ++mine;
+  }
+  long long unused;
+  // the run in course at the chunk's start (begun in an earlier chunk)
+  const long long carry = consumer_scan<true>(rs, scratch, &unused);
+  if (carry >= 0) mine += cuts_in(lo, first_rs >= 0 ? first_rs : hi, carry);
+  long long total;
+  const long long before = consumer_scan<false>(mine, scratch, &total);
+  const long long p_lo = (long long)blockIdx.x * total / gridDim.x;
+  const long long p_hi = ((long long)blockIdx.x + 1) * total / gridDim.x;
+  if (tid == 0) *count = p_hi - p_lo;
+  if (p_lo < p_hi && before <= p_lo && p_lo < before + mine) {
+    long long p = before, r = carry;
+    prev = lo > 0 ? bidx[lo - 1] : -1;
+    for (long long i = lo; i < hi; ++i) {
+      const int s = bidx[i];
+      if (i == 0 || s != prev || s < 0 || s >= n_base) r = i;
+      prev = s;
+      if ((i - r) % kCpRun == 0) {
+        if (p == p_lo) {
+          *first = i;
+          break;
+        }
+        ++p;
+      }
+    }
+  }
+}
+
+// acc[l][i][e] += Cr[l][i][j] P[j][unit u, element e] for the L particles of
+// a piece over this thread's rows of [j0, j1): a row read once for all of
+// them; `rows` holds row j0 of the staged P, Cr is [kCpRun][NY][nl]; jn is
+// the thread's next row (its group's rows g, g + groups, ... in order).
+template <int NY, int L>
+__device__ __forceinline__ void cp_rows_piece(const float* rows, int j0, int j1,
+                                              int& jn, int nl,
+                                              const RowSplit& rs, const float* Cr,
+                                              float (&acc)[kCpRun][NY][4]) {
+#pragma unroll 2
+  for (; jn < j1; jn += rs.groups) {
+    float p[4];
+    load_unit(rows + (size_t)(jn - j0) * nl + rs.u * 4, p);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int i = 0; i < NY; ++i) {
+        const float c = Cr[(l * NY + i) * nl + jn];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[l][i][e] = fmaf(c, p[e], acc[l][i][e]);
+      }
+    }
+  }
+}
+
+// cp_rows_piece for the cnt (1 to L) particles of a piece
+template <int NY, int L>
+__device__ __forceinline__ void cp_rows_run(int cnt, const float* rows, int j0,
+                                            int j1, int& jn, int nl,
+                                            const RowSplit& rs, const float* Cr,
+                                            float (&acc)[kCpRun][NY][4]) {
+  if constexpr (L > 1) {
+    if (cnt < L) {
+      cp_rows_run<NY, L - 1>(cnt, rows, j0, j1, jn, nl, rs, Cr, acc);
+      return;
+    }
+  }
+  cp_rows_piece<NY, L>(rows, j0, j1, jn, nl, rs, Cr, acc);
+}
+
 template <typename T, typename TC, int NY, bool kFactor>
-__global__ void __launch_bounds__(kCpThreads, kCpMinBlocks)
+__global__ void __launch_bounds__(kCpThreads, 2)
 gather_cp_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
                  const T* __restrict__ Wt, const T* __restrict__ P_base,
                  float* __restrict__ CP, long long n, long long n_base, int rw,
-                 int live, int nl, int stage_w) {
+                 int live, int nl, unsigned long long* __restrict__ reads) {
+  static_assert(sizeof(T) == 4 && sizeof(TC) == 4, "the float32 form");
+  static_assert((kCpStages & (kCpStages - 1)) == 0, "a power of two");
   constexpr int E = Unit<T>::kElems;
+  constexpr int kWarps = kRowThreads / 32;
   extern __shared__ __align__(128) unsigned char cp_smem[];
   __shared__ uint64_t full[kCpStages];
   __shared__ uint64_t empty[kCpStages];
-  __shared__ uint64_t wfull, wempty;
+  __shared__ uint64_t cfull[2];
+  __shared__ uint64_t cempty[2];
+  __shared__ long long scratch[kWarps];
+  __shared__ long long first, count;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rows = cp_stage_rows(nl, sizeof(T));
+  const int rows = cp_stage_rows(nl, 4);
   const int n_chunks = (nl + rows - 1) / rows;
-  const size_t stage_bytes = (size_t)rows * nl * sizeof(T);
-  const int sets = row_sets(row_units(nl, sizeof(T)));
-  unsigned char* ws = cp_smem + kCpStages * stage_bytes;
-  const bool staged_w = kFactor && stage_w;
-  float* Cr = reinterpret_cast<float*>(ws + (staged_w ? (size_t)rw * nl * sizeof(T) : 0));
-  float* part = Cr + NY * nl;
-  float* CWt = part + (size_t)sets * NY * nl;   // [NY][rw]: -round(C Wt^T)
+  const size_t stage_bytes = (size_t)rows * nl * 4;
+  const int sets = row_sets(row_units(nl, 4));
+  const bool direct_out = cp_part_sets(nl) == 0;   // sums straight from registers
+  float* Cbuf = reinterpret_cast<float*>(cp_smem + kCpStages * stage_bytes);
+  float* part = Cbuf + 2 * kCpRun * NY * nl;
+  float* CWt = part + (size_t)cp_part_sets(nl) * NY * nl;   // [NY][rw]: -round(C Wt^T)
   if (tid == 0) {
     for (int s = 0; s < kCpStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kRowThreads / 32);
+      mbar_init(&empty[s], kWarps);
     }
-    mbar_init(&wfull, 1);
-    mbar_init(&wempty, kRowThreads / 32);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&cfull[s], 1);
+      mbar_init(&cempty[s], kWarps);
+    }
     mbar_init_fence();
   }
+  if (warp < kWarps) block_pieces(bidx, n, n_base, scratch, &first, &count);
   __syncthreads();
-  if (warp == kRowThreads / 32) {
-    // producer: per particle the factor, then P's stages as the consumers
-    // free them; the ring's count k runs on across particles
+  const long long pieces = count;
+  if (warp == kWarps) {
+    // producer: per piece its C, then (valid bases only) P's rows and each
+    // particle's live factor rows through the ring, a stage as soon as the
+    // consumers free one; the ring's count k runs on across pieces
     if (lane == 0) {
-      long long k = 0;
-      int it = 0;
-      for (long long b = blockIdx.x; b < n; b += gridDim.x, ++it) {
-        const long long src = bidx[b];
-        if (staged_w) {
-          const uint32_t bytes = (uint32_t)((size_t)live * nl * sizeof(T));
-          mbar_wait(&wempty, (it & 1) ^ 1);
-          mbar_arrive_expect_tx(&wfull, bytes);
-          if (bytes > 0) bulk_load(ws, Wt + b * (long long)rw * nl, bytes, &wfull);
+      int k = 0;
+      long long b = first;
+      unsigned long long matrices = 0;
+      auto stage = [&](const T* from, int nrows) {
+        const int s = k & (kCpStages - 1);
+        const uint32_t bytes = (uint32_t)((size_t)nrows * nl * 4);
+        mbar_wait(&empty[s], (uint32_t)((k / kCpStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], bytes);
+        bulk_load(cp_smem + s * stage_bytes, from, bytes, &full[s]);
+        ++k;
+      };
+      for (long long p = 0; p < pieces; ++p) {
+        long long src;
+        const int cnt = piece_at(bidx, b, n, n_base, &src);
+        const int buf = (int)(p & 1);
+        const uint32_t cbytes = (uint32_t)(cnt * NY * nl * 4);
+        mbar_wait(&cempty[buf], (uint32_t)((p >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&cfull[buf], cbytes);
+        bulk_load(Cbuf + buf * kCpRun * NY * nl, C + b * NY * nl, cbytes, &cfull[buf]);
+        if (src >= 0) {
+          ++matrices;
+          const T* Pb = P_base + src * (long long)nl * nl;
+          for (int c = 0; c < n_chunks; ++c) {
+            stage(Pb + (long long)c * rows * nl, min(rows, nl - c * rows));
+          }
+          if constexpr (kFactor) {
+            for (int q = 0; q < cnt; ++q) {
+              for (int r0 = 0; r0 < live; r0 += rows) {
+                stage(Wt + ((b + q) * rw + r0) * (long long)nl, min(rows, live - r0));
+              }
+            }
+          }
         }
-        if (src < 0 || src >= n_base) continue;
-        const T* Pb = P_base + src * (long long)nl * nl;
-        for (int c = 0; c < n_chunks; ++c, ++k) {
-          const int s = (int)(k % kCpStages);
-          const int r = min(rows, nl - c * rows);
-          const uint32_t bytes = (uint32_t)((size_t)r * nl * sizeof(T));
-          mbar_wait(&empty[s], (uint32_t)((k / kCpStages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&full[s], bytes);
-          bulk_load(cp_smem + s * stage_bytes, Pb + (long long)c * rows * nl,
-                    bytes, &full[s]);
-        }
+        b += cnt;
       }
+      if (reads != nullptr && matrices > 0) atomicAdd(reads, matrices);
     }
     return;
   }
-  const RowSplit rs(nl, sizeof(T), tid);
-  long long k = 0;
-  int it = 0;
-  for (long long b = blockIdx.x; b < n; b += gridDim.x, ++it) {
-    const long long src = bidx[b];
-    const bool ok = src >= 0 && src < n_base;
-    const TC* Cb = C + b * NY * nl;
-    for (int i = tid; i < NY * nl; i += kRowThreads) {
-      Cr[i] = storage_round<T>(to_float<TC>(Cb[i]));
-    }
-    consumer_sync();
-    float acc[NY][E];
+  const RowSplit rs(nl, 4, tid);
+  int k = 0;
+  long long b = first;
+  for (long long p = 0; p < pieces; ++p) {
+    long long src;
+    const int cnt = piece_at(bidx, b, n, n_base, &src);
+    const int buf = (int)(p & 1);
+    const float* Cr = Cbuf + buf * kCpRun * NY * nl;
+    float acc[kCpRun][NY][E];
 #pragma unroll
-    for (int i = 0; i < NY; ++i) {
+    for (int q = 0; q < kCpRun; ++q) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] = 0.0f;
-    }
-    if constexpr (kFactor) {
-      const T* Ws = staged_w ? reinterpret_cast<const T*>(ws) : Wt + b * (long long)rw * nl;
-      if (staged_w) mbar_wait(&wfull, it & 1);
-      // -round(C Wt^T) [NY, rw] while P's first stages land: a warp per
-      // factor row, lanes over the columns
-      for (int r = warp; r < live; r += kRowThreads / 32) {
-        float cw[NY];
+      for (int i = 0; i < NY; ++i) {
 #pragma unroll
-        for (int i = 0; i < NY; ++i) cw[i] = 0.0f;
-        for (int j = lane; j < nl; j += 32) {
-          const float w = to_float<T>(Ws[(size_t)r * nl + j]);
-#pragma unroll
-          for (int i = 0; i < NY; ++i) cw[i] = fmaf(Cr[i * nl + j], w, cw[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < NY; ++i) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            cw[i] += __shfl_xor_sync(0xffffffffu, cw[i], off);
-          }
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < NY; ++i) CWt[i * rw + r] = -storage_round<T>(cw[i]);
-        }
-      }
-      consumer_sync();
-      // the factor rows as rows of the pass, before P's; then the staged
-      // factor goes back to the producer for the next particle
-      cp_rows<T, NY>(Ws, 0, live, nl, rs, CWt, rw, acc);
-      if (staged_w) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&wempty);
+        for (int e = 0; e < E; ++e) acc[q][i][e] = 0.0f;
       }
     }
-    if (ok) {
+    mbar_wait(&cfull[buf], (uint32_t)((p >> 1) & 1));
+    if (src >= 0) {
+      int jn = rs.active ? rs.g : nl;   // this thread's next row of P
       for (int c = 0; c < n_chunks; ++c, ++k) {
-        const int s = (int)(k % kCpStages);
+        const int s = k & (kCpStages - 1);
         mbar_wait(&full[s], (uint32_t)((k / kCpStages) & 1));
-        cp_rows<T, NY>(reinterpret_cast<const T*>(cp_smem + s * stage_bytes),
-                       c * rows, min(nl, (c + 1) * rows), nl, rs, Cr, nl, acc);
+        const float* stage = reinterpret_cast<const float*>(cp_smem + s * stage_bytes);
+        const int j0 = c * rows, j1 = min(nl, j0 + rows);
+        cp_rows_run<NY, kCpRun>(cnt, stage, j0, j1, jn, nl, rs, Cr, acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);
       }
     }
-    cp_partial_store<NY, E>(acc, rs, part, nl, lane);
-    consumer_sync();
-    float* out = CP + b * NY * nl;
-    for (int idx = tid; idx < NY * nl; idx += kRowThreads) {
-      out[idx] = ok ? cp_partial_sum<NY>(part, sets, nl, idx) : quiet_nan();
+    // out = C P: with one set of sums a unit (one row group, whole units a
+    // thread) straight from the registers, else the sets summed in order
+    // through shared memory, a particle at a time
+#pragma unroll
+    for (int q = 0; q < kCpRun; ++q) {
+      if (q >= cnt) break;
+      float* out = CP + (b + q) * NY * nl;
+      if (src < 0) {
+        for (int idx = tid; idx < NY * nl; idx += kRowThreads) out[idx] = quiet_nan();
+      } else if (direct_out) {
+        if (rs.active) {
+#pragma unroll
+          for (int i = 0; i < NY; ++i) {
+            *reinterpret_cast<float4*>(out + i * nl + rs.u * E) =
+                make_float4(acc[q][i][0], acc[q][i][1], acc[q][i][2], acc[q][i][3]);
+          }
+        }
+      } else {
+        cp_partial_store<NY, E>(acc[q], rs, part, nl, lane);
+        consumer_sync();
+        for (int idx = tid; idx < NY * nl; idx += kRowThreads) {
+          out[idx] = cp_partial_sum<NY>(part, sets, nl, idx);
+        }
+        consumer_sync();   // part is written again
+      }
     }
+    if (kFactor && live > 0 && src >= 0) {
+      // out += -round(C Wt^T) Wt: each particle's staged factor rows get
+      // their coefficients (a warp a row, lanes over the columns) and enter
+      // sums of their own by the same row split, added to out in order
+#pragma unroll 1
+      for (int q = 0; q < cnt; ++q) {
+        const float* Cq = Cr + q * NY * nl;
+        float* out = CP + (b + q) * NY * nl;
+        float fac[NY][E];
+#pragma unroll
+        for (int i = 0; i < NY; ++i) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) fac[i][e] = 0.0f;
+        }
+        for (int r0 = 0; r0 < live; r0 += rows, ++k) {
+          const int s = k & (kCpStages - 1);
+          const int r1 = min(live, r0 + rows);
+          mbar_wait(&full[s], (uint32_t)((k / kCpStages) & 1));
+          const float* W = reinterpret_cast<const float*>(cp_smem + s * stage_bytes);
+          for (int r = r0 + warp; r < r1; r += kWarps) {
+            float cw[NY];
+#pragma unroll
+            for (int i = 0; i < NY; ++i) cw[i] = 0.0f;
+            for (int j = lane; j < nl; j += 32) {
+              const float w = W[(size_t)(r - r0) * nl + j];
+#pragma unroll
+              for (int i = 0; i < NY; ++i) cw[i] = fmaf(Cq[i * nl + j], w, cw[i]);
+            }
+#pragma unroll
+            for (int i = 0; i < NY; ++i) {
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) {
+                cw[i] += __shfl_xor_sync(0xffffffffu, cw[i], off);
+              }
+            }
+            if (lane == 0) {
+#pragma unroll
+              for (int i = 0; i < NY; ++i) CWt[i * rw + r] = -storage_round<T>(cw[i]);
+            }
+          }
+          consumer_sync();
+          cp_rows<T, NY>(W, r0, r1, nl, rs, CWt, rw, fac);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);
+        }
+        if (direct_out) {
+          if (rs.active) {
+#pragma unroll
+            for (int i = 0; i < NY; ++i) {
+              float4* o = reinterpret_cast<float4*>(out + i * nl + rs.u * E);
+              const float4 v = *o;
+              *o = make_float4(v.x + fac[i][0], v.y + fac[i][1], v.z + fac[i][2],
+                               v.w + fac[i][3]);
+            }
+          }
+        } else {
+          cp_partial_store<NY, E>(fac, rs, part, nl, lane);
+          consumer_sync();
+          for (int idx = tid; idx < NY * nl; idx += kRowThreads) {
+            out[idx] += cp_partial_sum<NY>(part, sets, nl, idx);
+          }
+        }
+        consumer_sync();   // CWt and part are written again
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&cempty[buf]);   // the piece's C is read no more
+    b += cnt;
   }
 }
 
@@ -1258,23 +1499,21 @@ gather_cp_runs_kernel(const int* __restrict__ bidx, const TC* __restrict__ C,
   }
 }
 
-// K2's form (K8's without the factor): at f32 kCpStagedW, kCpStaged (Wt
-// from global memory; always so for K8) or kCpDirect; at bf16 kCpRuns up to
-// nl = 512 (one thread a column pair, 256 at most), else kCpDirect. At bf16
-// the f32 ring lost to the direct form on the H100: the direct form's small
-// blocks (2 warps at nl=128, 32 an SM) keep more particles in flight than the
-// ring's, and than 256-thread blocks that each read one particle's P 16 bytes
-// a thread (4 an SM at 64 registers: 0.27 against 0.22 ms for K8).
+// K2's form (K8's without the factor): at f32 kCpRunsF32 (the ring of
+// pieces above) where a row has at most 256 16-byte units and the block's
+// shared memory fits, else kCpDirect; at bf16 kCpRuns up to nl = 512 (one
+// thread a column pair, 256 at most), else kCpDirect. At bf16 a ring lost
+// to the direct form on the H100: the direct form's small blocks (2 warps
+// at nl=128, 32 an SM) keep more particles in flight than the ring's, and
+// than 256-thread blocks that each read one particle's P 16 bytes a thread
+// (4 an SM at 64 registers: 0.27 against 0.22 ms for K8).
 inline int gather_cp_plan(int ny, int rw, int nl, int itemsize, bool factor) {
   if (itemsize == 2) {
     return nl <= kRunMaxCols ? kCpRuns : kCpDirect;   // 64 KB of shared memory at most
   }
-  if (row_units(nl, itemsize) <= kRowThreads) {
-    if (factor && gather_cp_smem(ny, rw, nl, itemsize, true, true) <= kSmemBudget)
-      return kCpStagedW;
-    if (gather_cp_smem(ny, rw, nl, itemsize, factor, false) <= kSmemBudget)
-      return kCpStaged;
-  }
+  if (row_units(nl, itemsize) <= kRowThreads &&
+      gather_cp_smem(ny, rw, nl, factor) <= kSmemBudget)
+    return kCpRunsF32;
   return kCpDirect;
 }
 
@@ -1298,13 +1537,15 @@ cudaError_t launch_gather_cp_runs(const void* bidx, const void* C, const void* W
 // Launch K2 (kFactor) or K8 on n particles (n > 0) with the first `rows`
 // factor rows of each Wt[b] (0 <= rows <= rw) in the form `plan`, which
 // must be gather_cp_plan's choice (the wrapper's mirror of it); with
-// `direct` the direct form runs instead (to time the two forms).
+// `direct` the direct form runs instead (to time the two forms). `reads`
+// (the f32 form's count of the P_base matrices it read, added to a device
+// int64) may be null: then nothing is counted.
 template <typename T, typename TC, int NY, bool kFactor>
 cudaError_t launch_gather_cp_kernel(const void* bidx, const void* C,
                                     const void* Wt, const void* P_base,
                                     void* CP, long long n, long long n_base,
                                     int rw, int rows, int nl, int plan,
-                                    int direct, cudaStream_t s) {
+                                    int direct, void* reads, cudaStream_t s) {
   if (plan != gather_cp_plan(NY, rw, nl, sizeof(T), kFactor) || rows < 0 || rows > rw)
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -1321,23 +1562,23 @@ cudaError_t launch_gather_cp_kernel(const void* bidx, const void* C,
         static_cast<float*>(CP), n_base, rw, rows, nl);
     return cudaGetLastError();
   }
-  if (plan == kCpRuns) {
-    if constexpr (sizeof(T) == 2) {
-      return launch_gather_cp_runs<TC, NY, kFactor>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, s);
-    }
-    return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    if (plan != kCpRuns) return cudaErrorInvalidValue;
+    return launch_gather_cp_runs<TC, NY, kFactor>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, s);
+  } else {
+    const size_t smem = gather_cp_smem(NY, rw, nl, kFactor);
+    err = allow_smem(gather_cp_kernel<T, TC, NY, kFactor>, smem);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = persistent_blocks(gather_cp_kernel<T, TC, NY, kFactor>, kCpThreads, smem, n, &blocks);
+    if (err != cudaSuccess) return err;
+    gather_cp_kernel<T, TC, NY, kFactor><<<(unsigned)blocks, kCpThreads, smem, s>>>(
+        static_cast<const int*>(bidx), static_cast<const TC*>(C),
+        static_cast<const T*>(Wt), static_cast<const T*>(P_base),
+        static_cast<float*>(CP), n, n_base, rw, rows, nl,
+        static_cast<unsigned long long*>(reads));
+    return cudaGetLastError();
   }
-  const size_t smem = gather_cp_smem(NY, rw, nl, sizeof(T), kFactor, plan == kCpStagedW);
-  err = allow_smem(gather_cp_kernel<T, TC, NY, kFactor>, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = persistent_blocks(gather_cp_kernel<T, TC, NY, kFactor>, kCpThreads, smem, n, &blocks);
-  if (err != cudaSuccess) return err;
-  gather_cp_kernel<T, TC, NY, kFactor><<<(unsigned)blocks, kCpThreads, smem, s>>>(
-      static_cast<const int*>(bidx), static_cast<const TC*>(C),
-      static_cast<const T*>(Wt), static_cast<const T*>(P_base),
-      static_cast<float*>(CP), n, n_base, rw, rows, nl, plan == kCpStagedW);
-  return cudaGetLastError();
 }
 
 // ---- the rebase where the ring and the staged factor do not fit ---------

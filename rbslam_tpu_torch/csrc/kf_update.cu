@@ -36,14 +36,18 @@
 //   factor rows are staged in shared memory once by cp.async while P
 //   streams, and round(C Wt^T) and the correction are formed from there.
 //   Design at f32
-//   (gather_cp_kernel of kf_common.cuh): persistent blocks walking the
-//   particles; a producer warp bulk-copies Wt[b] and then P_base[bidx[b]] in
-//   row stages through a four-stage ring that runs on across particles;
-//   eight consumer warps form round(C Wt^T) from the staged Wt while P's
-//   first stages are in flight, fold the factor rows into the pass as rows
-//   with coefficients -round(C Wt^T), then form C P over each stage from
-//   shared memory (16-byte loads, partial sums per row group summed in a
-//   fixed order). No gathered copy of
+//   (gather_cp_kernel of kf_common.cuh): the particles fall into pieces,
+//   runs of equal valid base indices cut every four particles; persistent
+//   blocks take equal shares of the pieces in order (each block counts the
+//   pieces of bidx itself); a producer warp bulk-copies a piece's C, then
+//   streams the piece's P_base matrix once and each particle's live factor
+//   rows, in row stages through a four-stage ring that runs on across
+//   pieces; eight consumer warps take each stage of P once for every
+//   particle of the piece (16-byte shared loads, partial sums per row group
+//   summed in a fixed order), write C P out, then form -round(C Wt^T) of
+//   each staged factor row and add the correction, summed apart. While a
+//   span recorder runs (utils/profiling.py) the f32 form adds the number
+//   of matrices it read to a device counter. No gathered copy of
 //   P_base is ever written to device memory. For rows of more than 256
 //   16-byte units at f32, or more than 512 columns at bf16, the direct form
 //   runs (each thread streams a column pair of P from global memory).
@@ -84,11 +88,12 @@ template <typename T>
 cudaError_t launch_gather_cp_ny(int ny, const void* bidx, const void* C,
                                 const void* Wt, const void* P_base, void* CP,
                                 long long n, long long n_base, int rw, int rows,
-                                int nl, int plan, int direct, cudaStream_t s) {
+                                int nl, int plan, int direct, void* reads,
+                                cudaStream_t s) {
   switch (ny) {
-    case 1: return launch_gather_cp_kernel<T, T, 1, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
-    case 2: return launch_gather_cp_kernel<T, T, 2, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
-    case 3: return launch_gather_cp_kernel<T, T, 3, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
+    case 1: return launch_gather_cp_kernel<T, T, 1, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, reads, s);
+    case 2: return launch_gather_cp_kernel<T, T, 2, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, reads, s);
+    case 3: return launch_gather_cp_kernel<T, T, 3, true>(bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, reads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -129,12 +134,12 @@ extern "C" int rbs_gather_cp(const void* bidx, const void* C, const void* Wt,
                              const void* P_base, void* CP, long long n,
                              long long n_base, int ny, int rw, int rows,
                              int nl, int plan, int direct, int bf16,
-                             void* stream) {
+                             void* reads, void* stream) {
   if (nl % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_gather_cp_ny<__nv_bfloat16>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s)
-           : launch_gather_cp_ny<float>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, s);
+      bf16 ? launch_gather_cp_ny<__nv_bfloat16>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, reads, s)
+           : launch_gather_cp_ny<float>(ny, bidx, C, Wt, P_base, CP, n, n_base, rw, rows, nl, plan, direct, reads, s);
   return (int)err;
 }
 

@@ -6,8 +6,9 @@
 //     CP[b] = round_P(C[b]) P[bidx[b]], f32 sums; C f32, P never written.
 //   K2 without the factor term: the same device code with kFactor = false,
 //   in K2's form for the dtype and width (kf_common.cuh: gather_cp_kernel,
-//   the bulk-copy ring and the row-split pass, at f32; gather_cp_runs_kernel,
-//   one read of P a run of equal indices, at bf16), so
+//   the bulk-copy ring of pieces of runs and the row-split pass, at f32;
+//   gather_cp_runs_kernel at bf16: each one read of P a run of equal
+//   indices), so
 //   K2's time minus K8's is the cost of the factor term. Bound: one read of
 //   each distinct P a tile meets (N*nl*nl*itemsize at most), C, and CP.
 //
@@ -73,9 +74,9 @@ cudaError_t launch_probe_gather_cp_ny(int ny, const void* bidx, const void* C,
                                       long long n_base, int nl, int plan,
                                       cudaStream_t s) {
   switch (ny) {
-    case 1: return launch_gather_cp_kernel<T, float, 1, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, s);
-    case 2: return launch_gather_cp_kernel<T, float, 2, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, s);
-    case 3: return launch_gather_cp_kernel<T, float, 3, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, s);
+    case 1: return launch_gather_cp_kernel<T, float, 1, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, nullptr, s);
+    case 2: return launch_gather_cp_kernel<T, float, 2, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, nullptr, s);
+    case 3: return launch_gather_cp_kernel<T, float, 3, false>(bidx, C, nullptr, P, CP, n, n_base, 0, 0, nl, plan, 0, nullptr, s);
     default: return cudaErrorInvalidValue;
   }
 }

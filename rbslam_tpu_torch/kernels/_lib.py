@@ -14,7 +14,9 @@ launch) and otherwise passes the entry's code to :func:`check` right after
 its launch: a non-zero code raises, and a launch is counted there and
 nowhere else. :func:`launch_counts` / :func:`reset_launch_counts`
 read and clear the counters, so a run can show which kernels its path
-went through.
+went through. K2 also counts on the device the P_base matrices it reads:
+:func:`k2_reads_counter` gives it a counter while ``utils.profiling.
+recording()`` is on, and a null pointer otherwise.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase",
                 "block_gather", "phi_basis", "jac3d", "probe_gather_cp",
                 "probe_rebase_parts", "probe_gather", "probe_block_products")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
+_k2_reads_counter = None  # device -> address; set by recording()
 _lib = None
 build_seconds = None
 
@@ -66,9 +69,9 @@ _SIGNATURES = {
     "rbs_jac3d": (_P, _P, _P, _F, _P, _LL, _I, _I, _P, _P, _I, _I, _I, _I,
                   _I, _I, _P),
     # (bidx, C, Wt, P_base, CP, n, n_base, ny, rw, rows, nl, plan, direct,
-    #  bf16, stream)
+    #  bf16, reads, stream)
     "rbs_gather_cp": (_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I,
-                      _I, _P),
+                      _I, _P, _P),
     # (bidx, Wt, P_base, P_out, n, n_base, rw, nl, variant, bf16, stream)
     "rbs_rebase": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     # (ai, C, e, xl, P_all, R, P_out, xl_out, logw, bad, n, n_all, ny, nl,
@@ -194,3 +197,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def k2_reads_counter(device) -> int:
+    """The address of a device int64 that K2 adds the P_base matrices it
+    read to, kept by the open ``utils.profiling.recording()`` for the call
+    being recorded; 0, a null pointer that tells the kernel to count
+    nothing, where no recording is on."""
+    source = _k2_reads_counter
+    return 0 if source is None else source(device)

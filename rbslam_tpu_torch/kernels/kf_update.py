@@ -141,6 +141,7 @@ def _rebase_variant(name, rw, nl, itemsize, gather=True, dot=True) -> int:
 _SMEM_BUDGET = _MAX_SMEM - 1024     # room for a kernel's static barriers
 _ROW_THREADS = 256                  # threads of the row-split pass C P
 _BG_RESIDENT_BYTES = 64 * 1024      # P held by one block (kBgResidentBytes)
+_CP_RUN = 4                         # particles a piece of K2 at f32 (kCpRun)
 
 
 def _row_sets(nl: int, itemsize: int) -> int:
@@ -152,32 +153,35 @@ def _row_sets(nl: int, itemsize: int) -> int:
     return 1 if units >= _ROW_THREADS else _ROW_THREADS // units
 
 
-def _gather_cp_smem(ny, rw, nl, itemsize, factor, stage_w) -> int:
-    rows = min(max(8192 // (nl * itemsize), 1), nl)
-    return (4 * rows * nl * itemsize
-            + (rw * nl * itemsize if factor and stage_w else 0)
-            + 4 * ny * nl * (1 + _row_sets(nl, itemsize))
+def _gather_cp_smem(ny, rw, nl, factor) -> int:
+    """Bytes of dynamic shared memory of K2's float32 form (the mirror of
+    ``gather_cp_smem``): four stages of whole rows of about 8 KB, two
+    buffers of a piece's C [_CP_RUN, ny, nl], one particle's sets of
+    partial sums (none where a thread holds whole sums) and its
+    -round(C Wt^T) [ny, rw], all float32."""
+    rows = min(max(8192 // (nl * 4), 1), nl)
+    units, sets = nl // 4, _row_sets(nl, 4)
+    if sets == 1 and not (units < 32 and 32 % units == 0):
+        sets = 0          # each thread writes whole sums of its own columns
+    return (4 * rows * nl * 4 + 4 * ny * nl * (2 * _CP_RUN + sets)
             + (4 * ny * rw if factor else 0))
 
 
 def _gather_cp_plan(ny, rw, nl, itemsize, factor=True) -> int:
     """K2's form (K8's with ``factor`` False), the mirror of
-    ``gather_cp_plan``: at f32 0 staged with Wt in shared memory, 1 staged
-    with Wt read from global memory (always so for K8), 2 the direct form
-    (rows of more than 256 16-byte units, or a ring that does not fit); at
-    bf16 3, one read of P a run of equal base indices (one thread a column
-    pair), up to nl = 512, else 2."""
+    ``gather_cp_plan``: at f32 0, one read of P a piece of a run of equal
+    base indices (runs cut every ``_CP_RUN`` particles) through a ring of
+    bulk-copied row stages, where rows have at most 256 16-byte units and
+    the shared memory fits, else 2, the direct form; at bf16 3, one read
+    of P a run of equal base indices (one thread a column pair), up to
+    nl = 512, else 2."""
     if nl % 8:
         raise ValueError(f"gather_cp kernel: nl={nl} must be a multiple of 8")
     if itemsize == 2 and nl <= 512:
         return 3
-    if itemsize == 4 and nl * itemsize // 16 <= _ROW_THREADS:
-        if factor and _gather_cp_smem(ny, rw, nl, itemsize, True, True) \
-                <= _SMEM_BUDGET:
-            return 0
-        if _gather_cp_smem(ny, rw, nl, itemsize, factor, False) \
-                <= _SMEM_BUDGET:
-            return 1
+    if itemsize == 4 and nl * itemsize // 16 <= _ROW_THREADS \
+            and _gather_cp_smem(ny, rw, nl, factor) <= _SMEM_BUDGET:
+        return 0
     if 4 * ny * (nl + (rw if factor else 0)) > _SMEM_BUDGET:
         raise ValueError(f"gather_cp kernel: C [{ny}, {nl}] and C Wt^T "
                          f"[{ny}, {rw}] must fit shared memory")
@@ -229,8 +233,11 @@ def gather_cp(bidx, C, Wt, P_base, rows=None) -> torch.Tensor:
     ``rows`` (0 <= rows <= rw; None: rw) reads only the factor rows
     Wt[:, :rows]: where the rows from ``rows`` on are zero (the filter's
     rows of later steps of a rebase period), the result equals the
-    all-rows one. At bf16 (``_gather_cp_plan`` form 3) two consecutive
-    particles with one base index read its P_base matrix once.
+    all-rows one. Particles with one base index side by side read its
+    P_base matrix once: at f32 (``_gather_cp_plan`` form 0) up to four of
+    them, at bf16 (form 3) two. Inside ``utils.profiling.recording()`` the
+    f32 form counts the P_base matrices it read into the recorded call's
+    root span (``Span.k2_p_reads``).
     """
     return _gather_cp(bidx, C, Wt, P_base, rows, direct=False)
 
@@ -257,10 +264,13 @@ def _gather_cp(bidx, C, Wt, P_base, rows, direct: bool) -> torch.Tensor:
     if CP.numel() == 0:
         return CP                       # nothing to launch, nothing counted
     C, Wt, P_base = _aligned(C), _aligned(Wt), _aligned(P_base)
+    reads = (_lib.k2_reads_counter(C.device)
+             if plan == 0 and not direct else 0)
     code = _lib.lib().rbs_gather_cp(
         bidx.data_ptr(), C.data_ptr(), Wt.data_ptr(), P_base.data_ptr(),
         CP.data_ptr(), n, P_base.shape[0], ny, rw, rows, nl, plan,
-        int(direct), int(P_base.dtype == torch.bfloat16), _lib.stream_ptr(),
+        int(direct), int(P_base.dtype == torch.bfloat16), reads,
+        _lib.stream_ptr(),
     )
     _lib.check(code, "gather_cp")
     return CP

@@ -41,24 +41,49 @@ class Span:
     ``launches`` the port kernels launched inside (``kernels/_lib.py``'s
     counters, nonzero entries); ``peak_bytes`` the allocator's high-water
     mark inside a span opened with ``memory_of`` a CUDA device, else
-    None."""
+    None; ``k2_p_reads``, on the root span of a call, the P_base matrices
+    that K2's float32 form read in the call (counted on the device, filled
+    when the recording ends; None on every other span)."""
 
     __slots__ = ("name", "attrs", "id", "parent", "call", "start_ns",
-                 "end_ns", "launches", "peak_bytes")
+                 "end_ns", "launches", "peak_bytes", "k2_p_reads")
 
     def __init__(self, name, attrs, id_, parent, call):
         self.name, self.attrs, self.id = name, attrs, id_
         self.parent, self.call = parent, call
         self.start_ns = self.end_ns = None
-        self.launches, self.peak_bytes = {}, None
+        self.launches, self.peak_bytes, self.k2_p_reads = {}, None, None
 
 
 class Recorder:
-    """The spans of one :func:`recording` block, in the order they opened."""
+    """The spans of one :func:`recording` block, in the order they opened,
+    and K2's count of P_base reads: one device int64 a call, read back
+    once, when the recording ends."""
 
     def __init__(self):
         self.spans: list = []
         self.open: list = []          # the spans entered and not yet left
+        self._k2_reads: dict = {}     # call id -> int64 on the device
+
+    def k2_reads_counter(self, device) -> int:
+        """The address of the open call's device int64 that K2 adds the
+        P_base matrices it read to (0 outside every span: nothing is
+        counted)."""
+        if not self.open:
+            return 0
+        call = self.open[-1].call
+        if call not in self._k2_reads:
+            self._k2_reads[call] = torch.zeros((), dtype=torch.int64,
+                                               device=device)
+        return self._k2_reads[call].data_ptr()
+
+    def _read_counters(self) -> None:
+        """The calls' counts into their root spans (one copy to the
+        host)."""
+        if self._k2_reads:
+            values = torch.stack(list(self._k2_reads.values())).tolist()
+            for call, value in zip(self._k2_reads, values):
+                self.spans[call].k2_p_reads = value
 
 
 class _Phase:
@@ -136,15 +161,20 @@ def recording():
     resets the CUDA allocator's peak counter (``torch.cuda.
     reset_peak_memory_stats``) at the entry of each top-level phase, so a
     caller that reads ``max_memory_allocated()`` over a recorded call reads
-    its last such phase's peak."""
+    its last such phase's peak. K2 counts the P_base matrices it reads on
+    the device, one counter a call; the counts reach the host once, as the
+    block ends, in the root spans' ``k2_p_reads``."""
     global _recorder
     if _recorder is not None:
         raise RuntimeError("recording() is already on in this process")
     rec = _recorder = Recorder()
+    _lib._k2_reads_counter = rec.k2_reads_counter
     try:
         yield rec
     finally:
         _recorder = None
+        _lib._k2_reads_counter = None
+        rec._read_counters()
 
 
 def spanned(name: str):

@@ -418,6 +418,42 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     assert set(counts.values()) == {0}
 
 
+@pytest.mark.parametrize("dtype,nl,direct,counts", [
+    (torch.float32, 640, False, True), (torch.float32, 512, False, True),
+    (torch.float32, 640, True, False), (torch.bfloat16, 128, False, False)])
+def test_gather_cp_passes_a_counter_only_while_recording(monkeypatch, dtype,
+                                                         nl, direct, counts):
+    """K2's float32 form gets a device counter (the ``reads`` argument of
+    ``rbs_gather_cp``) inside a recorded span and a null pointer with
+    recording off; the direct and bf16 forms count nothing. The CPU has no
+    kernel: the launch is faked."""
+    from types import SimpleNamespace
+
+    from rbslam_tpu_torch.kernels import _lib, kf_update
+    from rbslam_tpu_torch.utils import phase_annotation, recording
+
+    passed = []
+    fake = SimpleNamespace(rbs_gather_cp=lambda *a: passed.append(a[-2]) or 0)
+    monkeypatch.setattr(kf_update, "_on_cpu", lambda _: False)
+    monkeypatch.setattr(_lib, "lib", lambda: fake)
+    monkeypatch.setattr(_lib, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(_lib, "_launches",
+                        dict.fromkeys(_lib.KERNEL_NAMES, 0))
+    n, rw = 6, 24
+    args = (torch.zeros(n, dtype=torch.int32),
+            torch.zeros((n, 3, nl), dtype=dtype),
+            torch.zeros((n, rw, nl), dtype=dtype),
+            torch.zeros((2, nl, nl), dtype=dtype))
+    kf_update._gather_cp(*args, None, direct)
+    with recording() as rec:
+        with phase_annotation("update"):
+            kf_update._gather_cp(*args, None, direct)
+    assert passed[0] == 0 and bool(passed[1]) == counts
+    # nothing was added: the faked kernel counts nothing
+    assert rec.spans[0].k2_p_reads == (0 if counts else None)
+    assert _lib.launch_counts()["gather_cp"] == 2
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -646,42 +682,49 @@ class TestOnCard:
         return torch.randint(0, n, (n,), generator=g, device=card,
                              dtype=torch.int32)
 
+    # K2's runs forms: bf16 at the headline width; f32 at the benchmark
+    # cell's width (nl 640, rw 24) and at the reference width
+    RUNS_SHAPES = [(torch.bfloat16, 128), (torch.float32, 640),
+                   (torch.float32, 512)]
+
+    @pytest.mark.parametrize("dtype,nl", RUNS_SHAPES)
     @pytest.mark.parametrize("pattern", ["sorted_runs",
                                          "runs_over_tile_edges", "one_run",
                                          "runs_of_one", "unsorted"])
-    def test_gather_cp_runs_index_patterns(self, card, pattern):
-        """K2's bf16 form (one read of P a run of equal base indices) and
-        K8 against their plain versions on every index pattern, at the
-        headline width; two launches give the same bits, K8 those of K2
-        with Wt = 0, and the direct form agrees with the plain version."""
+    def test_gather_cp_runs_index_patterns(self, card, pattern, dtype, nl):
+        """K2's runs forms (one read of P a run of equal base indices; at
+        f32 runs longer than four particles are cut, and the blocks' shares
+        of the pieces cut runs too) and K8 against their plain versions on
+        every index pattern; two launches give the same bits, K8 those of
+        K2 with Wt = 0, and the direct form agrees with the plain
+        version."""
         from rbslam_tpu_torch.kernels.kf_update import _gather_cp
         from rbslam_tpu_torch.kernels.probes import (
             probe_gather_cp,
             probe_gather_cp_plain,
         )
 
-        n, nl, rw = 1000, 128, 24
-        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, rw,
-                                             torch.bfloat16, 17)
+        n, rw = 1000, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, rw, dtype, 17)
         bidx = self._pattern(pattern, n, g, card)
         out = gather_cp(bidx, C, Wt, P_base)
-        self._check(out, gather_cp_plain(bidx, C, Wt, P_base),
-                    torch.bfloat16)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base), dtype)
         assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
         self._check(_gather_cp(bidx, C, Wt, P_base, None, direct=True),
-                    gather_cp_plain(bidx, C, Wt, P_base), torch.bfloat16)
+                    gather_cp_plain(bidx, C, Wt, P_base), dtype)
         k8 = probe_gather_cp(bidx, C.float(), P_base)
         self._check(k8, probe_gather_cp_plain(bidx, C.float(), P_base),
-                    torch.bfloat16)
+                    dtype)
         assert torch.equal(k8, gather_cp(bidx, C, torch.zeros_like(Wt),
                                          P_base))
+        assert torch.equal(k8, probe_gather_cp(bidx, C.float(), P_base))
 
-    def test_gather_cp_runs_bad_index_inside_a_run(self, card):
+    @pytest.mark.parametrize("dtype,nl", RUNS_SHAPES)
+    def test_gather_cp_runs_bad_index_inside_a_run(self, card, dtype, nl):
         """An index outside [0, n_base) in the middle of a run writes NaN
         for that particle alone; its neighbours in the run are unchanged."""
-        n, nl, rw = 500, 128, 24
-        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, 12,
-                                             torch.bfloat16, 5)
+        n, rw = 500, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, 12, dtype, 5)
         bidx = self._pattern("sorted_runs", n, g, card)
         good = gather_cp(bidx, C, Wt, P_base, rows=12)
         bad_at = [40, 41, 77, 300]
@@ -692,37 +735,37 @@ class TestOnCard:
         assert bool(torch.isnan(out[bad_at]).all())
         assert torch.equal(out[keep], good[keep])
 
+    @pytest.mark.parametrize("dtype,nl", RUNS_SHAPES)
     @pytest.mark.parametrize("live", [0, 5, 16, 17])
-    def test_gather_cp_runs_live_rows_bit_equal(self, card, live):
+    def test_gather_cp_runs_live_rows_bit_equal(self, card, live, dtype, nl):
         """``rows=k`` gives the bits of all 24 rows where the rows from k on
-        are zero, in the runs form and in the direct form."""
+        are zero, in the runs forms and in the direct form."""
         from rbslam_tpu_torch.kernels.kf_update import _gather_cp
 
-        n, nl, rw = 700, 128, 24
-        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, live,
-                                             torch.bfloat16, live)
+        n, rw = 700, 24
+        g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, live, dtype,
+                                             live)
         bidx = self._pattern("sorted_runs", n, g, card)
         out = gather_cp(bidx, C, Wt, P_base, rows=live)
-        self._check(out, gather_cp_plain(bidx, C, Wt, P_base, live),
-                    torch.bfloat16)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base, live), dtype)
         assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
         assert torch.equal(_gather_cp(bidx, C, Wt, P_base, live, True),
                            _gather_cp(bidx, C, Wt, P_base, None, True))
 
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("nl", [16, 136, 512])
     @pytest.mark.parametrize("rw", [12, 48, 96, 192])
-    def test_gather_cp_runs_widths(self, card, nl, rw):
-        """The runs form at factor widths 12-192 (the rebase-period sweep)
+    def test_gather_cp_runs_widths(self, card, nl, rw, dtype):
+        """The runs forms at factor widths 12-192 (the rebase-period sweep)
         and map widths of one n8 pair, a ragged 136 and 512, on sorted runs
         with all but 5 rows live: against the plain version, live rows bit
         for bit against all rows."""
         n = 300
         g, P_base, Wt, C = self._runs_inputs(card, n, nl, rw, rw - 5,
-                                             torch.bfloat16, nl + rw)
+                                             dtype, nl + rw)
         bidx = self._pattern("sorted_runs", n, g, card)
         out = gather_cp(bidx, C, Wt, P_base, rows=rw - 5)
-        self._check(out, gather_cp_plain(bidx, C, Wt, P_base),
-                    torch.bfloat16)
+        self._check(out, gather_cp_plain(bidx, C, Wt, P_base), dtype)
         assert torch.equal(out, gather_cp(bidx, C, Wt, P_base))
 
     def test_empty_inputs_launch_nothing(self, card):

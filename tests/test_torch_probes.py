@@ -272,14 +272,17 @@ def test_block_plan_mirror(ny, nl, itemsize, plan):
     assert _block_plan(ny, nl, itemsize) == plan
 
 
-# (ny, rw, nl, itemsize, factor) -> csrc/kf_common.cuh:gather_cp_plan: 0 Wt
-# staged beside the ring, 1 Wt from global memory (always K8's at f32), 2
-# direct, 3 one read of P a run of equal indices (bf16 up to 512 columns)
+# (ny, rw, nl, itemsize, factor) -> csrc/kf_common.cuh:gather_cp_plan: 0 one
+# read of P a piece of a run of equal indices through the ring (f32, rows
+# of at most 256 16-byte units), 2 direct, 3 one read of P a run of equal
+# indices (bf16 up to 512 columns)
 @pytest.mark.parametrize("ny,rw,nl,itemsize,factor,plan", [
     (3, 24, 128, 2, True, 3), (3, 24, 512, 4, True, 0),
-    (3, 40, 512, 4, True, 0), (3, 24, 512, 4, False, 1),
+    (3, 40, 512, 4, True, 0), (3, 24, 512, 4, False, 0),
     (3, 24, 128, 4, True, 0), (3, 24, 2048, 4, True, 2),
-    (3, 40, 4096, 2, True, 2),
+    (3, 40, 4096, 2, True, 2), (3, 24, 640, 4, True, 0),
+    (3, 24, 640, 2, True, 2), (3, 24, 1024, 4, True, 0),
+    (3, 192, 512, 4, True, 0), (3, 24, 1032, 4, True, 2),
 ])
 def test_gather_cp_plan_mirror(ny, rw, nl, itemsize, factor, plan):
     from rbslam_tpu_torch.kernels.kf_update import _gather_cp_plan
@@ -290,14 +293,14 @@ def test_gather_cp_plan_mirror(ny, rw, nl, itemsize, factor, plan):
 # the factor widths rw = 3 r of workloads/sweep_lowrank.py (r = 4 ... 64) at
 # the headline and reference map widths, worked out by hand from
 # csrc/kf_common.cuh: (K2 gather_cp_plan, K3 rebase_variant). At f32 nl=512
-# the staged Wt stops fitting from rw = 96 (K2 reads it from global memory,
-# K3 takes its wide form), at bf16 nl=512 K3's staged factor from rw = 192;
-# K2's bf16 form streams Wt in 16-row chunks, so rw does not move it
+# K3's staged factor stops fitting from rw = 96 (it takes its wide form), at
+# bf16 nl=512 from rw = 192; K2 streams the factor rows (through its ring
+# at f32, in 16-row chunks at bf16), so rw does not move it
 SWEEP_FORMS = {
     (128, 2): [(3, 0)] * 5,
     (128, 4): [(0, 0)] * 5,
     (512, 2): [(3, 0)] * 4 + [(3, 1)],
-    (512, 4): [(0, 0)] * 3 + [(1, 1)] * 2,
+    (512, 4): [(0, 0)] * 3 + [(0, 1)] * 2,
 }
 
 

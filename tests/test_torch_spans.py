@@ -5,6 +5,7 @@ counters, and the clock shared with ``torch.profiler``, on the CPU at a
 small size (the kernels' plain versions)."""
 
 import bisect
+import ctypes
 import math
 
 import pytest
@@ -191,6 +192,71 @@ def test_launches_are_counted_in_every_open_span(monkeypatch):
     assert [(s.name, s.launches, s.call) for s in rec.spans] == [
         ("step", {"gather_cp": 2}, 0), ("update", {"gather_cp": 2}, 0),
         ("weights", {}, 0), ("rebase", {"rebase": 1}, 3)]
+
+
+def test_device_counters_reach_their_span_when_recording_ends(problem):
+    """K2's device counter of P_base reads (``_lib.k2_reads_counter``) is
+    one int64 a recorded call: every span of a call gives the same
+    address, another call another. The counts reach the calls' root spans
+    (``Span.k2_p_reads``) once, when the recording ends. Outside every
+    span, and with recording off, the counter is a null pointer. A
+    recorded call whose kernels count nothing (the plain versions here)
+    leaves every span's count None."""
+    cpu = torch.device("cpu")
+    assert _lib.k2_reads_counter(cpu) == 0
+    with recording() as rec:
+        assert _lib.k2_reads_counter(cpu) == 0
+        with phase_annotation("rbpf"):
+            with phase_annotation("update"):
+                a = _lib.k2_reads_counter(cpu)
+                ctypes.c_int64.from_address(a).value += 5   # a kernel's add
+            with phase_annotation("update"):
+                assert _lib.k2_reads_counter(cpu) == a
+                ctypes.c_int64.from_address(a).value += 2
+        with phase_annotation("rbpf"):
+            b = _lib.k2_reads_counter(cpu)
+            assert b != a
+            ctypes.c_int64.from_address(b).value += 4
+        assert all(s.k2_p_reads is None for s in rec.spans)
+    assert [s.k2_p_reads for s in rec.spans] == [7, None, None, 4]
+    assert _lib.k2_reads_counter(cpu) == 0
+    with recording() as rec:
+        CALLS["lowrank"](problem)
+    assert rec.spans and all(s.k2_p_reads is None for s in rec.spans)
+
+
+def test_k2_reads_reader_on_hand_made_calls():
+    """The benchmark's reader of ``kernels.k2_p_reads_per_particle``: the
+    P_base matrices counted over N_P times the K2 launches of the spans
+    that hold the count; None where no span holds one (a program without
+    the count) or no call was recorded."""
+    from types import SimpleNamespace
+
+    from benchmark import spec
+    from benchmark.spans import SpanCall
+
+    launches = [{"gather_cp": 2, "rebase": 1}, {"gather_cp": 1},
+                {"gather_cp": 1}, {"rebase": 1}]
+    names = ["rbpf", "update", "update", "rebase"]
+    spans = [profiling.Span(name, {}, i, None if i == 0 else 0, 0)
+             for i, name in enumerate(names)]
+    for s, n in zip(spans, launches):
+        s.launches = n
+    spans[0].k2_p_reads = 8
+    reader = spec.reader("kernels.k2_p_reads_per_particle")
+
+    def read(call_spans):
+        return reader.read(SimpleNamespace(
+            steps=2, cell=SimpleNamespace(n=8),
+            span_call=SpanCall(call_spans, [], [], 0.0)))
+
+    assert read(spans) == pytest.approx(8 / 16)
+    spans[0].k2_p_reads = None                  # another form of K2
+    assert read(spans) is None
+    parent = [SimpleNamespace(name=n, id=i, launches=k)    # no such slot
+              for i, (n, k) in enumerate(zip(names, launches))]
+    assert read(parent) is None
+    assert reader.read(SimpleNamespace(steps=2, span_call=None)) is None
 
 
 def test_spans_share_the_profiler_clock(problem):
