@@ -24,7 +24,9 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     particles), each launched twice for equal bits and held bit for bit
     against its direct form; K1 also between guard bands (canaries
     around its output and its packed constants, checked after each of 20
-    launches); K3 also at
+    launches); K4 also at the exact localization model's shape (m = 1000,
+    d = 3, N = 65536 positions over the mapped area; the table form, one
+    particle a block); K3 also at
     rw = 8 and 40, at nl = 136 and at nl = 2048 (its wide form); K5 in
     each of its forms (P resident
     in the block, streamed, two passes), each launched twice for equal
@@ -75,7 +77,8 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     host-device syncs by call site, none of them in the step loop;
 13. the mag-localization workload at its reference size (N_P=1000,
     m=1000, m_sim=2000, ML-II on): GP fit seconds, the map's test RMSE
-    (under 4.0) and the PF's mean error after burn-in (under 1.5 m);
+    (under 4.0) and the PF's mean error after burn-in (under 1.5 m); K4
+    launched once a weight evaluation (160), no other kernel;
 14. the sparse visual workload at its reference size (T=197, 20
     landmarks; PF N_P=100; PS N_K=10, N_P=10): path and map RMSE of both,
     no NaN, the PF's map under 2.0;
@@ -209,6 +212,7 @@ from rbslam_tpu_torch.kernels import (
     rebase_plain,
     reset_launch_counts,
 )
+from rbslam_tpu_torch.kernels.basis_eval import _basis_plan
 from rbslam_tpu_torch.kernels.kf_update import (
     _CP_RUN,
     _block_plan,
@@ -681,13 +685,26 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         )
         rows.setdefault("jac3d_rows", r)
         k1_guard_bands(device, cc, pp, qq, nll, dt)
-    # K4 at the headline shape, at d = 2 and at the mag3d smoother's 100
-    # particles (the direct form there)
+    # K4 at the headline shape, at d = 2, at the mag3d smoother's 100
+    # particles (the direct form there) and at the exact localization
+    # model's shape: m = 1000 on the domain of the benchmark's mapped area
+    # ([-4, 4]^2 padded by 1.6), 65,536 centred positions over that area
+    # (the table form, one particle a block; drawn from a generator of its
+    # own, so the other cases' inputs stay as they were)
     d2 = pack_basis_constants(hypercube_basis(128, [9.0, 6.0]), device)
     x2 = (2 * torch.rand((n, 2), generator=g, device=device) - 1) \
         * torch.tensor([9.0, 6.0], device=device)
     smoother = pack_basis_constants(hypercube_basis(512, bounds3), device)
-    grad_cases = ((consts, pos), (d2, x2), (smoother, pos[:100]))
+    loc = pack_basis_constants(
+        hypercube_basis(1000, [[-5.6, -5.6, -1.6], [5.6, 5.6, 1.6]]), device)
+    g_loc = torch.Generator(device=device).manual_seed(19)
+    x_loc = (torch.rand((65536, 3), generator=g_loc, device=device) - 0.5) \
+        * torch.tensor([8.0, 8.0, 0.2], device=device)
+    if _basis_plan(False, 65536, 3, 1000, 0, 4, loc.counts) != (1, 1):
+        raise AssertionError("K4 at N=65536 m=1000 d=3 does not plan the "
+                             "table form at one particle a block")
+    grad_cases = ((consts, pos), (d2, x2), (smoother, pos[:100]),
+                  (loc, x_loc))
     for cc, xx in grad_cases:
         dd = cc.d
         r = compare(
@@ -1568,14 +1585,16 @@ def phase_terrain_pf(device, card, zero, n_particles=1 << 20, T=128):
 def phase_mag_localization(device, card, zero):
     """Phase 13: the mag-localization workload at its reference size
     (N_P=1000, m=1000, m_sim=2000, ML-II on) through its entry point,
-    held to the JAX test's gates (tests/test_workloads.py:44-58)."""
+    held to the JAX test's gates (tests/test_workloads.py:44-58). The
+    exact model's field rows come from K4, one launch a weight
+    evaluation: T a run, and no other kernel."""
     check_tf32_off()
     cfg = mag_localization.MagLocalizationConfig()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = mag_localization.run(cfg, device=device)
     wall = time.perf_counter() - t0
-    if launch_counts() != zero:
+    if launch_counts() != {**zero, "grad_basis": cfg.n_test_steps}:
         raise AssertionError(f"launched kernels: {launch_counts()}")
     gp, pf = out["gp"], out["pf"]
     log(f"[13] mag-localization ({out['data']}) N_P={cfg.n_particles} "

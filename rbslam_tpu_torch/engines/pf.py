@@ -21,6 +21,16 @@ Randomness enters through one seam: per step the resampling uniforms
 or taken from ``noise = (u, w)``: u [T-1] or [T-1, N], w [T-1, N,
 n_noise]. The terrain models take n_noise = 6, the position draws then
 the orientation draws.
+
+The log evidence sums log sum_i W_i p(y_t | x_t^i) over the steps, W the
+weights each step starts from: -log N each after a resampling, the
+carried normalized weights otherwise. (The JAX package subtracts log N
+once more a step.)
+
+Phase spans (``utils.profiling``): ``pf`` > ``step0``, ``loop`` >
+``step`` (``t``) > ``resample``, ``dynamics``, ``weights``; then
+``finish``. The exact terrain model's weight adds its own spans inside
+``weights`` (models/terrain.py).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from ..math.linalg import ess_from_logw, logsumexp_normalize
 from ..ops.resampling import _SCHEMES, resample_indices
+from ..utils.profiling import phase_annotation, spanned
 from .rbpf import (
     _as,
     _broadcast_time,
@@ -63,6 +74,7 @@ class PFResult(NamedTuple):
     ancestors: torch.Tensor     # [T-1, N_P] int32
 
 
+@spanned("pf")
 def run_pf_localization(dynamics: Callable, log_weight: Callable, dx, y,
                         x0_nonlin, Q, dt, config: PFConfig, *, n_noise: int,
                         generator: Optional[torch.Generator], device,
@@ -102,7 +114,6 @@ def run_pf_localization(dynamics: Callable, log_weight: Callable, dx, y,
     x0 = _as(x0_nonlin, device)
     xn0 = x0.expand(n_p, -1) if x0.dim() == 1 else x0
     dn = xn0.shape[-1]
-    w0, logw_n, logz0 = logsumexp_normalize(log_weight(y[0], xn0))
     log_np = math.log(n_p)
     gated = config.ess_threshold < 1.0
     ident = torch.arange(n_p, device=device)
@@ -116,42 +127,56 @@ def run_pf_localization(dynamics: Callable, log_weight: Callable, dx, y,
     logz_t = torch.empty((n_steps,), device=device)
     xn_hist = (torch.empty((T, n_p, dn), device=device)
                if config.store_trajectories else None)
-    traj_max[0] = _row_at_max(xn0, logw_n)
-    traj_mean[0] = torch.sum(xn0 * w0[:, None], dim=0)
-    ess[0] = ess_from_logw(logw_n)
-    if xn_hist is not None:
-        xn_hist[0] = xn0
+
+    def record(t, xn, w, logw_n):
+        """Step t's estimates of the cloud xn under its normalized
+        weights."""
+        traj_max[t] = _row_at_max(xn, logw_n)
+        traj_mean[t] = torch.sum(xn * w[:, None], dim=0)
+        ess[t] = ess_from_logw(logw_n)
+        if xn_hist is not None:
+            xn_hist[t] = xn
+
+    with phase_annotation("step0", memory_of=device):
+        w0, logw_n, logz0 = logsumexp_normalize(log_weight(y[0], xn0))
+        record(0, xn0, w0, logw_n)
 
     xn = xn0
-    for t in range(n_steps):
-        u, w_dyn = draw(t)
-        ai = resample_indices(u, torch.exp(logw_n), n_p, config.resampling)
-        if gated:
-            # the port's lax.cond: indices drawn every step, the identity
-            # kept where the carried weights' ESS is above the threshold
-            do_resample = ess_from_logw(logw_n) <= config.ess_threshold * n_p
-            ai = torch.where(do_resample, ai, ident)
-            logw_prev = torch.where(do_resample, uniform, logw_n)
-        else:
-            logw_prev = uniform
-        xn = dynamics(w_dyn, xn.index_select(0, ai), dx[t], dt[t], Q[t])
-        w_new, logw_n, logz = logsumexp_normalize(
-            logw_prev + log_weight(y[t + 1], xn))
-        ancestors[t] = ai
-        traj_max[t + 1] = _row_at_max(xn, logw_n)
-        traj_mean[t + 1] = torch.sum(xn * w_new[:, None], dim=0)
-        ess[t + 1] = ess_from_logw(logw_n)
-        logz_t[t] = logz - log_np
-        if xn_hist is not None:
-            xn_hist[t + 1] = xn
+    with phase_annotation("loop", memory_of=device):
+        for t in range(n_steps):
+            with phase_annotation("step", t=t + 1):
+                with phase_annotation("resample"):
+                    u, w_dyn = draw(t)
+                    ai = resample_indices(u, torch.exp(logw_n), n_p,
+                                          config.resampling)
+                    if gated:
+                        # the port's lax.cond: indices drawn every step,
+                        # the identity kept where the carried weights' ESS
+                        # is above the threshold
+                        do_resample = (ess_from_logw(logw_n)
+                                       <= config.ess_threshold * n_p)
+                        ai = torch.where(do_resample, ai, ident)
+                        logw_prev = torch.where(do_resample, uniform,
+                                                logw_n)
+                    else:
+                        logw_prev = uniform
+                    ancestors[t] = ai
+                with phase_annotation("dynamics"):
+                    xn = dynamics(w_dyn, xn.index_select(0, ai), dx[t],
+                                  dt[t], Q[t])
+                with phase_annotation("weights"):
+                    w_new, logw_n, logz_t[t] = logsumexp_normalize(
+                        logw_prev + log_weight(y[t + 1], xn))
+                    record(t + 1, xn, w_new, logw_n)
 
-    if xn_hist is not None:
-        xn_traj = reconstruct_trajectories(xn_hist, ancestors)
-    else:
-        xn_hist = torch.zeros((0,), device=device)
-        xn_traj = torch.zeros((0,), device=device)
-    return PFResult(
-        traj_max=traj_max, traj_mean=traj_mean, xn=xn, logw=logw_n, ess=ess,
-        log_evidence=(logz0 - log_np) + torch.sum(logz_t),
-        xn_traj=xn_traj, xn_hist=xn_hist, ancestors=ancestors,
-    )
+    with phase_annotation("finish", memory_of=device):
+        if xn_hist is not None:
+            xn_traj = reconstruct_trajectories(xn_hist, ancestors)
+        else:
+            xn_hist = torch.zeros((0,), device=device)
+            xn_traj = torch.zeros((0,), device=device)
+        return PFResult(
+            traj_max=traj_max, traj_mean=traj_mean, xn=xn, logw=logw_n,
+            ess=ess, log_evidence=(logz0 - log_np) + torch.sum(logz_t),
+            xn_traj=xn_traj, xn_hist=xn_hist, ancestors=ancestors,
+        )

@@ -209,14 +209,10 @@ def run(cfg: MagLocalizationConfig, *, device="cuda", video=None) -> dict:
     dquat = qmul(qinv(qt[:-1]), qt[1:]).numpy()
     u = np.concatenate([dpos, dquat], -1)
 
+    # the model works in the GP's centered frame
     model = make_terrain_model(gp.potential, gp.mean_weights, gp.chol,
-                               float(gp.theta[3]), mode=cfg.weight_mode)
-    center = torch.as_tensor(gp.center, dtype=torch.float32, device=device)
-
-    def log_weight(y_t, xn):
-        # the model works in the GP's centered frame
-        return model.log_weight(
-            y_t, torch.cat([xn[:, :3] - center, xn[:, 3:7]], dim=-1))
+                               float(gp.theta[3]), mode=cfg.weight_mode,
+                               center=gp.center)
 
     # particles spread uniformly over the training area (:156-161)
     n_p = cfg.n_particles
@@ -228,7 +224,8 @@ def run(cfg: MagLocalizationConfig, *, device="cuda", video=None) -> dict:
 
     with Timer(device) as t_pf:
         res = run_pf_localization(
-            model.dynamics, log_weight, u, y_body, init, default_Q(), cfg.dt,
+            model.dynamics, model.log_weight, u, y_body, init, default_Q(),
+            cfg.dt,
             PFConfig(n_particles=n_p, resampling=cfg.resampling,
                      ess_threshold=cfg.ess_threshold,
                      store_trajectories=video is not None),
