@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 main paths' own base indices (bf16 at N_P = 16384 and 131072, f32 at the
 benchmark cell's N_P = 12288, n_lin 640); ``--k2 --parent DIR`` also
 times the K2 of the checkout at DIR in turns with this one and counts
-the launches on which the two give equal bits.
+the launches on which the two give equal bits. ``--predictive`` runs
+phases 1 and 2 and then only phase 23.
 
 Phases (each prints its own lines; any failure raises, exit code != 0):
  1. require CUDA; print the card's name and power limit; turn TF32 off;
@@ -78,7 +79,7 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
 13. the mag-localization workload at its reference size (N_P=1000,
     m=1000, m_sim=2000, ML-II on): GP fit seconds, the map's test RMSE
     (under 4.0) and the PF's mean error after burn-in (under 1.5 m); K4
-    launched once a weight evaluation (160), no other kernel;
+    and K12 launched once a weight evaluation each (160), no other kernel;
 14. the sparse visual workload at its reference size (T=197, 20
     landmarks; PF N_P=100; PS N_K=10, N_P=10): path and map RMSE of both,
     no NaN, the PF's map under 2.0;
@@ -139,11 +140,21 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     inside runs, K8 against K2 with Wt = 0, at f32 K2's own count of the
     P_base matrices it read against the host's count of its pieces, and
     timed in turns with the direct form.
+23. K12 gp_predictive (the exact localization weight's predictive) on a
+    map fitted to seeded readings on the mapping path of
+    workloads/mag_localization.py (m = 1000, theta of the benchmark's
+    localization cell, no ML-II), at the cell's shape (N = 65,536
+    positions over the mapped area: 196,608 rows of width 1003), at 512
+    positions and at a ragged width (m = 997, 1001 positions: 3003 rows):
+    against its plain version and, at the cell's shape, against a float64
+    solve (tolerances in phase_predictive), two launches bit-equal; timed
+    beside its bound, its plain version and torch.linalg.solve_triangular
+    over the same rows (``library_ms``; the port never calls it).
 
 Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
 20, 21 and 22 sets every launch count to 0 just before it and reads the counts
 just after; the counts must be exactly those of its path (none for
-12-14 and 19, which are plain PyTorch, as the JAX package's paths are
+12, 14 and 19, which are plain PyTorch, as the JAX package's paths are
 plain XLA). No phase imports the viz package: the card's machine has no
 matplotlib.
 
@@ -174,6 +185,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from rbslam_tpu_torch.engines import (
@@ -189,6 +201,8 @@ from rbslam_tpu_torch.kernels import (
     block_gather_plain,
     gather_cp,
     gather_cp_plain,
+    gp_predictive,
+    gp_predictive_plain,
     grad_basis,
     grad_basis_plain,
     kf_rebase,
@@ -199,6 +213,7 @@ from rbslam_tpu_torch.kernels import (
     mag3d_jacobian_rows,
     mag3d_jacobian_rows_plain,
     pack_basis_constants,
+    pack_predictive,
     phi_basis,
     phi_basis_plain,
     probe_block_products,
@@ -223,6 +238,7 @@ from rbslam_tpu_torch.kernels.kf_update import (
 from rbslam_tpu_torch import bench
 from rbslam_tpu_torch.basis import hypercube_basis
 from rbslam_tpu_torch.basis.laplace import domain_center
+from rbslam_tpu_torch.gp import fit_scalar_potential_gp
 from rbslam_tpu_torch import __main__ as cli
 from rbslam_tpu_torch.metrics import aligned_position_rmse
 from rbslam_tpu_torch.utils import (
@@ -285,6 +301,9 @@ KERNELS = {
                      "scripts/profile_gather_kernel.py:19"),
     "probe_block_products": ("rbslam_tpu_torch/csrc/probes.cu",
                              "scripts/profile_block_mxu.py:77"),
+    "predictive": ("rbslam_tpu_torch/csrc/predictive.cu",
+                   "none: the exact terrain weight's GP predictive "
+                   "(rbslam_tpu/models/terrain.py leaves it to XLA)"),
 }
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1587,15 +1606,18 @@ def phase_mag_localization(device, card, zero):
     (N_P=1000, m=1000, m_sim=2000, ML-II on) through its entry point,
     held to the JAX test's gates (tests/test_workloads.py:44-58). The
     exact model's field rows come from K4, one launch a weight
-    evaluation: T a run, and no other kernel."""
+    evaluation, and its predictive from K12, one launch a weight
+    evaluation: T a run each, and no other kernel."""
     check_tf32_off()
     cfg = mag_localization.MagLocalizationConfig()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = mag_localization.run(cfg, device=device)
     wall = time.perf_counter() - t0
-    if launch_counts() != {**zero, "grad_basis": cfg.n_test_steps}:
-        raise AssertionError(f"launched kernels: {launch_counts()}")
+    counts = launch_counts()
+    if counts != {**zero, "grad_basis": cfg.n_test_steps,
+                  "predictive": cfg.n_test_steps}:
+        raise AssertionError(f"launched kernels: {counts}")
     gp, pf = out["gp"], out["pf"]
     log(f"[13] mag-localization ({out['data']}) N_P={cfg.n_particles} "
         f"m={cfg.m_basis} m_sim={cfg.m_sim} ML-II on: GP fit "
@@ -1609,6 +1631,7 @@ def phase_mag_localization(device, card, zero):
         "2.12 / 0.10 m (RESULTS.md:53)")
     if not (gp["test_rmse"] < 4.0 and pf["mean_err_after_burnin"] < 1.5):
         raise AssertionError("mag-localization outside the JAX test's gates")
+    return counts
 
 
 def phase_sparse_visual(device, card, zero):
@@ -2610,11 +2633,110 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
     del res, run, problem
 
 
+def predictive_case(device, n, m, seed=23):
+    """A map posterior of m basis functions, fitted (theta (10, 1, 25, 4)
+    of the benchmark's localization cell, no ML-II) to seeded readings on
+    the mapping path of workloads/mag_localization.py (11 lines of 40),
+    and K4's basis gradients g [n, 3, m] at n centred positions drawn
+    over the mapped area: (g, L, w, sigma2)."""
+    gen = torch.Generator().manual_seed(seed)
+    x_map = mag_localization._lawnmower(4.0, 11)
+    y_map = torch.randn((len(x_map), 3), generator=gen,
+                        dtype=torch.float64).numpy() * 5.0
+    lo, hi = x_map.min(0), x_map.max(0)
+    LL = np.stack([lo - 0.2 * 8.0, hi + 0.2 * 8.0])
+    gp = fit_scalar_potential_gp(x_map, y_map, m, LL, (10.0, 1.0, 25.0, 4.0),
+                                 optimize=False, device=device)
+    u = torch.rand((n, 2), generator=gen, dtype=torch.float64)
+    x = np.zeros((n, 3), np.float32)
+    x[:, :2] = (lo[:2] + (hi[:2] - lo[:2]) * u.numpy()) - gp.center[:2]
+    x[:, 2] = -gp.center[2]
+    consts = pack_basis_constants(gp.potential.basis, device)
+    g = grad_basis(consts, torch.as_tensor(x, device=device))
+    return g, gp.chol, gp.mean_weights, float(gp.theta[3])
+
+
+def phase_predictive(device):
+    """Phase 23, K12 gp_predictive: against its plain version at the
+    exact localization cell's shape (65,536 positions, m = 1000: 196,608
+    rows of width 1003), at 512 positions and at a ragged width (m = 997,
+    n_lin 1000, 3003 rows) within ``compare``'s float32 tolerance; at the
+    cell's shape also against a float64 solve of the same float32 L and
+    rows (variance 1e-5 relative, mean 1e-5 of its largest magnitude,
+    beside the float32 solve's own errors); two launches bit-equal in each
+    case. Timed beside its bound (rows n_lin^2 operations at 67 TFLOP/s,
+    benchmark/roofline_pf.py's yardstick), its plain version and, as the
+    library's yardstick, the float32 torch.linalg.solve_triangular of the
+    same rows that the predictive ran before K12 (C = [I | g] built
+    outside the timing). Returns the kernels line's row."""
+    check_tf32_off()
+    row = None
+    for n, m in ((65536, 1000), (512, 1000), (1001, 997)):
+        g, L, w, sigma2 = predictive_case(device, n, m)
+        pc = pack_predictive(L, w, sigma2)
+        n_lin, rows = m + 3, 3 * n
+        note = f"N={n} rows={rows} n_lin={n_lin} float32"
+        r = compare("predictive", lambda: gp_predictive(pc, g),
+                    lambda: gp_predictive_plain(pc, g), device,
+                    torch.float32, note, (g, pc.table),
+                    rows * n_lin * n_lin)
+        a, b = gp_predictive(pc, g), gp_predictive(pc, g)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"[23] predictive {note}: two launches "
+                                 "differ")
+        log(f"[23] predictive {note}: two launches bit-equal")
+        if row is not None:
+            continue
+        C = torch.cat([torch.eye(3, device=device).expand(n, 3, 3), g],
+                      dim=-1).reshape(rows, n_lin)
+        Lt = L.to(torch.float32)
+        lib_ms = time_ms(lambda: torch.linalg.solve_triangular(
+            Lt, C.T, upper=False), device)
+        r["library_ms"] = lib_ms
+        V = torch.linalg.solve_triangular(Lt.double(), C.double().T,
+                                          upper=False)
+        var64 = sigma2 * torch.sum(V * V, dim=0)
+        mean64 = C.double() @ w.double()
+        del V
+        V32 = torch.linalg.solve_triangular(Lt, C.T, upper=False)
+        var32 = sigma2 * torch.sum(V32 * V32, dim=0)
+        del V32, C
+        mean_k, var_k = (t.reshape(-1).double() for t in a)
+        mean_p, var_p = (t.reshape(-1).double()
+                         for t in gp_predictive_plain(pc, g))
+        scale = float(mean64.abs().max())
+
+        def errs(mean, var):
+            return (float(((var - var64) / var64).abs().max()),
+                    float((mean - mean64).abs().max()) / scale)
+
+        ek, ep, es = errs(mean_k, var_k), errs(mean_p, var_p), \
+            errs(mean64, var32.double())
+        log(f"[23] predictive {note} against a float64 solve: var rel err "
+            f"kernel {ek[0]:.3e}, plain {ep[0]:.3e}, float32 solve "
+            f"{es[0]:.3e} (tol 1e-5); mean err over max |mean| "
+            f"({scale:.3e}) kernel {ek[1]:.3e}, plain {ep[1]:.3e} (tol "
+            f"1e-5); var range {float(var64.min()):.4f}-"
+            f"{float(var64.max()):.4f}")
+        if not (ek[0] <= 1e-5 and ek[1] <= 1e-5):
+            raise AssertionError("K12 outside its float32 tolerance of the "
+                                 "float64 solve")
+        log(f"[23] predictive {note}: kernel {r['ms']:.4f} ms = "
+            f"{rows * n_lin * n_lin / r['ms'] / 1e9:.2f} TFLOP/s of the "
+            f"bound's flops ({100 * r['bound_ms'] / r['ms']:.1f} % of "
+            f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"solve_triangular {lib_ms:.4f} ms (library_ms)")
+        row = r
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k2", action="store_true",
                     help="phases 1-2, then only phase 3's K2 and K8 on the "
                          "main paths' own indices (k2_main_paths)")
+    ap.add_argument("--predictive", action="store_true",
+                    help="phases 1-2, then only phase 23 (K12)")
     ap.add_argument("--parent", default=None,
                     help="with --k2: the root of another checkout of the "
                          "port, whose K2 is timed in turns with this one "
@@ -2648,6 +2770,9 @@ def main(argv=None) -> int:
             parent = importlib.import_module("parent_port.kernels")
         k2_main_paths(device, torch.Generator(device=device).manual_seed(0),
                       parent)
+        return 0
+    if args.predictive:
+        phase_predictive(device)
         return 0
 
     rows = phase_compare(device)
@@ -2697,7 +2822,8 @@ def main(argv=None) -> int:
     log(f"[11] grad_basis launches on the dense-mag comparison "
         f"{counts_m['grad_basis']} (the kernels line keeps phase 8's)")
     phase_terrain_pf(device, card, zero)
-    phase_mag_localization(device, card, zero)
+    counts["predictive"] = phase_mag_localization(device, card,
+                                                  zero)["predictive"]
     phase_sparse_visual(device, card, zero)
     phase_profiling(device, card, lowrank)
     phase_cli(device, card, zero)
@@ -2706,6 +2832,7 @@ def main(argv=None) -> int:
     phase_gates(device, card, zero, lowrank, problem8, data8, res8)
     phase_reproduce(device, card, zero)
     phase_bench(device, card, zero, lowrank)
+    rows["predictive"] = phase_predictive(device)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -8,6 +8,8 @@ K4 grad_basis           (replaces basis_eval.py:_grad_kernel)
 K5 kf_update_block_gather (replaces kf_update.py:_kernel_block_gather)
 K6 phi_basis            (replaces basis_eval.py:_phi_kernel)
 K7 mag3d_jacobian       (replaces basis_eval.py:_jac3d_kernel)
+K12 gp_predictive       (replaces none: the exact terrain weight's GP
+                         predictive, which the JAX package leaves to XLA)
 
 and the kernel-part probes (replace the profiling kernels of scripts/):
 
@@ -40,6 +42,12 @@ from .kf_update import (
     rebase_plain,
     spd_inv_logdet_plain,
 )
+from .predictive import (
+    PredictiveConstants,
+    gp_predictive,
+    gp_predictive_plain,
+    pack_predictive,
+)
 from .probes import (
     probe_block_products,
     probe_block_products_plain,
@@ -65,4 +73,6 @@ __all__ = [
     "probe_rebase_parts", "probe_rebase_parts_plain",
     "probe_gather", "probe_gather_plain",
     "probe_block_products", "probe_block_products_plain",
+    "PredictiveConstants", "pack_predictive",
+    "gp_predictive", "gp_predictive_plain",
 ]

@@ -34,7 +34,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("basis_eval.cu", "kf_update.cu", "probes.cu")
+SOURCES = ("basis_eval.cu", "kf_update.cu", "probes.cu", "predictive.cu")
 HEADERS = ("kf_common.cuh", "kf_block.cuh")   # included by kf_update.cu, probes.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,7 +43,8 @@ NVCC_FLAGS = (
 
 KERNEL_NAMES = ("grad_basis", "jac3d_rows", "gather_cp", "rebase",
                 "block_gather", "phi_basis", "jac3d", "probe_gather_cp",
-                "probe_rebase_parts", "probe_gather", "probe_block_products")
+                "probe_rebase_parts", "probe_gather", "probe_block_products",
+                "predictive")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 _k2_reads_counter = None  # device -> address; set by recording()
 _lib = None
@@ -88,6 +89,8 @@ _SIGNATURES = {
     "rbs_probe_gather": (_P, _P, _P, _LL, _LL, _I, _I, _P),
     # (C, P, out, n, ny, nl, plan, bf16, stream)
     "rbs_probe_block_products": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # (g, table, sigma2, mean, var, rows, m, ldb, table_rows, stream)
+    "rbs_predictive": (_P, _P, _F, _P, _P, _LL, _I, _I, _I, _P),
 }
 
 

@@ -15,12 +15,14 @@ run_localization.m, particleFilterLocalization.m).
   position and the weights never leave log space.
 
 The exact model's weight runs in three phases (``utils.profiling``
-spans inside the engine's ``weights``): ``basis``, the field rows
-C(x) = [I_3 | grad phi(x)] (K4 ``grad_basis`` on a CUDA device,
-``grad_blocks`` elsewhere); ``predictive``, the mean C w and the variance
-sigma2 diag(C A^-1 C') from one triangular solve over all 3N rows
-(attributes ``rows`` and ``n_lin``); ``likelihood``, the rotation into
-the body frame and the per-axis densities.
+spans inside the engine's ``weights``): ``basis``, the basis gradients
+g(x) [N, 3, m] of the field rows C(x) = [I_3 | g(x)] (K4 ``grad_basis``
+on a CUDA device, ``grad_phi`` elsewhere; C itself is never formed);
+``predictive``, the mean C w and the variance sigma2 diag(C A^-1 C') =
+sigma2 ||L^-1 c||^2 of all 3N rows in one launch of K12 ``gp_predictive``
+from g and L^-1, formed once at construction (its plain version on the
+CPU; attributes ``rows`` and ``n_lin``); ``likelihood``, the rotation
+into the body frame and the per-axis densities.
 
 Every callable works on the whole ensemble at once: ``log_weight(y_t [3],
 xn [N, 7]) -> [N]`` and ``dynamics(w [N, 6], xn [N, 7], u [7], dt, Q) ->
@@ -38,6 +40,7 @@ import torch
 
 from ..basis.potential import ScalarPotentialBasis
 from ..kernels.basis_eval import grad_basis, pack_basis_constants
+from ..kernels.predictive import gp_predictive, pack_predictive
 from ..math.quaternions import expq, qmul, quat_to_rmat
 from ..utils.profiling import phase_annotation
 
@@ -84,52 +87,47 @@ def make_terrain_model(potential: ScalarPotentialBasis,
                        mode: str = "product", center=None) -> TerrainModel:
     """The exact model: the GP predictive from the posterior mean weights
     [n_lin] ("foo", run_localization.m:150-151) and the lower Cholesky
-    [n_lin, n_lin] of Phi'Phi + diag(sigma2/k). The predictive variance of
-    all 3N gradient rows comes from one triangular solve. ``center`` [3]
-    (the GP's domain centre) is subtracted from the positions the weights
-    and ``predict_field`` are given; by default they are centred already.
-    On a CUDA device the rows' basis gradients come from K4, whose
-    constants are packed once here, on the device of the mean weights."""
+    [n_lin, n_lin] of Phi'Phi + diag(sigma2/k), both float32. L^-1 is
+    formed here once, in float64, and rounded to float32
+    (``kernels.predictive.pack_predictive``): the predictive variance of
+    all 3N gradient rows is then one product with it (K12 on a CUDA
+    device). ``center`` [3] (the GP's domain centre) is subtracted from
+    the positions the weights and ``predict_field`` are given; by default
+    they are centred already. On a CUDA device the rows' basis gradients
+    come from K4, whose constants are packed once here, on the device of
+    the mean weights."""
     _check_mode(mode)
     w_map = torch.as_tensor(posterior_mean_weights)
-    Lpost = torch.as_tensor(posterior_chol)
     n_lin = potential.n_lin
+    predictive_consts = pack_predictive(posterior_chol, w_map, sigma2)
     c = None if center is None else torch.as_tensor(
         np.asarray(center, np.float32), device=w_map.device)
     consts = (pack_basis_constants(potential.basis, w_map.device)
               if w_map.device.type == "cuda" else None)
 
-    def field_rows(x):
-        """C(x) [.., 3, n_lin] at positions x [.., 3]."""
+    def basis_gradients(x):
+        """g(x) [.., 3, m] of the field rows [I_3 | g] at positions x
+        [.., 3]."""
         if c is not None:
             x = x - c
         if consts is None:
-            return potential.grad_blocks(x)
+            return potential.basis.grad_phi(x)
         flat = x.reshape(-1, 3).contiguous()
-        g = grad_basis(consts, flat)                 # [N, 3, m] (K4)
-        eye = torch.eye(3, dtype=g.dtype, device=g.device).expand(
-            g.shape[:-1] + (3,))
-        return torch.cat([eye, g], dim=-1).reshape(x.shape[:-1]
-                                                   + (3, n_lin))
+        return grad_basis(consts, flat).reshape(x.shape + (consts.m,))
 
-    def predictive(C):
-        """Mean [.., 3] and variance [.., 3] of the field at rows C."""
-        flat = C.reshape(-1, n_lin)
-        with phase_annotation("predictive", rows=flat.shape[0],
+    def predictive(g):
+        """Mean [.., 3] and variance [.., 3] of the field at rows [I | g]."""
+        with phase_annotation("predictive", rows=g.numel() // g.shape[-1],
                               n_lin=n_lin):
-            mean = C @ w_map
-            # var = sigma2 * diag(C A^-1 C') with A = L L'
-            V = torch.linalg.solve_triangular(Lpost, flat.T, upper=False)
-            var = (sigma2 * torch.sum(V * V, dim=0)).reshape(C.shape[:-1])
-        return mean, var
+            return gp_predictive(predictive_consts, g)
 
     def predict_field(x):
-        return predictive(field_rows(x))
+        return predictive(basis_gradients(x))
 
     def log_weight(y_t, xn):
         with phase_annotation("basis"):
-            C = field_rows(xn[:, :3])
-        mean_nav, var = predictive(C)
+            g = basis_gradients(xn[:, :3])
+        mean_nav, var = predictive(g)
         with phase_annotation("likelihood"):
             return _log_weight(y_t, xn[:, 3:7], mean_nav, var, sigma2, mode)
 

@@ -22,7 +22,13 @@ torch = pytest.importorskip("torch")
 
 from benchmark import control, run, spec  # noqa: E402
 from benchmark.spans import Phase, SpanCall  # noqa: E402
+from rbslam_tpu_torch.gp import fit_scalar_potential_gp  # noqa: E402
 from rbslam_tpu_torch.kernels import _lib  # noqa: E402
+from rbslam_tpu_torch.kernels.predictive import (  # noqa: E402
+    gp_predictive,
+    gp_predictive_plain,
+    pack_predictive,
+)
 from rbslam_tpu_torch.utils import profiling, recording  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -224,6 +230,104 @@ def test_the_launch_plan_names_k4_once_a_weight_evaluation():
     assert launch.nbytes == N * 3 * 4 + N * 3 * M * 4
 
 
+def _map_posterior(m, device="cpu", seed=3):
+    """The cell's map (its data at a CPU size, its theta, no ML-II) fitted
+    with m basis functions on ``device``: (gp, cell setup). L carries the
+    real spread of sigma2/k of the cell's posterior."""
+    setup = _cell(seed=seed, device=device)
+    d = setup.cell.data
+    gp = fit_scalar_potential_gp(d.x_map.cpu().numpy(), d.y_map.cpu().numpy(),
+                                 m, d.LL, d.theta, optimize=False,
+                                 device=device)
+    return gp, setup
+
+
+def _positions(setup, gp, n, device="cpu", seed=0):
+    """n centred positions of the cell's initial cloud over the mapped
+    area."""
+    u = torch.rand((n, 2), generator=torch.Generator().manual_seed(seed))
+    x = setup.cell.problem.initial_cloud(setup.cell.data, u.to(device))
+    return x[:, :3] - torch.as_tensor(gp.center, dtype=torch.float32,
+                                      device=device)
+
+
+def _solve64(C, L, w, sigma2):
+    """mean C w and variance sigma2 diag(C A^-1 C'), A = L L', in float64
+    by a triangular solve: the predictive the JAX package computes."""
+    C, L, w = C.double(), L.double(), w.double()
+    V = torch.linalg.solve_triangular(L, C.reshape(-1, C.shape[-1]).T,
+                                      upper=False)
+    var = sigma2 * torch.sum(V * V, dim=0)
+    return (C @ w).reshape(C.shape[:-1]), var.reshape(C.shape[:-1])
+
+
+def test_plain_predictive_matches_a_float64_solve_at_n_lin_1003():
+    """K12's plain version (float32 L^-1 formed in float64, one product)
+    against sigma2 diag(C A^-1 C') and C w from a float64 solve of the
+    same float32 L, at the cell's width: variance 1e-5 relative, mean
+    1e-5 of its largest magnitude (float32 rounding reads 2-3e-7)."""
+    gp, setup = _map_posterior(1000)
+    sigma2 = float(gp.theta[3])
+    x = _positions(setup, gp, 300)
+    g = gp.potential.basis.grad_phi(x)
+    assert g.shape == (300, 3, 1000)
+    mean, var = gp_predictive_plain(pack_predictive(gp.chol, gp.mean_weights,
+                                                    sigma2), g)
+    mean64, var64 = _solve64(gp.potential.grad_blocks(x), gp.chol,
+                             gp.mean_weights, sigma2)
+    assert float(((var.double() - var64) / var64).abs().max()) <= 1e-5
+    assert float((mean.double() - mean64).abs().max()) <= \
+        1e-5 * float(mean64.abs().max())
+
+
+@pytest.mark.parametrize("n,m", [(45, 8), (1, 125), (43, 130)],
+                         ids=["rows_135", "one_particle", "m_130"])
+def test_plain_predictive_identity_columns_and_ragged_rows(n, m):
+    """A random lower-triangular L and rows that fill no tile of 128 (nor,
+    at m = 125 and 130, a column tile): the table holds L^-1 transposed
+    and w, zero elsewhere; with g = 0 the rows are the identity columns
+    alone (mean w[a], variance sigma2 ||L^-1 e_a||^2); and any g agrees
+    with the float64 solve."""
+    gen = torch.Generator().manual_seed(n + m)
+    n_lin = m + 3
+    A = torch.randn((n_lin, n_lin), generator=gen, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.T / n_lin
+                              + torch.eye(n_lin, dtype=torch.float64)).float()
+    w = torch.randn(n_lin, generator=gen)
+    pc = pack_predictive(L, w, 0.7)
+    inv = torch.linalg.inv(L.double())
+    assert pc.m == m and pc.table.shape == (3 + -(-m // 32) * 32,
+                                            -(-(n_lin + 1) // 128) * 128)
+    torch.testing.assert_close(pc.table[:n_lin, :n_lin],
+                               inv.T.float(), rtol=1e-6, atol=1e-6)
+    assert torch.equal(pc.table[:n_lin, n_lin], w)
+    assert not pc.table[n_lin:].any() and not pc.table[:, n_lin + 1:].any()
+    mean0, var0 = gp_predictive(pc, torch.zeros((n, 3, m)))
+    assert torch.equal(mean0, w[:3].expand(n, 3))
+    torch.testing.assert_close(var0, (0.7 * torch.sum(inv[:, :3] ** 2, 0))
+                               .float().expand(n, 3), rtol=1e-6, atol=0)
+    g = torch.randn((n, 3, m), generator=gen)
+    mean, var = gp_predictive(pc, g)
+    C = torch.cat([torch.eye(3).expand(n, 3, 3), g], dim=-1)
+    mean64, var64 = _solve64(C, L, w, 0.7)
+    assert mean.shape == var.shape == (n, 3)
+    torch.testing.assert_close(var.double(), var64, rtol=1e-5, atol=0)
+    torch.testing.assert_close(mean.double(), mean64, rtol=0,
+                               atol=1e-5 * float(mean64.abs().max()))
+
+
+def test_predictive_refuses_what_the_kernel_does_not_take():
+    pc = pack_predictive(torch.eye(11), torch.ones(11), 1.0)
+    for bad, err in ((torch.zeros((4, 3, 8), dtype=torch.float64), TypeError),
+                     (torch.zeros((4, 2, 8)), ValueError),
+                     (torch.zeros((4, 3, 9)), ValueError),
+                     (torch.zeros((4, 8, 3)).transpose(1, 2), ValueError)):
+        with pytest.raises(err):
+            gp_predictive(pc, bad)
+    with pytest.raises(ValueError):
+        pack_predictive(torch.eye(11), torch.ones(10), 1.0)
+
+
 def _top_level_modules(code: str) -> set:
     out = subprocess.run(
         [sys.executable, "-c", f"import sys; sys.path.insert(0, "
@@ -302,3 +406,56 @@ def test_k4_field_rows_equal_grad_blocks_on_the_card(card, monkeypatch):
     setup.cell.call(setup.noise("call", 0))
     torch.cuda.synchronize()
     assert _lib.launch_counts()["grad_basis"] - before == T
+
+
+def _card_case(card, n, m):
+    """K4's rows at n positions of the cell's cloud and the packed map of m
+    basis functions, on the card."""
+    from rbslam_tpu_torch.kernels.basis_eval import (grad_basis,
+                                                     pack_basis_constants)
+
+    gp, setup = _map_posterior(m, device=card)
+    x = _positions(setup, gp, n, device=card)
+    g = grad_basis(pack_basis_constants(gp.potential.basis, card),
+                   x.contiguous())
+    return g, pack_predictive(gp.chol, gp.mean_weights, float(gp.theta[3]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(512, 1000), (65536, 1000), (1001, 997)],
+                         ids=["n512", "n65536", "ragged_n_lin_1000"])
+def test_k12_matches_its_plain_version_on_the_card(card, n, m):
+    """K12 against its plain version on the card (the same table; cuBLAS's
+    float32 product, TF32 off), at the cell's width and a ragged one (n_lin
+    1000, 3003 rows): variance 1e-5 relative, mean 1e-5 of its largest
+    magnitude (they differ by the float32 sums' order, 3e-7 at the cell's
+    shape); two launches bit-equal."""
+    g, pc = _card_case(card, n, m)
+    before = _lib.launch_counts()["predictive"]
+    mean, var = gp_predictive(pc, g)
+    mean2, var2 = gp_predictive(pc, g)
+    torch.cuda.synchronize()
+    assert _lib.launch_counts()["predictive"] - before == 2
+    assert torch.equal(mean, mean2) and torch.equal(var, var2)
+    mean_p, var_p = gp_predictive_plain(pc, g)
+    assert mean.shape == var.shape == (n, 3)
+    assert bool(torch.isfinite(var).all()) and bool((var > 0).all())
+    assert float(((var - var_p) / var_p).abs().max()) <= 1e-5
+    assert float((mean - mean_p).abs().max()) <= \
+        1e-5 * float(mean_p.abs().max())
+
+
+@pytest.mark.gpu
+def test_k4_and_k12_launch_once_a_weight_evaluation(card):
+    """On the PF's main path of the cell (T = 160; 512 particles), K4 and
+    K12 each launch once a weight evaluation, 160 a call, and the exact
+    model's predictive runs no other kernel of the port."""
+    setup = _cell({"traffic": {"n_particles": 512}}, device=card)
+    zero = dict.fromkeys(_lib.KERNEL_NAMES, 0)
+    _lib.reset_launch_counts()
+    setup.cell.call(setup.noise("call", 0))
+    torch.cuda.synchronize()
+    steps = setup.cell.steps_per_call
+    assert steps == 160
+    assert _lib.launch_counts() == {**zero, "grad_basis": steps,
+                                    "predictive": steps}
