@@ -1,45 +1,41 @@
-"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (Hopper, sm_90a):
+checks only. Nothing here is timed: the benchmark (benchmark/run.py, the
+cells of BENCHMARK.json) measures the port, and
+workloads/profile_kernel_parts.py and workloads/basis_kernel_times.py time
+its kernels alone.
 
 Run from the repository root:  python3 chip_smoke.py
 
-``--k2`` runs phases 1 and 2 and then only phase 3's K2 and K8 on the
-main paths' own base indices (bf16 at N_P = 16384 and 131072, f32 at the
-benchmark cell's N_P = 12288, n_lin 640); ``--k2 --parent DIR`` also
-times the K2 of the checkout at DIR in turns with this one and counts
-the launches on which the two give equal bits. ``--predictive`` runs
-phases 1 and 2 and then only phase 23.
-
-Phases (each prints its own lines; any failure raises, exit code != 0):
+Phases (each prints its own lines; any failure raises, exit code != 0;
+each makes every one of its runs once):
  1. require CUDA; print the card's name and power limit; turn TF32 off;
  2. build the CUDA kernels from rbslam_tpu_torch/csrc (one nvcc per
     source, started together, at first use);
  3. compare each kernel with its plain PyTorch version at the main
-    paths' shapes, and time both (the median of five groups of ten
-    launches, the spread beside it); K1, K4, K6 and K7, which are
-    shorter than their launch, also through
-    workloads/basis_kernel_times.py: the device-only time (ten calls in
-    one CUDA graph, replayed) beside the launch interval, with K6 held
-    against the launch floor (a one-element add_ timed the same way), and
-    K1, K4 and K7 in the form their planner picks (the table form at N = 16384 and
-    4096, the direct form at the smoothers' 100 and phase 9's 192
-    particles), each launched twice for equal bits and held bit for bit
-    against its direct form; K1 also between guard bands (canaries
-    around its output and its packed constants, checked after each of 20
-    launches); K4 also at the exact localization model's shape (m = 1000,
-    d = 3, N = 65536 positions over the mapped area; the table form, one
-    particle a block); K3 also at
-    rw = 8 and 40, at nl = 136 and at nl = 2048 (its wide form); K5 in
-    each of its forms (P resident
-    in the block, streamed, two passes), each launched twice for equal
-    bits; the probes K8-K11 in bf16 at N=16384, nl=128 and in f32 at
-    N=4096, nl=512, with their cross-checks (K10 bit-equal to
-    torch.index_select, K9 gather+dot to K3, K8 to K2 with Wt = 0, K9
-    gather only to K10), and K10, K9 gather + write and torch.index_select
-    timed in turns on the same indices;
+    paths' shapes; K6 launched twice for equal bits; K1 also between
+    guard bands (canaries around its output and its packed constants,
+    checked after each of 20 launches); K4 also at the exact localization
+    model's shape (m = 1000, d = 3, N = 65536 positions over the mapped
+    area; the table form, one particle a block); K3 also at rw = 8 and
+    40, at nl = 136 and at nl = 2048 (its wide form); K5 in each of its
+    forms (P resident in the block, streamed, two passes), each launched
+    twice for equal bits; the probes K8-K11 in bf16 at N=16384, nl=128
+    and in f32 at N=4096, nl=512, with their cross-checks (K10 bit-equal
+    to torch.index_select, K9 gather+dot to K3, K8 to K2 with Wt = 0, K9
+    gather only to K10). K1, K4 and K7 in the form their planner picks,
+    bit for bit against their direct form, are the ``gpu`` tests of
+    tests/test_torch_kernels.py (-k "table or direct"). K2 and K3 at bf16,
+    N=16384, nl=128 also at the sweep's factor widths rw = 12, 48, 96 and
+    192, and K2 and K8 on the base indices of a recorded lowrank run
+    (k2_main_path) at bf16, N=16384 and 131072, nl=128, and at f32,
+    N=12288, nl=640 (the benchmark cell's shape): against the plain
+    version, bit-equal between launches, with live rows, with bad indices
+    inside runs, K8 against K2 with Wt = 0, and at f32 K2's own count of
+    the P_base matrices it read against the host's count of its pieces;
  4. headline run of the port's filter: bean_6D, N_P=16384, m=125 (n_lin
     128), T=192, bf16 covariance, lowrank r=8, systematic resampling;
-    check finiteness, the launch counts of every kernel, position RMSE,
-    and particle-steps/s (best of 3 after a warm-up);
+    check finiteness, the launch counts of every kernel and the position
+    RMSE;
  5. the same path at the reference shape: N_P=4096, m=509, f32;
  4b/5b. the block_gather path (kernel K5 every step) at both shapes;
  4c. the xla path (the JAX package's default) at the headline shape with
@@ -61,25 +57,21 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     smoother; every Jacobian through K6;
  8. the information-form smoother on the mag3d model at the reference
     bench row's size (N_P=100, m=512, T=192, 3 sweeps, systematic
-    resampling, woodbury ancestor form, f32): particle-steps/s (N_P T N_K
-    over the wall, best of 2 after a warm-up); every Jacobian through K4;
+    resampling, woodbury ancestor form, f32); every Jacobian through K4;
  9. the fused mag3d Jacobian in the transposed layout (K7) through its
     public entry, on the smoothed trajectory of phase 8;
-10. the kernel-part profile (workloads/profile_kernel_parts.run) at
-    N=16384, nl=128, bf16 and N=4096, nl=512, f32: K8-K11 next to K2, K3
-    and K5 on three index patterns;
 11. the dense-mag workload at full width (m=512, n_lin 515, N_P=100,
     T=192, theta and Q of main.m): run_comparison with disturbances 0 and
     10, two runs each, 3 sweeps (PF and PS aligned RMSE under 0.6 m), and
     the batched EKF alone on twenty seeds' datasets (B=20, n=521);
 12. the gridded terrain PF at bench.py's row (N_P=1,048,576, T=128, a
-    192 x 192 grid, m_sim=512, systematic, ESS gate 0.5): particle-steps/s
-    (best of 3 after a warm-up), finite ESS, no kernel launched, and the
-    host-device syncs by call site, none of them in the step loop;
+    192 x 192 grid, m_sim=512, systematic, ESS gate 0.5): finite ESS, no
+    kernel launched, and no host-device sync in the step loop (a call
+    site hit at every step);
 13. the mag-localization workload at its reference size (N_P=1000,
-    m=1000, m_sim=2000, ML-II on): GP fit seconds, the map's test RMSE
-    (under 4.0) and the PF's mean error after burn-in (under 1.5 m); K4
-    and K12 launched once a weight evaluation each (160), no other kernel;
+    m=1000, m_sim=2000, ML-II on): the map's test RMSE (under 4.0) and
+    the PF's mean error after burn-in (under 1.5 m); K4 and K12 launched
+    once a weight evaluation each (160), no other kernel;
 14. the sparse visual workload at its reference size (T=197, 20
     landmarks; PF N_P=100; PS N_K=10, N_P=10): path and map RMSE of both,
     no NaN, the PF's map under 2.0;
@@ -89,35 +81,34 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     comes from the checkpoint), bit-equal in every result field to phase
     8's unbroken run (K4 counted); then run_rbps (CPF-AS) on the radio
     problem at phase 7's size (m=128, N_P=100, T=32), 4 sweeps unbroken
-    against 2 and a resume to 4 (K6 counted); the seconds of each run;
+    against 2 and a resume to 4 (K6 counted);
 16. the engine's phase spans on the profiler's clock: one headline lowrank
     filter call (phase 4's configuration) inside ``trace_to`` and
     ``recording()``: the Chrome trace must name the spans and the kernels
     of K1-K3; each launch of K1, K2 and K3, found by its runtime call's
     correlation id, must start inside a ``jacobian``, ``update`` or
     ``rebase`` span (191, 191 and 24 launches) and the spans' launch
-    counters must agree; the per-phase table (benchmark/spans.py);
+    counters must agree;
 17. the command line: ``rbslam_tpu_torch.__main__.main(["dense-radio",
     "--quick"])`` in this process, on the card: finite RMSE lines, K6
     counted;
 18. the mesh path (rbslam_tpu_torch/parallel) over a world-size-1 NCCL
     process group and mesh (1, 1): the headline xla filter with each
     dist_resampling mode against the unsharded run (K4 = 192, the
-    collectives counted, particle-steps/s beside the unsharded run's;
-    local twice, bit-equal), and with joseph=True unsharded and on the
-    mesh; the information-form smoother at phase 8's cell against phase
-    8's result (K4 = 578), and with checkpoints, 2 sweeps and a resume to
-    3, bit-equal to its unbroken mesh run; the resamplers' CDF call to
-    call (its bits must not move) beside a plain 1-D torch.cumsum, the
-    resamplers at N = 100, 16384 and 2^20 against a second call of
-    themselves (0 flips), and the map-axis Woodbury transition and
-    quadratic form (see phase_mesh);
+    collectives counted; local twice, bit-equal), and with joseph=True
+    unsharded and on the mesh; the information-form smoother at phase 8's
+    cell against phase 8's result (K4 = 578), and with checkpoints, 2
+    sweeps and a resume to 3, bit-equal to its unbroken mesh run; the
+    resamplers' CDF call to call (its bits must not move) beside a plain
+    1-D torch.cumsum, the resamplers at N = 100, 16384 and 2^20 against a
+    second call of themselves (0 flips), and the map-axis Woodbury
+    transition and quadratic form (see phase_mesh);
 19. the one-particle dense Kalman update (joseph off and on) against rows
     of the batched one at the headline shape, no kernel launched;
-20. reported, not gated: the headline lowrank filter with stratified
-    resampling under an ESS gate of 0.5, and the mag3d smoother with
-    suffix_precompute=False: ms/step, RMSE beside the odometry's, and
-    whether two calls are bit-equal;
+20. the headline lowrank filter with stratified resampling under an ESS
+    gate of 0.5 (phase 4's launches, a finite result), and the mag3d
+    information-form smoother at phase 8's cell with
+    suffix_precompute=False (K4 = 3T+2, a finite XNK);
 21. the reproduction scripts (rbslam_tpu_torch/reproduce) at full width
     and small depth: run_mc on line_3D and the JAX package's field (3
     runs, 5 sweeps; K6), run_boxplot_lowrank (K1-K4) and run_boxplot (K4),
@@ -127,19 +118,10 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     gated (the samples are too small to judge);
 22. the benchmark entry point (rbslam_tpu_torch/bench.py): ``main(
     ["--quick"])`` (the card's stamp, bench.py's rows with its four keys,
-    the quick filter's launches), then bench.py's 131,072-particle row at
-    full width (m=125, T=192, bf16, lowrank r=8, store_trajectories=False)
-    through ``bench_rbpf``: launches, ms/step and peak memory, and one
-    more run's result (finite, no history, position RMSE under the
-    odometry's). Phase 3 also holds K2 and K3 at bf16, N=16384, nl=128
-    against their plain versions at the sweep's factor widths rw = 12, 48,
-    96 and 192, and K2 and K8 on the base indices of a recorded lowrank
-    run (k2_main_path) at bf16, N=16384 and 131072, nl=128, and at f32,
-    N=12288, nl=640 (the benchmark cell's shape): against the plain
-    version, bit-equal between launches, with live rows, with bad indices
-    inside runs, K8 against K2 with Wt = 0, at f32 K2's own count of the
-    P_base matrices it read against the host's count of its pieces, and
-    timed in turns with the direct form.
+    the quick filter's launches), then one run of bench.py's
+    131,072-particle filter at full width (m=125, T=192, bf16, lowrank
+    r=8, store_trajectories=False): phase 4's launches, a finite result,
+    no history, position RMSE under the odometry's;
 23. K12 gp_predictive (the exact localization weight's predictive) on a
     map fitted to seeded readings on the mapping path of
     workloads/mag_localization.py (m = 1000, theta of the benchmark's
@@ -147,22 +129,22 @@ Phases (each prints its own lines; any failure raises, exit code != 0):
     positions over the mapped area: 196,608 rows of width 1003), at 512
     positions and at a ragged width (m = 997, 1001 positions: 3003 rows):
     against its plain version and, at the cell's shape, against a float64
-    solve (tolerances in phase_predictive), two launches bit-equal; timed
-    beside its bound, its plain version and torch.linalg.solve_triangular
-    over the same rows (``library_ms``; the port never calls it).
+    solve (tolerances in phase_predictive), two launches bit-equal.
 
-Each run of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
-20, 21 and 22 sets every launch count to 0 just before it and reads the counts
+Phase 10 (the kernel-part profile) is gone; the numbers of the others
+stay.
+
+Each run of phases 4, 5, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+21 and 22 sets every launch count to 0 just before it and reads the counts
 just after; the counts must be exactly those of its path (none for
 12, 14 and 19, which are plain PyTorch, as the JAX package's paths are
 plain XLA). No phase imports the viz package: the card's machine has no
 matplotlib.
 
-The second-to-last line is a JSON object with one entry per kernel (its
-launches on its main path, its error and time against its plain version,
-and its bound: the larger of its bytes over 3.35 TB/s, a matrix read
-through an index counted once per distinct index, and its operations over
-the card's peak for their type); the last line is
+The second-to-last line is a JSON object with one entry per kernel: its
+route, its source, the TPU kernel it replaces, its launches on its main
+path (the probes K8-K11: their launches in phase 3) and its largest error
+against its plain version in phase 3; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -175,7 +157,6 @@ import dataclasses
 import datetime
 import functools
 import glob
-import importlib
 import io
 import json
 import math
@@ -231,7 +212,6 @@ from rbslam_tpu_torch.kernels.basis_eval import _basis_plan
 from rbslam_tpu_torch.kernels.kf_update import (
     _CP_RUN,
     _block_plan,
-    _gather_cp,
     _gather_cp_plan,
     _rebase_variant,
 )
@@ -249,12 +229,9 @@ from rbslam_tpu_torch.utils import (
     trace_to,
 )
 from rbslam_tpu_torch.workloads import (
-    basis_kernel_times,
     dense_mag,
     dense_radio,
     mag_localization,
-    profile_kernel_parts,
-    profile_terrain_pf,
     sparse_visual,
 )
 from rbslam_tpu_torch.reproduce import compare as verdicts
@@ -265,18 +242,7 @@ from rbslam_tpu_torch.reproduce import (
 )
 from rbslam_tpu_torch.models import PinholeCamera, make_pinhole2d_model
 from rbslam_tpu_torch.models.pinhole2d import project
-from rbslam_tpu_torch.workloads.profile_dense_mag import (
-    count_syncs,
-    sync_report,
-)
 from rbslam_tpu_torch.workloads.dense_mag import build_problem
-from rbslam_tpu_torch.workloads.profile_kernel_parts import (
-    GROUPS,
-    bound_ms,
-    time_alternately,
-    time_ms,
-    time_stats,
-)
 
 KERNELS = {
     "jac3d_rows": ("rbslam_tpu_torch/csrc/basis_eval.cu",
@@ -308,25 +274,6 @@ KERNELS = {
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-def bound(reads, tensors_out, flops, dtype):
-    """The least time the card could take (``bound_ms``): every input read
-    once and every output written once over the memory rate, or the
-    operations over the peak rate of their type, whichever is larger.
-    ``reads`` holds the tensors read whole and, for a tensor read through
-    an index, the bytes that this run's index needs (see
-    :func:`gathered_bytes`)."""
-    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
-                 for t in (*reads, *tensors_out))
-    ms, by = bound_ms(nbytes, flops, dtype)
-    return {"bound_ms": ms, "bound_by": by, "library_ms": None}
-
-
-def gathered_bytes(index, P):
-    """Bytes of P [N, nl, nl] that a gather by ``index`` must read: one
-    matrix per distinct index, however many particles share it."""
-    return int(torch.unique(index).numel()) * P[0].numel() * P.element_size()
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -335,17 +282,16 @@ def sync(device) -> None:
     torch.cuda.synchronize(device)
 
 
-def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
-            flop_dtype=torch.float32, exact=False):
+def compare(name, kernel, plain, device, dtype, shape_note, inputs,
+            exact=False):
     """Run kernel and plain version on the same inputs (``inputs``: the
-    tensors the kernel reads, ``flops``: the operations it does on them,
-    for :func:`bound`); check the error
-    against the dtype's tolerance (relative to the output's max
+    tensors the kernel reads, named in a failure's message); check the
+    error against the dtype's tolerance (relative to the output's max
     magnitude; in float32 also elementwise, rtol 1e-4 with an absolute
-    floor of 1e-6 of that magnitude); time both. ``dtype`` names the
-    tolerance; None holds each output to the tolerance of its own dtype.
-    A kernel with several outputs returns a tuple; a boolean output must
-    be equal, and with ``exact`` every output."""
+    floor of 1e-6 of that magnitude). ``dtype`` names the tolerance; None
+    holds each output to the tolerance of its own dtype. A kernel with
+    several outputs returns a tuple; a boolean output must be equal, and
+    with ``exact`` every output. Returns {"max_abs_err": ...}."""
     outs_k = kernel()
     outs_p = plain()
     sync(device)
@@ -389,13 +335,7 @@ def compare(name, kernel, plain, device, dtype, shape_note, inputs, flops,
             raise AssertionError(
                 f"{name} {shape_note}: elementwise error above rtol "
                 f"{TOL[torch.float32]}, atol {1e-6 * scale:.3e}")
-    bound_info = bound(inputs, outs_k, flops, flop_dtype)
-    ms, lo, hi = time_stats(kernel, device)
-    plain_ms = time_ms(plain, device)
-    log(f"[3] {name} {shape_note}: kernel={ms:.4f} ms ({lo:.4f}-{hi:.4f} "
-        f"over {GROUPS} groups of 10) plain={plain_ms:.4f} ms "
-        f"bound={bound_info['bound_ms']:.4f} ms ({bound_info['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info}
+    return {"max_abs_err": err}
 
 
 GUARD = 64          # canary elements on each side of a guarded buffer
@@ -523,28 +463,7 @@ def k2_bad_index(note, bidx, C, Wt, P_base, rows, out):
         f"runs of equal bases): NaN there, the other rows bit-equal")
 
 
-def k2_forms_in_turns(note, device, launches, bound_ms_, parent=None,
-                      reps=10):
-    """K2's form for the inputs and its direct form on the same launches,
-    in turns, and with ``parent`` (another checkout's kernels package) the
-    parent's K2 too; ms a launch (median, least, most over the groups)."""
-    def seq(k2):
-        return lambda: [k2(*a) for a in launches]
-
-    fns = {"runs": seq(gather_cp),
-           "direct": seq(lambda *a: _gather_cp(*a, direct=True))}
-    if parent is not None:
-        fns["parent"] = seq(parent.gather_cp)
-    t = time_alternately(fns, device, reps)
-    per = {k: tuple(x / len(launches) for x in v) for k, v in t.items()}
-    log(f"[3] gather_cp {note}, in turns, ms a launch: " + ", ".join(
-        f"{k} form {v[0]:.4f} ({v[1]:.4f}-"
-        f"{v[2]:.4f})" for k, v in per.items()) + f"; bound {bound_ms_:.4f}")
-    return per
-
-
-def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24,
-                 parent=None):
+def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24):
     """Phase 3, K2 (and K8) on the main path's own indices at N_P = n, m
     basis functions (n_lin m + 3 padded to a multiple of 128, as the
     engine does) and covariance dtype ``dtype``: the 191 launches of one
@@ -556,15 +475,9 @@ def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24,
     rows are zero; step 183 also with bad indices inside runs and K8,
     bit-equal to K2 with Wt = 0. At f32 the P_base matrices K2 counts
     (``recording()``, one span a launch) must equal the host's count of
-    its pieces (k2_pieces) at every launch. All 191 launches timed in K2's
-    form and its direct form in turns (and with ``parent``, another
-    checkout's kernels package, the parent's K2, its bits compared and
-    reported), beside the bound of these indices (each distinct P once,
-    C, the live rows of Wt, bidx and CP; averaged over the 191); at f32
-    also on arange indices (runs of one)."""
+    its pieces (k2_pieces) at every launch."""
     steps = main_path_bases(device, n, m, str(dtype).split(".")[1])
     nl = -(-(m + 3) // 128) * 128
-    item = torch.tensor([], dtype=dtype).element_size()
     f32 = dtype == torch.float32
     P_base = torch.randn((n, nl, nl), generator=g, device=device).to(dtype)
     Wt = (0.1 * torch.randn((n, rw, nl), generator=g, device=device)
@@ -609,9 +522,7 @@ def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24,
     if not f32:
         compare("probe_gather_cp", lambda: probe_gather_cp(b183, Cf, P_base),
                 lambda: probe_gather_cp_plain(b183, Cf, P_base), device,
-                dtype, f"{note} step 183",
-                (b183, Cf, gathered_bytes(b183, P_base)),
-                2 * n * ny * nl * nl, dtype)
+                dtype, f"{note} step 183", (b183, Cf, P_base))
     del k8, Cf
     if f32:
         with recording() as rec:
@@ -630,39 +541,10 @@ def k2_main_path(device, g, n, m=125, dtype=torch.bfloat16, ny=3, rw=24,
             f"read equals its pieces at each of the {len(steps)} launches: "
             f"{sum(want) / (n * len(steps)):.4f} a particle, distinct bases "
             f"{sum(distinct) / (n * len(steps)):.4f}")
-
-    def bound_of(counts):
-        nbytes = sum(d * nl * nl * item + C.numel() * item
-                     + n * rows * nl * item + n * 4 + n * ny * nl * 4
-                     for d, (_, rows) in zip(counts, steps))
-        flops = sum(2 * n * ny * nl * (nl + 2 * rows) for _, rows in steps)
-        return bound_ms(nbytes / len(steps), flops / len(steps), dtype)[0]
-
-    bound = bound_of(distinct)
-    log(f"[3] gather_cp {note}: distinct bases a step, mean over the run "
-        f"{sum(distinct) / len(distinct):.1f} of {n}; steps 176-183 "
-        f"{distinct[176:184]}; bound of these indices {bound:.4f} ms a "
-        f"launch (averaged over the {len(steps)} steps)")
-    launches = [(b, C, Wt, P_base, rows) for b, rows in steps]
-    if parent is not None:
-        same = sum(torch.equal(gather_cp(*a), parent.gather_cp(*a))
-                   for a in launches)
-        log(f"[3] gather_cp {note}: bit-equal to the parent's K2 at {same} "
-            f"of {len(launches)} launches")
-    reps = 1 if f32 else 10
-    per = k2_forms_in_turns(f"{note}, the run's {len(steps)} launches",
-                            device, launches, bound, parent, reps)
-    if f32:
-        one = torch.arange(n, dtype=torch.int32, device=device)
-        k2_forms_in_turns(f"N={n} ny={ny} rw={rw} nl={nl} float32 runs of "
-                          f"one, the run's live rows", device,
-                          [(one, C, Wt, P_base, rows) for _, rows in steps],
-                          bound_of([n] * len(steps)), parent, reps)
-    del P_base, Wt, C, steps, launches
-    return per
+    del P_base, Wt, C, steps
 
 
-def k2_main_paths(device, g, parent=None, ny=3, rw=24):
+def k2_main_paths(device, g, ny=3, rw=24):
     """K2 and K8 on the main path's own indices (runs of equal bases, live
     factor rows 3 p) at the headline shape, at bench.py's 131k row (bf16,
     m=125) and at the float32 benchmark cell's shape (N_P = 12,288,
@@ -670,14 +552,15 @@ def k2_main_paths(device, g, parent=None, ny=3, rw=24):
     for n, m, dtype in ((16384, 125, torch.bfloat16),
                         (131072, 125, torch.bfloat16),
                         (12288, 512, torch.float32)):
-        k2_main_path(device, g, n, m, dtype, ny, rw, parent)
+        k2_main_path(device, g, n, m, dtype, ny, rw)
 
 
 def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                   ny=3, rw=24):
     """Phase 3: each kernel against its plain version on the card. The
     returned row of a kernel is the one at its main path's first shape.
-    Operation counts: a multiply, an add and a sin or cos count one each."""
+    Returns (rows, the launch counts of the phase)."""
+    reset_launch_counts()
     g = torch.Generator(device=device).manual_seed(0)
     bounds3 = [[-20.0, -20.0, -2.4], [20.0, 20.0, 2.4]]
     basis = hypercube_basis(m, bounds3)
@@ -699,9 +582,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             lambda: mag3d_jacobian_rows(cc, pp, qq, nll, dt),
             lambda: mag3d_jacobian_rows_plain(cc, pp, qq, nll, dt),
             device, dt, f"N={pp.shape[0]} m={cc.m} nl={nll} {dt}",
-            (pp, qq, cc.packed),
-            pp.shape[0] * cc.m * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
-        )
+            (pp, qq, cc.packed))
         rows.setdefault("jac3d_rows", r)
         k1_guard_bands(device, cc, pp, qq, nll, dt)
     # K4 at the headline shape, at d = 2, at the mag3d smoother's 100
@@ -725,13 +606,10 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
     grad_cases = ((consts, pos), (d2, x2), (smoother, pos[:100]),
                   (loc, x_loc))
     for cc, xx in grad_cases:
-        dd = cc.d
         r = compare(
             "grad_basis", lambda: grad_basis(cc, xx),
             lambda: grad_basis_plain(cc, xx), device, torch.float32,
-            f"N={xx.shape[0]} m={cc.m} d={dd} float32", (xx, cc.packed),
-            xx.shape[0] * cc.m * (dd * 2 + dd * 2 + dd * (dd + 1)),
-        )
+            f"N={xx.shape[0]} m={cc.m} d={cc.d} float32", (xx, cc.packed))
         rows.setdefault("grad_basis", r)
 
     # K7 against its plain version and against K1's float32 rows
@@ -745,8 +623,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             "jac3d", lambda: mag3d_jacobian(cc, pp, qq, nll),
             lambda: mag3d_jacobian_plain(cc, pp, qq, nll), device,
             torch.float32, f"N={nn} m={mm} nl={nll} float32",
-            (pp, qq, cc.packed), nn * mm * (3 * 2 + 3 * 2 + 3 * 4 + 3 * 5),
-        )
+            (pp, qq, cc.packed))
         rows.setdefault("jac3d", r)
         if not torch.equal(mag3d_jacobian(cc, pp, qq, nll),
                            mag3d_jacobian_rows(cc, pp, qq, nll)
@@ -755,35 +632,22 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         log(f"[3] jac3d N={nn} nl={nll}: bit-equal to jac3d_rows (float32) "
             "transposed")
 
-    # K6 at the radio path's shape (N_P=100, d=2, m=128) and at large N
+    # K6 at the radio path's shape (N_P=100, d=2, m=128) and at large N;
+    # two launches give the same bits
     for nn, dd, mm in ((100, 2, 128), (n, 2, 128), (n, 3, 512)):
         half = [9.0, 6.0, 2.4][:dd]
         cc = pack_basis_constants(hypercube_basis(mm, half), device)
         xx = (2 * torch.rand((nn, dd), generator=g, device=device) - 1) \
             * torch.tensor(half, device=device)
+        note = f"N={nn} d={dd} m={mm} float32"
         r = compare(
             "phi_basis", lambda: phi_basis(cc, xx),
-            lambda: phi_basis_plain(cc, xx), device, torch.float32,
-            f"N={nn} d={dd} m={mm} float32", (xx, cc.packed),
-            nn * mm * dd * 4,
-        )
+            lambda: phi_basis_plain(cc, xx), device, torch.float32, note,
+            (xx, cc.packed))
         rows.setdefault("phi_basis", r)
-
-    # K1, K4, K6 and K7 at their main paths' shapes: the form the planner
-    # picks, two launches and the direct form bit-equal, and the
-    # device-only time (ten calls in one CUDA graph, replayed) beside the
-    # launch interval, as these kernels are shorter than their launch
-    basis_rows = basis_kernel_times.run(device)
-    for line in basis_kernel_times.report(basis_rows):
-        log(f"[3] {line}")
-    ratio = basis_kernel_times.floor_ratio(basis_rows)
-    log(f"[3] K6 at the radio shape (N=100, d=2, m=128) over the launch "
-        f"floor (a one-element add_, timed the same way), device-only: "
-        f"{ratio:.3f}: " + ("within 2x, at the launch floor on its main "
-                            "path" if ratio <= 2 else "over 2x"))
-    if basis_kernel_times.failed(basis_rows):
-        raise AssertionError("a basis kernel's bits differ between launches "
-                             "or from its direct form")
+        if not torch.equal(phi_basis(cc, xx), phi_basis(cc, xx)):
+            raise AssertionError(f"phi_basis {note}: two launches differ")
+        log(f"[3] phi_basis {note}: two launches bit-equal")
 
     def factored(nn, nll, dt, rww=rw):
         B = torch.randn((nn, nll, nll), generator=g, device=device)
@@ -801,28 +665,24 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
     for nn, nll, dt in ((n, nl, torch.bfloat16), (n_ref, nl_ref, torch.float32)):
         bidx, C, Wt, P_base = factored(nn, nll, dt)
         note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
-        gathered = gathered_bytes(bidx, P_base)
         log(f"[3] {note}: {int(torch.unique(bidx).numel())} distinct of "
             f"{nn} random indices")
         r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
                     lambda: gather_cp_plain(bidx, C, Wt, P_base),
                     device, torch.float32 if dt == torch.float32 else dt, note,
-                    (bidx, C, Wt, gathered),
-                    2 * nn * ny * nll * (nll + 2 * rw), dt)
+                    (bidx, C, Wt, P_base))
         rows.setdefault("gather_cp", r)
         if dt == torch.bfloat16:
             out = gather_cp(bidx, C, Wt, P_base)
             if not torch.equal(out, gather_cp(bidx, C, Wt, P_base)):
                 raise AssertionError(f"gather_cp {note}: two launches differ")
             k2_bad_index(note, bidx, C, Wt, P_base, None, out)
-            k2_forms_in_turns(note + " (random indices)", device,
-                              [(bidx, C, Wt, P_base, None)], r["bound_ms"])
             del out
         r = compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
                     lambda: rebase_plain(bidx, Wt, P_base), device, dt, note,
-                    (bidx, Wt, gathered), 2 * nn * rw * nll * nll, dt)
+                    (bidx, Wt, P_base))
         rows.setdefault("rebase", r)
-        del bidx, C, Wt, P_base, gathered
+        del bidx, C, Wt, P_base
 
     # K2 and K3 at the factor widths rw = 3 r of the rebase-period sweep
     # (workloads/sweep_lowrank.py, r = 4, 16, 32, 64) at the headline shape
@@ -831,23 +691,18 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         note = (f"N={n} ny={ny} rw={rww} nl={nl} bfloat16 (K2 form "
                 f"{_gather_cp_plan(ny, rww, nl, 2)}, K3 form "
                 f"{_rebase_variant('kf_rebase', rww, nl, 2)})")
-        gathered = gathered_bytes(bidx, P_base)
-        r = compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
-                    lambda: gather_cp_plain(bidx, C, Wt, P_base), device,
-                    torch.bfloat16, note, (bidx, C, Wt, gathered),
-                    2 * n * ny * nl * (nl + 2 * rww), torch.bfloat16)
+        compare("gather_cp", lambda: gather_cp(bidx, C, Wt, P_base),
+                lambda: gather_cp_plain(bidx, C, Wt, P_base), device,
+                torch.bfloat16, note, (bidx, C, Wt, P_base))
         out = gather_cp(bidx, C, Wt, P_base)
         if not torch.equal(out, gather_cp(bidx, C, Wt, P_base)):
             raise AssertionError(f"gather_cp {note}: two launches differ")
         k2_bad_index(note, bidx, C, Wt, P_base, None, out)
-        k2_forms_in_turns(note, device, [(bidx, C, Wt, P_base, None)],
-                          r["bound_ms"])
         del out
         compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
                 lambda: rebase_plain(bidx, Wt, P_base), device,
-                torch.bfloat16, note, (bidx, Wt, gathered),
-                2 * n * rww * nl * nl, torch.bfloat16)
-        del bidx, C, Wt, P_base, gathered
+                torch.bfloat16, note, (bidx, Wt, P_base))
+        del bidx, C, Wt, P_base
 
     k2_main_paths(device, g, ny=ny, rw=rw)
 
@@ -868,9 +723,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                                  dtype=torch.int32)
             compare("rebase", lambda: kf_rebase(bidx, Wt, P_base),
                     lambda: rebase_plain(bidx, Wt, P_base), device, dt,
-                    f"N={nn} rw={rww} nl={nll} {dt}",
-                    (bidx, Wt, gathered_bytes(bidx, P_base)),
-                    2 * nn * rww * nll * nll, dt)
+                    f"N={nn} rw={rww} nl={nll} {dt}", (bidx, Wt, P_base))
             del P_base, Wt, bidx
 
     def block_inputs(nn, nyy, nll, dt):
@@ -905,9 +758,7 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             "block_gather",
             lambda: kf_update_block_gather(ai, C, xl, P, y, R, 1e-3),
             lambda: block_gather_plain(ai, C, e, xl, P, R, 1e-3),
-            device, None, note, (ai, C, xl, gathered_bytes(ai, P), y, R),
-            4 * nn * nyy * nll * nll, dt,
-        )
+            device, None, note, (ai, C, xl, P, y, R))
         rows.setdefault("block_gather", r)
         first = kf_update_block_gather(ai, C, xl, P, y, R, 1e-3)
         second = kf_update_block_gather(ai, C, xl, P, y, R, 1e-3)
@@ -922,13 +773,11 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
         bidx, C_st, Wt, P = factored(nn, nll, dt)
         C = C_st.float()
         note = f"N={nn} ny={ny} rw={rw} nl={nll} {dt}"
-        gathered = gathered_bytes(bidx, P)
         log(f"[3] {note}: {int(torch.unique(bidx).numel())} distinct of "
             f"{nn} random indices")
-        tol_dt = torch.float32 if dt == torch.float32 else dt
         r = compare("probe_gather_cp", lambda: probe_gather_cp(bidx, C, P),
-                    lambda: probe_gather_cp_plain(bidx, C, P), device, tol_dt,
-                    note, (bidx, C, gathered), 2 * nn * ny * nll * nll, dt)
+                    lambda: probe_gather_cp_plain(bidx, C, P), device, dt,
+                    note, (bidx, C, P))
         rows.setdefault("probe_gather_cp", r)
         for do_gather, do_dot in ((True, True), (True, False), (False, True),
                                   (False, False)):
@@ -938,31 +787,18 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
                 lambda: probe_rebase_parts_plain(bidx, Wt, P, do_gather,
                                                  do_dot),
                 device, dt, f"{note} gather={do_gather} dot={do_dot}",
-                (*((bidx, gathered) if do_gather else ()),
-                 *((Wt,) if do_dot else ())),
-                2 * nn * rw * nll * nll if do_dot else 0, dt)
+                (*((bidx,) if do_gather else ()), *((Wt,) if do_dot else ()),
+                 P))
             rows.setdefault("probe_rebase_parts", r)      # the full variant
         r = compare("probe_gather", lambda: probe_gather(bidx, P),
                     lambda: probe_gather_plain(bidx, P), device, dt, note,
-                    (bidx, gathered), 0, dt, exact=True)
-        # the three copies in turns on the same (unsorted) indices
-        bidx64 = bidx.long()
-        copies = time_alternately({
-            "K10 probe_gather": lambda: probe_gather(bidx, P),
-            "K9 gather + write": lambda: probe_rebase_parts(bidx, Wt, P, True,
-                                                            False),
-            "torch.index_select": lambda: torch.index_select(P, 0, bidx64),
-        }, device)
-        for what, (ms, lo, hi) in copies.items():
-            log(f"[3] copies in turns, {note}: {what} {ms:.4f} ms "
-                f"({lo:.4f}-{hi:.4f} over {GROUPS} groups of 10)")
-        r["ms"] = copies["K10 probe_gather"][0]
-        r["library_ms"] = copies["torch.index_select"][0]
+                    (bidx, P), exact=True)
         rows.setdefault("probe_gather", r)
+        bidx64 = bidx.long()
         r = compare("probe_block_products",
                     lambda: probe_block_products(C, P),
                     lambda: probe_block_products_plain(C, P), device, dt, note,
-                    (C, P), 4 * nn * ny * nll * nll, dt)
+                    (C, P))
         rows.setdefault("probe_block_products", r)
         checks = [
             ("K10 = torch.index_select",
@@ -982,8 +818,8 @@ def phase_compare(device, n=16384, m=125, nl=128, n_ref=4096, nl_ref=512,
             if not torch.equal(fa(), fb()):
                 raise AssertionError(f"cross-check failed at {note}: {what}")
             log(f"[3] cross-check {note}: {what}: bit-equal")
-        del bidx, C_st, C, Wt, P, gathered, checks
-    return rows
+        del bidx, C_st, C, Wt, P, checks
+    return rows, launch_counts()
 
 
 def filter_config(n_particles, cov_dtype, kf_kernel="lowrank",
@@ -1012,26 +848,21 @@ def check_result(res, T, n_particles, n_lin):
         raise AssertionError("log_evidence is not finite")
 
 
-def run_path(tag, device, m, T, cfg, card, expect_counts):
+def run_path(tag, device, m, T, cfg, expect_counts):
     """Phases 4, 5 and their block_gather and xla variants: the port's
-    filter at full width on the card, with its launch counts."""
-    t0 = time.perf_counter()
+    filter at full width on the card (bean_6D, m_sim=512, seed 1), with
+    its launch counts."""
     problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
-    log(f"[{tag}] dataset built in {time.perf_counter() - t0:.2f} s "
-        f"(bean_6D, T={T}, m_sim=512, seed 1)")
-    gen = torch.Generator(device=device)
-
-    def run(seed):
-        gen.manual_seed(seed)
-        res = run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
-                       device=device)
-        sync(device)
-        return res
-
     reset_launch_counts()
-    res = run(0)
+    res = run_rbpf(*problem.rbpf_args(), cfg,
+                   generator=torch.Generator(device=device).manual_seed(0),
+                   device=device)
+    sync(device)
     counts = launch_counts()
-    log(f"[{tag}] launches in one run: {counts}")
+    path = cfg.kf_kernel + (" r=8" if cfg.kf_kernel == "lowrank" else "")
+    log(f"[{tag}] N_P={cfg.n_particles} m={m} (n_lin={m + 3}) T={T} "
+        f"{cfg.cov_dtype} {path} {cfg.resampling}: launches in one run: "
+        f"{counts}")
     check_result(res, T, cfg.n_particles, problem.potential.n_lin)
     if counts != expect_counts:
         raise AssertionError(f"launch counts {counts} != {expect_counts}")
@@ -1045,19 +876,7 @@ def run_path(tag, device, m, T, cfg, card, expect_counts):
     log(f"[{tag}] position RMSE of traj_mean vs truth: {rmse:.4f} m "
         f"(dead-reckoned odometry: {rmse_odo:.4f} m); chol_retries="
         f"{int(res.chol_retries)}")
-    del res
-    best = float("inf")
-    for i in range(3):
-        t0 = time.perf_counter()
-        run(i + 1)
-        best = min(best, time.perf_counter() - t0)
-    rate = cfg.n_particles * T / best
-    path = cfg.kf_kernel + (" r=8" if cfg.kf_kernel == "lowrank" else "")
-    log(f"[{tag}] N_P={cfg.n_particles} m={m} (n_lin={m + 3}) T={T} "
-        f"{cfg.cov_dtype} {path} {cfg.resampling}: best of 3 {best:.4f} s "
-        f"= {rate:.1f} particle-steps/s ({best / T * 1e3:.4f} ms/step) on "
-        f"{card}")
-    return counts, rate
+    return counts
 
 
 def phase_plain_vs_kernel(device, m=125, n_particles=64, T=24):
@@ -1197,34 +1016,7 @@ def phase_ekf_plain_vs_card(device, B=3, m=64, T=24):
         raise AssertionError("batched EKF: card and cpu disagree")
 
 
-def phase_kernel_parts(device, zero, reps=10):
-    """Phase 10: the kernel-part profile at both shapes. Each timed
-    function is launched once to warm up and in ``GROUPS`` groups of
-    ``reps`` between events. Per index pattern (three): K10, K8, K2, K3 and K5 once each
-    and K9 twice (gather + write, gather + dot + write); without an index:
-    K9 twice (dot + write, write only) and K11; K4 once for the Jacobian
-    at the initial state. Returns the launch counts of the last shape."""
-    per = 1 + GROUPS * reps
-    expect = {**zero, "grad_basis": 1, "probe_gather": 3 * per,
-              "probe_gather_cp": 3 * per, "gather_cp": 3 * per,
-              "probe_rebase_parts": (3 * 2 + 2) * per, "rebase": 3 * per,
-              "block_gather": 3 * per, "probe_block_products": per}
-    for shape in ("headline", "reference"):
-        reset_launch_counts()
-        out = profile_kernel_parts.run(device, shape, reps=reps)
-        sync(device)
-        counts = launch_counts()
-        profile_kernel_parts.print_table(out)
-        log(f"[10] {shape}: launches {counts}")
-        if counts != expect:
-            raise AssertionError(f"launch counts {counts} != {expect}")
-        for r in out["rows"]:
-            if not (r["ms"] is not None and 0 < r["ms"] < float("inf")):
-                raise AssertionError(f"{r['kernel']}: no time measured")
-    return counts
-
-
-def phase_dense_mag(device, card, zero, n_sim=2, n_sweeps=3, n_ekf=20):
+def phase_dense_mag(device, zero, n_sim=2, n_sweeps=3, n_ekf=20):
     """Phase 11: the dense-mag workload at full width through its entry
     points. K4 launches of run_comparison: per PF + PS run T = 192 (filter,
     xla path) + n_sweeps T + n_sweeps - 1 (smoother); the EKF launches no
@@ -1236,15 +1028,13 @@ def phase_dense_mag(device, card, zero, n_sim=2, n_sweeps=3, n_ekf=20):
     expect = {**zero, "grad_basis": len(disturbances) * n_sim
               * (T + n_sweeps * T + n_sweeps - 1)}
     reset_launch_counts()
-    t0 = time.perf_counter()
     out = dense_mag.run_comparison(cfg, disturbances, n_sim, device=device)
     sync(device)
-    wall = time.perf_counter() - t0
     counts = launch_counts()
     log(f"[11] dense-mag run_comparison m={cfg.m_basis} (n_lin "
         f"{cfg.m_basis + 3}) N_P={cfg.n_particles} T={T} m_sim={cfg.m_sim} "
         f"{n_sweeps} sweeps, disturbances {disturbances}, n_sim={n_sim}: "
-        f"{wall:.2f} s on {card}; launches {counts}")
+        f"launches {counts}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
     for o, raw in out["raw"].items():
@@ -1262,33 +1052,20 @@ def phase_dense_mag(device, card, zero, n_sim=2, n_sweeps=3, n_ekf=20):
                                  "under 0.6 m")
 
     # the batched EKF alone on n_ekf seeds' datasets
-    t0 = time.perf_counter()
     built = [dense_mag.build_from_config(
         dense_mag.DenseMagConfig(seed=1 + i),
         torch.Generator().manual_seed(1 + i), device=device)
         for i in range(n_ekf)]
-    t_build = time.perf_counter() - t0
     problem, data = built[0]
     x0, q0, P0 = ekf_inputs(problem, domain_center(data.LL))
-    dx_b = torch.stack([b[0].dx for b in built])
-    y_b = torch.stack([b[0].y for b in built])
-
-    def run_ekf():
-        res = run_ekf_dense_batched(problem.potential, dx_b, y_b, x0, q0, P0,
-                                    problem.Q, problem.R, problem.dt,
-                                    device=device)
-        sync(device)
-        return res
-
     reset_launch_counts()
-    res = run_ekf()
+    res = run_ekf_dense_batched(
+        problem.potential, torch.stack([b[0].dx for b in built]),
+        torch.stack([b[0].y for b in built]), x0, q0, P0, problem.Q,
+        problem.R, problem.dt, device=device)
+    sync(device)
     if launch_counts() != zero:
         raise AssertionError(f"the EKF launched kernels: {launch_counts()}")
-    best = float("inf")
-    for _ in range(2):
-        t0 = time.perf_counter()
-        run_ekf()
-        best = min(best, time.perf_counter() - t0)
     n = x0.shape[0]
     if tuple(res.x_traj.shape) != (n_ekf, T, n) \
             or tuple(res.P_final.shape) != (n_ekf, n, n) \
@@ -1298,9 +1075,8 @@ def phase_dense_mag(device, card, zero, n_sim=2, n_sweeps=3, n_ekf=20):
     rmse = [float(aligned_position_rmse(built[i][1].pos,
                                         res.x_traj[i, :, :3]))
             for i in range(n_ekf)]
-    log(f"[11] run_ekf_dense_batched B={n_ekf} n={n} T={T}: best of 2 "
-        f"{best:.4f} s ({best / T * 1e3:.4f} ms/step) on {card}; datasets "
-        f"built in {t_build:.2f} s; chol_retries {res.chol_retries.tolist()}")
+    log(f"[11] run_ekf_dense_batched B={n_ekf} n={n} T={T}: chol_retries "
+        f"{res.chol_retries.tolist()}")
     log(f"[11] EKF aligned position RMSE per member "
         f"{[round(v, 4) for v in rmse]} m")
     if not all(v == v and v < float("inf") for v in rmse):
@@ -1314,7 +1090,7 @@ def check_tf32_off():
                              "smoothers maintain W by cancellation")
 
 
-def phase_radio(device, card, zero):
+def phase_radio(device, zero):
     """Phase 7: the dense-radio workload at its reference size through its
     entry point, with each smoother. K6 launches: the filter T=32 times; a
     smoother T times per sweep plus once per sweep after the first for
@@ -1338,10 +1114,7 @@ def phase_radio(device, card, zero):
         sweeps = out["rmse_smoother_per_sweep"]
         log(f"[7] {smoother}: aligned RMSE filter max/mean "
             f"{out['rmse_filter_max_mean']} m; per sweep "
-            f"{[round(r, 4) for r in sweeps]} m; filter "
-            f"{out['times_s']['filter_s']:.3f} s, smoother "
-            f"{out['times_s']['smoother_s']:.3f} s (one run, first use "
-            f"included) on {card}")
+            f"{[round(r, 4) for r in sweeps]} m")
         values = out["rmse_filter_max_mean"] + sweeps
         if not all(v == v and abs(v) != float("inf") for v in values):
             raise AssertionError(f"{smoother}: non-finite RMSE")
@@ -1351,7 +1124,7 @@ def phase_radio(device, card, zero):
     return counts
 
 
-def phase_mag_smoother(device, card, zero, m=512, T=192, n_particles=100,
+def phase_mag_smoother(device, zero, m=512, T=192, n_particles=100,
                        n_sweeps=3):
     """Phase 8: run_rbps_information_form at the reference bench row's
     size. K4 launches: T per sweep, plus once per sweep after the first
@@ -1360,18 +1133,13 @@ def phase_mag_smoother(device, card, zero, m=512, T=192, n_particles=100,
     problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
     cfg = RBPSConfig(n_particles=n_particles, n_sweeps=n_sweeps,
                      resampling="systematic", ancestor_form="woodbury")
-    gen = torch.Generator(device=device)
-
-    def run(seed):
-        gen.manual_seed(seed)
-        res = run_rbps_information_form(*problem.rbpf_args(), cfg,
-                                        generator=gen, device=device)
-        sync(device)
-        return res
-
     expect = {**zero, "grad_basis": n_sweeps * T + n_sweeps - 1}
     reset_launch_counts()
-    res = run(0)
+    res = run_rbps_information_form(
+        *problem.rbpf_args(), cfg,
+        generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    sync(device)
     counts = launch_counts()
     log(f"[8] launches in one run: {counts}")
     if counts != expect:
@@ -1386,18 +1154,10 @@ def phase_mag_smoother(device, card, zero, m=512, T=192, n_particles=100,
                                  "non-finite values")
     rmse = [float(aligned_position_rmse(data.pos, res.XNK[k, :, :3]))
             for k in range(n_sweeps)]
-    log(f"[8] aligned position RMSE per sweep {[round(r, 4) for r in rmse]} "
-        f"m; chol_retries {res.chol_retries.tolist()}")
-    best = float("inf")
-    for i in range(2):
-        t0 = time.perf_counter()
-        run(i + 1)
-        best = min(best, time.perf_counter() - t0)
-    rate = n_particles * T * n_sweeps / best
     log(f"[8] info-form smoother N_P={n_particles} m={m} (n_lin={n_lin}) "
-        f"T={T} {n_sweeps} sweeps woodbury f32 systematic: best of 2 "
-        f"{best:.4f} s = {rate:.1f} particle-steps/s "
-        f"({best / (T * n_sweeps) * 1e3:.4f} ms/step) on {card}")
+        f"T={T} {n_sweeps} sweeps woodbury f32 systematic: aligned position "
+        f"RMSE per sweep {[round(r, 4) for r in rmse]} m; chol_retries "
+        f"{res.chol_retries.tolist()}")
     return counts, problem, data, res
 
 
@@ -1448,9 +1208,9 @@ def phase_pf_plain_vs_card(device, n_particles=4096, T=24):
     before the first difference, and at that step at most two entries,
     each one index away; a fault in the port breaks the first resampling
     step in most entries."""
-    problem = profile_terrain_pf.build_problem(n_particles, T, device=device,
-                                               seed=7)
-    cfg = profile_terrain_pf.config(n_particles)
+    problem = bench.build_terrain_problem(n_particles, T, device=device,
+                                          seed=7)
+    cfg = bench.terrain_config(n_particles)
     gen = torch.Generator(device=device).manual_seed(8)
     noise = (torch.rand(T - 1, generator=gen, device=device),
              torch.randn((T - 1, n_particles, 6), generator=gen,
@@ -1546,27 +1306,27 @@ def phase_sparse_plain_vs_card(device, n_pf=30, n_ps=10, n_sweeps=2):
                              "disagree")
 
 
-def phase_terrain_pf(device, card, zero, n_particles=1 << 20, T=128):
-    """Phase 12: the gridded terrain PF at bench.py:125-195's row through
-    its entry point: particle-steps/s (best of 3 after a warm-up), finite
-    ESS, no kernel launched, and the host-device syncs by call site (a
-    site hit at every step is in the step loop, and there must be none)."""
-    t0 = time.perf_counter()
-    problem = profile_terrain_pf.build_problem(n_particles, T, device=device)
-    sync(device)
-    log(f"[12] terrain problem built on the card in "
-        f"{time.perf_counter() - t0:.2f} s (192 x 192 grid, m_sim=512)")
-    cfg = profile_terrain_pf.config(n_particles)
-    gen = torch.Generator(device=device)
+def phase_terrain_pf(device, zero, n_particles=1 << 20, T=128):
+    """Phase 12: the gridded terrain PF at bench.py:127-195's row
+    (``bench.build_terrain_problem``), one run under the sync counter:
+    finite ESS, no kernel launched, and the host-device syncs by call site
+    (``benchmark/trace.py::count_syncs``; a site hit at every step is in
+    the step loop, and there must be none)."""
+    from benchmark.trace import count_syncs
 
-    def run(seed):
-        gen.manual_seed(seed)
-        res = problem.run(cfg, generator=gen)
+    problem = bench.build_terrain_problem(n_particles, T, device=device)
+    cfg = bench.terrain_config(n_particles)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    out = []
+
+    def run():
+        out.append(problem.run(cfg, generator=gen))
         sync(device)
-        return res
 
     reset_launch_counts()
-    res = run(0)
+    sites = count_syncs(run)
+    res = out[0]
     counts = launch_counts()
     if counts != zero:
         raise AssertionError(f"the PF launched kernels: {counts}")
@@ -1578,30 +1338,23 @@ def phase_terrain_pf(device, card, zero, n_particles=1 << 20, T=128):
             and bool(torch.isfinite(res.traj_mean).all())
             and bool(torch.isfinite(res.log_evidence))):
         raise AssertionError("terrain PF: non-finite ESS or estimates")
-    err, err_end = profile_terrain_pf.position_error(problem, res)
-    log(f"[12] launches {counts}; ESS min {float(res.ess.min()):.1f} max "
-        f"{float(res.ess.max()):.1f}; {resampled} of {T - 1} steps "
-        f"resampled; position error of traj_mean after burn-in "
-        f"{err:.4f} m, last 5 steps {err_end:.4f} m")
-    del res
-    best = float("inf")
-    for i in range(3):
-        t0 = time.perf_counter()
-        run(i + 1)
-        best = min(best, time.perf_counter() - t0)
-    log(f"[12] gridded terrain PF N_P={n_particles} T={T} systematic "
-        f"ess_threshold=0.5: best of 3 {best:.4f} s = "
-        f"{n_particles * T / best:.1f} particle-steps/s "
-        f"({best / T * 1e3:.4f} ms/step) on {card}")
-    sites = count_syncs(lambda: run(4))
-    for line in sync_report(sites, T - 1):
-        log(f"[12] {line}")
+    err, err_end = bench.terrain_position_error(problem, res)
     in_loop = {k: v for k, v in sites.items() if v[0] >= T - 1}
+    log(f"[12] gridded terrain PF N_P={n_particles} T={T} systematic "
+        f"ess_threshold=0.5: launches {counts}; ESS min "
+        f"{float(res.ess.min()):.1f} max {float(res.ess.max()):.1f}; "
+        f"{resampled} of {T - 1} steps resampled; position error of "
+        f"traj_mean after burn-in {err:.4f} m, last 5 steps {err_end:.4f} m; "
+        f"host-device syncs in the run "
+        f"{sum(n for n, _ in sites.values())} at {len(sites)} call sites, "
+        f"{len(in_loop)} of them in the step loop")
+    for site, (n, code) in sorted(sites.items(), key=lambda kv: -kv[1][0]):
+        log(f"[12]   {n:6d}x {site}  {code[:80]}")
     if in_loop:
         raise AssertionError(f"host-device syncs in the step loop: {in_loop}")
 
 
-def phase_mag_localization(device, card, zero):
+def phase_mag_localization(device, zero):
     """Phase 13: the mag-localization workload at its reference size
     (N_P=1000, m=1000, m_sim=2000, ML-II on) through its entry point,
     held to the JAX test's gates (tests/test_workloads.py:44-58). The
@@ -1611,30 +1364,26 @@ def phase_mag_localization(device, card, zero):
     check_tf32_off()
     cfg = mag_localization.MagLocalizationConfig()
     reset_launch_counts()
-    t0 = time.perf_counter()
     out = mag_localization.run(cfg, device=device)
-    wall = time.perf_counter() - t0
     counts = launch_counts()
     if counts != {**zero, "grad_basis": cfg.n_test_steps,
                   "predictive": cfg.n_test_steps}:
         raise AssertionError(f"launched kernels: {counts}")
     gp, pf = out["gp"], out["pf"]
     log(f"[13] mag-localization ({out['data']}) N_P={cfg.n_particles} "
-        f"m={cfg.m_basis} m_sim={cfg.m_sim} ML-II on: GP fit "
-        f"{gp['fit_s']:.3f} s (theta {[round(v, 4) for v in gp['theta']]}, "
-        f"nll {gp['nll']:.2f}), map test RMSE {gp['test_rmse']:.4f} "
-        f"(gate 4.0); PF {pf['time_s']:.3f} s = "
-        f"{pf['particle_steps_per_s']:.1f} particle-steps/s, mean error "
-        f"after burn-in {pf['mean_err_after_burnin']:.4f} m (gate 1.5), "
-        f"final {pf['final_err']:.4f} m, ESS min {pf['ess_min']:.1f}; "
-        f"{wall:.2f} s in all on {card}. The JAX package's recorded run: "
-        "2.12 / 0.10 m (RESULTS.md:53)")
+        f"m={cfg.m_basis} m_sim={cfg.m_sim} ML-II on: GP fit theta "
+        f"{[round(v, 4) for v in gp['theta']]}, nll {gp['nll']:.2f}, map "
+        f"test RMSE {gp['test_rmse']:.4f} (gate 4.0); PF mean error after "
+        f"burn-in {pf['mean_err_after_burnin']:.4f} m (gate 1.5), final "
+        f"{pf['final_err']:.4f} m, ESS min {pf['ess_min']:.1f}; launches "
+        f"{counts}. The JAX package's recorded run: 2.12 / 0.10 m "
+        "(RESULTS.md:53)")
     if not (gp["test_rmse"] < 4.0 and pf["mean_err_after_burnin"] < 1.5):
         raise AssertionError("mag-localization outside the JAX test's gates")
     return counts
 
 
-def phase_sparse_visual(device, card, zero):
+def phase_sparse_visual(device, zero):
     """Phase 14: the sparse visual workload at its reference size (T=197,
     20 landmarks; PF N_P=100; PS N_K=10, N_P=10) through its entry
     point: path and map RMSE with no NaN, the PF's map under the JAX
@@ -1648,11 +1397,10 @@ def phase_sparse_visual(device, card, zero):
     pf, ps = out["pf"], out["ps"]
     log(f"[14] sparse visual T={out['n_steps']}, {out['n_landmarks']} "
         f"landmarks: PF N_P=100 path / map RMSE {pf['rmse_path']:.4f} / "
-        f"{pf['rmse_map']:.4f} in {pf['time_s']:.3f} s (chol_retries "
-        f"{pf['chol_retries']}); PS N_K=10 N_P=10 {ps['rmse_path']:.4f} / "
-        f"{ps['rmse_map']:.4f} in {ps['time_s']:.3f} s (chol_retries "
-        f"{ps['chol_retries']}) on {card}. The JAX package's recorded run: "
-        "PF 0.424 / 0.247, PS 0.393 / 0.244 (RESULTS.md:52)")
+        f"{pf['rmse_map']:.4f} (chol_retries {pf['chol_retries']}); PS "
+        f"N_K=10 N_P=10 {ps['rmse_path']:.4f} / {ps['rmse_map']:.4f} "
+        f"(chol_retries {ps['chol_retries']}). The JAX package's recorded "
+        "run: PF 0.424 / 0.247, PS 0.393 / 0.244 (RESULTS.md:52)")
     values = [pf["rmse_path"], pf["rmse_map"], ps["rmse_path"],
               ps["rmse_map"]]
     if not all(v == v and abs(v) != float("inf") for v in values):
@@ -1673,30 +1421,27 @@ def resumed_run(device, fn, args, cfg, n_first, seed, expect):
     """``fn`` for ``n_first`` sweeps with a checkpoint directory, then
     called again for ``cfg.n_sweeps`` with a generator seeded otherwise;
     the launch counts of the pair must be ``expect``. Returns (result,
-    seconds of the first call, seconds of the resume)."""
+    launch counts)."""
     gen = torch.Generator(device=device)
     reset_launch_counts()
     with tempfile.TemporaryDirectory() as ck:
-        t0 = time.perf_counter()
         fn(*args, cfg._replace(n_sweeps=n_first),
            generator=gen.manual_seed(seed), device=device, checkpoint_dir=ck)
         sync(device)
-        t1 = time.perf_counter()
         if latest_step(ck) != n_first:
             raise AssertionError(f"no checkpoint of sweep {n_first}")
         res = fn(*args, cfg, generator=gen.manual_seed(seed + 1000),
                  device=device, checkpoint_dir=ck)
         sync(device)
-        t2 = time.perf_counter()
         if latest_step(ck) != cfg.n_sweeps:
             raise AssertionError(f"no checkpoint of sweep {cfg.n_sweeps}")
     counts = launch_counts()
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
-    return res, t1 - t0, t2 - t1, counts
+    return res, counts
 
 
-def phase_resume_info(device, card, zero, problem, res, n_first=2):
+def phase_resume_info(device, zero, problem, res, n_first=2):
     """Phase 15, information form: phase 8's unbroken run (seed 0, 3
     sweeps) against 2 sweeps with a checkpoint directory and a resume to
     3. K4 launches of the pair: 2 * 192 + 1, then 192 + 1."""
@@ -1705,20 +1450,18 @@ def phase_resume_info(device, card, zero, problem, res, n_first=2):
                      ancestor_form="woodbury")
     T = problem.y.shape[0]
     expect = {**zero, "grad_basis": cfg.n_sweeps * T + cfg.n_sweeps - 1}
-    out, t_first, t_resume, counts = resumed_run(
-        device, run_rbps_information_form, problem.rbpf_args(), cfg,
-        n_first, 0, expect)
+    out, counts = resumed_run(device, run_rbps_information_form,
+                              problem.rbpf_args(), cfg, n_first, 0, expect)
     assert_bit_equal("info-form resume", res, out)
     log(f"[15] run_rbps_information_form N_P={cfg.n_particles} m="
         f"{problem.model.n_lin - 3} (n_lin={problem.model.n_lin}) T={T}: "
-        f"{n_first} sweeps with checkpoints {t_first:.3f} s, resume to "
-        f"{cfg.n_sweeps} {t_resume:.3f} s on {card}; XNK, XLK, PK, ess, "
-        f"chol_retries, ancestors and kept bit-equal to phase 8's unbroken "
-        f"run (CUDA generator restored from the checkpoint); launches "
-        f"{counts}")
+        f"{n_first} sweeps with checkpoints, then a resume to "
+        f"{cfg.n_sweeps}; XNK, XLK, PK, ess, chol_retries, ancestors and "
+        f"kept bit-equal to phase 8's unbroken run (CUDA generator restored "
+        f"from the checkpoint); launches {counts}")
 
 
-def phase_resume_radio(device, card, zero, n_sweeps=4, n_first=2, seed=3):
+def phase_resume_radio(device, zero, n_sweeps=4, n_first=2, seed=3):
     """Phase 15, CPF-AS on the radio problem at phase 7's size (m=128,
     N_P=100, T=32): 4 sweeps unbroken against 2 with a checkpoint
     directory and a resume to 4. K6 launches: 4 * 32 + 3 each way."""
@@ -1731,25 +1474,22 @@ def phase_resume_radio(device, card, zero, n_sweeps=4, n_first=2, seed=3):
     T = rcfg.n_steps
     expect = {**zero, "phi_basis": n_sweeps * T + n_sweeps - 1}
     reset_launch_counts()
-    t0 = time.perf_counter()
     full = run_rbps(*problem.rbpf_args(), cfg,
                     generator=torch.Generator(device=device).manual_seed(seed),
                     device=device)
     sync(device)
-    t_full = time.perf_counter() - t0
     if launch_counts() != expect:
         raise AssertionError(f"launch counts {launch_counts()} != {expect}")
-    out, t_first, t_resume, counts = resumed_run(
-        device, run_rbps, problem.rbpf_args(), cfg, n_first, seed, expect)
+    out, counts = resumed_run(device, run_rbps, problem.rbpf_args(), cfg,
+                              n_first, seed, expect)
     assert_bit_equal("radio CPF-AS resume", full, out)
     log(f"[15] run_rbps (CPF-AS) radio m={rcfg.m_basis} N_P="
-        f"{rcfg.n_particles} T={T}: {n_sweeps} sweeps unbroken "
-        f"{t_full:.3f} s; {n_first} with checkpoints {t_first:.3f} s, resume "
-        f"to {n_sweeps} {t_resume:.3f} s on {card}; every field bit-equal; "
-        f"launches {counts} each way")
+        f"{rcfg.n_particles} T={T}: {n_sweeps} sweeps unbroken against "
+        f"{n_first} with checkpoints and a resume to {n_sweeps}; every field "
+        f"bit-equal; launches {counts} each way")
 
 
-def phase_profiling(device, card, expect, n_particles=16384, m=125, T=192):
+def phase_profiling(device, expect, n_particles=16384, m=125, T=192):
     """Phase 16: one headline lowrank filter call (phase 4's configuration)
     inside trace_to and recording(). The Chrome trace names the engine's
     spans and K1-K3. The shared clock: every K1, K2 and K3 launch, by the
@@ -1761,19 +1501,13 @@ def phase_profiling(device, card, expect, n_particles=16384, m=125, T=192):
 
     problem, _ = build_problem(m, T, seed=1, m_sim=512, device=device)
     cfg = filter_config(n_particles, "bfloat16")
-    gen = torch.Generator(device=device)
-
-    def run(seed):
-        gen.manual_seed(seed)
-        run_rbpf(*problem.rbpf_args(), cfg, generator=gen, device=device)
-        sync(device)
-
-    run(0)                                             # warm-up
+    gen = torch.Generator(device=device).manual_seed(5)
     with tempfile.TemporaryDirectory() as logdir:
         reset_launch_counts()
         with trace_to(logdir) as prof, recording() as rec:
             t0 = time.perf_counter()
-            run(5)
+            run_rbpf(*problem.rbpf_args(), cfg, generator=gen, device=device)
+            sync(device)
             wall = time.perf_counter() - t0
         counts = launch_counts()
         files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
@@ -1794,7 +1528,6 @@ def phase_profiling(device, card, expect, n_particles=16384, m=125, T=192):
         if fam in found:
             found[fam].append(bench_spans.OUTSIDE if o == bench_spans.OUTSIDE
                               else rec.spans[o].name)
-    log(bench_spans.table(call, T))
     log(f"[16] trace_to + recording() over one headline lowrank call: "
         f"{size} bytes of Chrome trace, {len(rec.spans)} spans, "
         f"{len(call.device)} device ops, {len(call.runtime)} runtime calls; "
@@ -1813,29 +1546,25 @@ def phase_profiling(device, card, expect, n_particles=16384, m=125, T=192):
     missing = {"rbpf", "step", "jacobian", "update", "rebase"} - names
     if missing or not any("gather_cp" in str(n) for n in names):
         raise AssertionError(f"the Chrome trace lacks {missing} or K2")
-    log(f"[16] {wall:.4f} s a traced call on {card}")
 
 
-def phase_cli(device, card, zero):
+def phase_cli(device, zero):
     """Phase 17: ``python -m rbslam_tpu_torch dense-radio --quick``, in this
     process on the card. K6 launches: the filter T=32, three sweeps
     3 * 32 + 2."""
     expect = {**zero, "phi_basis": 32 + 3 * 32 + 2}
     out = io.StringIO()
     reset_launch_counts()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(["dense-radio", "--quick"])
     sync(device)
-    wall = time.perf_counter() - t0
     counts = launch_counts()
     report = json.loads(out.getvalue().strip().splitlines()[-1])
     values = report["rmse_filter_max_mean"] + report["rmse_smoother_per_sweep"]
     log(f"[17] python -m rbslam_tpu_torch dense-radio --quick on "
         f"{report['device']}: RMSE filter max/mean "
         f"{report['rmse_filter_max_mean']}, per sweep "
-        f"{report['rmse_smoother_per_sweep']} m; {wall:.3f} s on {card}; "
-        f"launches {counts}")
+        f"{report['rmse_smoother_per_sweep']} m; launches {counts}")
     if report["device"] != torch.cuda.get_device_name(device):
         raise AssertionError("the CLI did not run on the card")
     if not all(math.isfinite(v) for v in values):
@@ -1896,11 +1625,6 @@ def plain_resample(u, w, n, scheme):
                        w.shape[0] - 1)
 
 
-def fmt_stats(stats):
-    """'median (least-most)' of time_alternately's milliseconds."""
-    return f"{stats[0]:.4f} ({stats[1]:.4f}-{stats[2]:.4f})"
-
-
 def mesh_counts(n_steps, mode, symmetrize=False):
     """The collectives of one run_rbpf call on the xla path over a mesh
     (engines/rbpf.py, parallel/): per step the resampler's (replicated_cdf:
@@ -1942,7 +1666,7 @@ def info_mesh_counts(T, n_sweeps):
     return out
 
 
-def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
+def phase_mesh(device, zero, problem8, res8, n_particles=16384, m=125,
                T=192, n_res=1 << 20, n_wood=100, nl_wood=512, cdf_calls=20):
     """Phase 18: the mesh path (rbslam_tpu_torch/parallel) on this card, a
     world-size-1 NCCL process group (FileStore rendezvous in a
@@ -1957,12 +1681,10 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
         to the first knife-edge flip and traj_mean within 1e-5 of its
         scale before it; local: every child on its shard and the position
         RMSE below the dead-reckoned odometry's; K4 = 192 and the
-        collectives (mesh_counts) per run; particle-steps/s of one timed
-        call beside the unsharded run's best of 3.
-        A second local run of the same seed is bit-equal to the first.
-        Then joseph=True (ops/kalman.py's row-block Joseph form), unsharded
-        and on the mesh, the mesh run against the unsharded one as
-        prefix's, ms/step beside the runs without it.
+        collectives (mesh_counts) per run. A second local run of the same
+        seed is bit-equal to the first. Then joseph=True (ops/kalman.py's
+        row-block Joseph form), unsharded and on the mesh, the mesh run
+        against the unsharded one as prefix's.
     (b) run_rbps_information_form at phase 8's cell (woodbury, f32, seed
         0) against phase 8's unsharded result: XNK 1e-4, XLK 1e-3; K4 =
         578. Then 2 sweeps with a checkpoint directory and a resume to 3
@@ -1973,7 +1695,7 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
         torch.cumsum's moves are printed beside it); resample_indices
         stratified and multinomial at N = 100, 16384 and 2^20 against a
         second call of itself: 0 flips (the plain cumsum's inverse CDF
-        printed beside it, and timed in turns with it at 2^20); at 2^20
+        printed beside it); at 2^20
         each scheme's resample_indices and sharded_resample_local against
         a second call (0 flips), and sharded_resample_indices in both
         modes against resample_indices (replicated_cdf 0 flips, prefix
@@ -1994,7 +1716,6 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
         sharded_resample_local,
         woodbury_rank_ny_rowsharded,
     )
-    from rbslam_tpu_torch.parallel.mesh import all_gather
 
     store = tempfile.mkdtemp()
     dist.init_process_group("nccl", init_method=f"file://{store}/store",
@@ -2023,14 +1744,6 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
             sync(device)
             return res
 
-        def best_rate(mode, joseph=False, repeats=3):
-            best = float("inf")
-            for i in range(repeats):
-                t0 = time.perf_counter()
-                run(mode, i + 1, joseph)
-                best = min(best, time.perf_counter() - t0)
-            return n_particles * T / best, best / T * 1e3
-
         def flips_note(res, ref):
             """(ok, note): ancestors equal up to the first knife-edge flip
             (room for 0.5 % of the entries, each at most 8 indices away) and
@@ -2055,26 +1768,9 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                 (path[:, :3] - truth) ** 2, dim=-1))))
 
         ref = run(None, 0)
-        rate_ref, ms_ref = best_rate(None)
         log(f"[18a] unsharded xla N_P={n_particles} m={m} T={T} bf16 "
             f"systematic: position RMSE {rmse(ref.traj_mean):.4f} m "
-            f"(odometry {rmse(odo):.4f} m); best of 3 "
-            f"{rate_ref:.1f} particle-steps/s ({ms_ref:.4f} ms/step) on "
-            f"{card}")
-        # what the ancestor gather of P adds a step: one all-gather of the
-        # [N, nl, nl] bf16 ensemble over the particles group, beside a
-        # device copy of it (median of 5 groups of 10 calls)
-        P = torch.zeros((n_particles, m + 3, m + 3), dtype=torch.bfloat16,
-                        device=device)
-        group = mesh.get_group("particles")
-        t_ag = time_ms(lambda: all_gather(P, group), device)
-        t_cp = time_ms(lambda: P.clone(), device)
-        gb = 2 * P.numel() * P.element_size() / 1e9
-        log(f"[18a] all-gather of P ({P.numel() * P.element_size() / 1e6:.1f}"
-            f" MB, NCCL, one rank) {t_ag:.4f} ms, {gb / t_ag * 1e3:.1f} GB/s "
-            f"read + write; a device copy (clone) {t_cp:.4f} ms, "
-            f"{gb / t_cp * 1e3:.1f} GB/s")
-        del P
+            f"(odometry {rmse(odo):.4f} m)")
         for mode in ("replicated_cdf", "prefix", "local"):
             reset_launch_counts()
             reset_collective_counts()
@@ -2114,13 +1810,7 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                 ok, note = flips_note(res, ref)
                 if not ok:
                     raise AssertionError(f"{mode}: {note}")
-            rate, ms = best_rate(mode, repeats=1)
-            log(f"[18a] {mode}: {note}; one timed call {rate:.1f} "
-                f"particle-steps/s ({ms:.4f} ms/step; unsharded "
-                f"{rate_ref:.1f}, {ms_ref:.4f} ms/step: {ms / ms_ref:.3f}x) "
-                f"on {card}")
-            if mode == "replicated_cdf":
-                ms_mesh = ms
+            log(f"[18a] {mode}: {note}")
 
         # (a') the Joseph form, unsharded and then on the mesh (its row-block
         # form, ops/kalman.py::_finish): the same launches and collectives,
@@ -2151,12 +1841,8 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                 note = f"against the unsharded Joseph run: {note}"
                 if not ok:
                     raise AssertionError(f"Joseph on the mesh: {note}")
-            rate, ms = best_rate(mode, joseph=True, repeats=1)
-            base = ms_ref if mode is None else ms_mesh
             log(f"[18a] joseph=True {mode or 'unsharded'}: launches {counts}; "
-                f"{note}; one timed call {rate:.1f} particle-steps/s "
-                f"({ms:.4f} ms/step; without Joseph {base:.4f}: "
-                f"{ms / base:.3f}x) on {card}")
+                f"{note}")
         del problem, data, ref, res, jref
 
         # (b) the information-form smoother at phase 8's cell
@@ -2167,19 +1853,16 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                     + cfg.n_sweeps - 1}
         reset_launch_counts()
         reset_collective_counts()
-        t0 = time.perf_counter()
         out = run_rbps_information_form(
             *problem8.rbpf_args(), cfg,
             generator=torch.Generator(device=device).manual_seed(0),
             device=device, mesh=mesh)
         sync(device)
-        wall = time.perf_counter() - t0
         counts, coll = launch_counts(), collective_counts()
         d_xn = float((out.XNK - res8.XNK).abs().max())
         d_xl = float((out.XLK - res8.XLK).abs().max())
         log(f"[18b] run_rbps_information_form on the mesh, N_P=100 n_lin="
-            f"{problem8.model.n_lin} T={T8} 3 sweeps woodbury f32: {wall:.3f}"
-            f" s ({100 * T8 * 3 / wall:.1f} particle-steps/s) on {card}; "
+            f"{problem8.model.n_lin} T={T8} 3 sweeps woodbury f32: "
             f"against phase 8's unsharded run max|d XNK| {d_xn:.3e} (tol "
             f"1e-4), max|d XLK| {d_xl:.3e} (tol 1e-3), bit-equal XNK: "
             f"{torch.equal(out.XNK, res8.XNK)}; launches {counts}; "
@@ -2194,14 +1877,13 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
             raise AssertionError(f"collectives {coll} != {want}")
         # (b') per-sweep checkpoints on the mesh: 2 sweeps, then a resume to
         # 3 with a generator seeded otherwise, bit-equal to the run above
-        res_ck, t_first, t_resume, counts = resumed_run(
+        res_ck, counts = resumed_run(
             device, functools.partial(run_rbps_information_form, mesh=mesh),
             problem8.rbpf_args(), cfg, 2, 0, expect_s)
         assert_bit_equal("[18b] the resumed mesh smoother", res_ck, out)
-        log(f"[18b] on the mesh, 2 sweeps with checkpoints {t_first:.3f} s + "
-            f"a resume to 3 {t_resume:.3f} s = {t_first + t_resume:.3f} s "
-            f"(unbroken {wall:.3f} s) on {card}; every field bit-equal to "
-            f"the unbroken mesh run; launches {counts}")
+        log(f"[18b] on the mesh, 2 sweeps with checkpoints and a resume to "
+            f"3: every field bit-equal to the unbroken mesh run; launches "
+            f"{counts}")
         del res_ck
 
         # (c) the CDF every resampler sums with (ops/resampling.py::
@@ -2233,19 +1915,9 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                 old = plain_resample(u, w, n, scheme)
                 flips_old, dist_old = knife_edges(
                     u, w, scheme, plain_resample(u, w, n, scheme), old)
-                note = (f"[18c] resample_indices {scheme} N={n} against a "
-                        f"second call: {flips} flips (the plain cumsum's "
-                        f"inverse CDF: {flips_old}, largest distance "
-                        f"{dist_old:.2e})")
-                if n == n_res:
-                    t = time_alternately({
-                        "plain": lambda: plain_resample(u, w, n, scheme),
-                        "fixed": lambda: resample_indices(u, w, n, scheme)},
-                        device)
-                    note += (f"; a call {fmt_stats(t['fixed'])} ms (the "
-                             f"plain cumsum's {fmt_stats(t['plain'])} ms, in "
-                             f"turns) on {card}")
-                log(note)
+                log(f"[18c] resample_indices {scheme} N={n} against a "
+                    f"second call: {flips} flips (the plain cumsum's inverse "
+                    f"CDF: {flips_old}, largest distance {dist_old:.2e})")
                 if flips:
                     raise AssertionError(f"resample_indices {scheme} N={n} "
                                          "is not reproducible")
@@ -2274,17 +1946,12 @@ def phase_mesh(device, card, zero, problem8, res8, n_particles=16384, m=125,
                 coll = collective_counts()
                 own = knife_edges(u, w, scheme, sharded_resample_indices(
                     u, w, mesh, scheme, mode), out_ai)[0]
-                t_sh = time_ms(lambda: sharded_resample_indices(
-                    u, w, mesh, scheme, mode), device)
-                t_1 = time_ms(lambda: resample_indices(u, w, n_res, scheme),
-                              device)
                 log(f"[18c] sharded_resample_indices {mode} {scheme} N="
                     f"{n_res}: {flips} knife-edge flips against "
                     f"resample_indices (largest distance of a flipped comb "
                     f"position from a CDF step {dist_max:.2e}, tol 5e-7), "
                     f"{own} against a second call of itself; collectives "
-                    f"{coll}; {t_sh:.4f} ms a call against {t_1:.4f} ms "
-                    f"unsharded")
+                    f"{coll}")
                 if dist_max > 5e-7 or flips > n_res // 20:
                     raise AssertionError(f"{mode} {scheme}: a flip is not a "
                                          "knife edge")
@@ -2376,17 +2043,14 @@ def phase_kalman_one_particle(device, zero, n=16384, nl=128, ny=3,
         raise AssertionError("the one-particle update disagrees")
 
 
-def phase_gates(device, card, zero, lowrank, problem8, data8, res8,
+def phase_gates(device, zero, lowrank, problem8, data8, res8,
                 n_particles=16384, m=125, T=192):
-    """Phase 20, reported and not tuned: the headline lowrank filter
-    (phase 4) with stratified resampling under an ESS gate of 0.5, and the
-    mag3d information-form smoother at phase 8's cell with
-    suffix_precompute=False (the suffix pair downdated a step, :194-201);
-    each called twice with one seed: ms/step (the second call), position
-    RMSE beside the
-    odometry's (the smoother's aligned, of its last sweep), and whether
-    the calls are bit for bit equal. Launch counts those of phases 4 and
-    8."""
+    """Phase 20: the headline lowrank filter (phase 4) with stratified
+    resampling under an ESS gate of 0.5, and the mag3d information-form
+    smoother at phase 8's cell with suffix_precompute=False (the suffix
+    pair downdated a step, :194-201), one run each: the launch counts of
+    phases 4 and 8 and a finite result; position RMSE beside the
+    odometry's (the smoother's aligned, of its last sweep) reported."""
     problem, data = build_problem(m, T, seed=1, m_sim=512, device=device)
     gen = torch.Generator(device=device)
     truth = torch.as_tensor(data.pos, dtype=torch.float32, device=device)
@@ -2397,54 +2061,43 @@ def phase_gates(device, card, zero, lowrank, problem8, data8, res8,
         return float(torch.sqrt(torch.mean(torch.sum((path - truth) ** 2,
                                                      dim=-1))))
 
-    def calls(fn, expect, repeats):
-        """``repeats`` calls of fn (seed 0), the first counted; returns
-        (results, seconds of the best call after the first)."""
-        out, secs = [], []
-        for i in range(repeats):
-            reset_launch_counts()
-            gen.manual_seed(0)
-            t0 = time.perf_counter()
-            out.append(fn())
-            sync(device)
-            secs.append(time.perf_counter() - t0)
-            if i == 0 and launch_counts() != expect:
-                raise AssertionError(f"launch counts {launch_counts()} != "
-                                     f"{expect}")
-        return out, min(secs[1:])
+    def counted(fn, expect):
+        reset_launch_counts()
+        gen.manual_seed(0)
+        out = fn()
+        sync(device)
+        if launch_counts() != expect:
+            raise AssertionError(f"launch counts {launch_counts()} != "
+                                 f"{expect}")
+        return out
 
     cfg = filter_config(n_particles, "bfloat16", resampling="stratified",
                         ess_threshold=0.5)
-    runs, best = calls(lambda: run_rbpf(*problem.rbpf_args(), cfg,
-                                        generator=gen, device=device),
-                       lowrank, repeats=2)
-    check_result(runs[0], T, n_particles, problem.potential.n_lin)
-    same = all(torch.equal(r.traj_mean, runs[0].traj_mean)
-               and torch.equal(r.ancestors, runs[0].ancestors)
-               for r in runs[1:])
-    resampled = int((runs[0].ess[:-1] <= 0.5 * n_particles).sum())
-    log(f"[20] headline lowrank r=8 bf16 stratified, ESS gate 0.5: "
-        f"{best / T * 1e3:.4f} ms/step on {card}; position RMSE "
-        f"{rmse(runs[0].traj_mean[:, :3]):.4f} m (odometry {rmse(odo):.4f}); "
-        f"resampled at {resampled} of {T - 1} steps (ESS at the gate); "
-        f"{len(runs)} calls bit-equal: {same}")
-    del problem, data, runs
+    res = counted(lambda: run_rbpf(*problem.rbpf_args(), cfg, generator=gen,
+                                   device=device), lowrank)
+    check_result(res, T, n_particles, problem.potential.n_lin)
+    resampled = int((res.ess[:-1] <= 0.5 * n_particles).sum())
+    log(f"[20] headline lowrank r=8 bf16 stratified, ESS gate 0.5: position "
+        f"RMSE {rmse(res.traj_mean[:, :3]):.4f} m (odometry "
+        f"{rmse(odo):.4f}); resampled at {resampled} of {T - 1} steps")
+    del problem, data, res
     scfg = RBPSConfig(n_particles=100, n_sweeps=3, resampling="systematic",
                       ancestor_form="woodbury", suffix_precompute=False)
     T8 = problem8.y.shape[0]
-    runs, best = calls(lambda: run_rbps_information_form(
+    res = counted(lambda: run_rbps_information_form(
         *problem8.rbpf_args(), scfg, generator=gen, device=device),
-        {**zero, "grad_basis": 3 * T8 + 2}, repeats=2)
-    same = all(torch.equal(r.XNK, runs[0].XNK) for r in runs[1:])
-    r = float(aligned_position_rmse(data8.pos, runs[0].XNK[-1, :, :3]))
+        {**zero, "grad_basis": 3 * T8 + 2})
+    if not bool(torch.isfinite(res.XNK).all()):
+        raise AssertionError("suffix_precompute=False: XNK has non-finite "
+                             "values")
+    r = float(aligned_position_rmse(data8.pos, res.XNK[-1, :, :3]))
     r_odo = float(aligned_position_rmse(data8.pos,
                                         data8.odometry_path[:, :3]))
-    d = float((runs[0].XNK - res8.XNK).abs().max())
+    d = float((res.XNK - res8.XNK).abs().max())
     log(f"[20] mag3d info-form smoother, suffix_precompute=False, N_P=100 "
-        f"T={T8} 3 sweeps: {best / (T8 * 3) * 1e3:.4f} ms/step on {card}; "
-        f"aligned position RMSE of the last sweep {r:.4f} m (odometry "
-        f"{r_odo:.4f}); max|d XNK| from phase 8's precomputed-suffix run "
-        f"{d:.3e}; {len(runs)} calls bit-equal: {same}")
+        f"T={T8} 3 sweeps: aligned position RMSE of the last sweep {r:.4f} m "
+        f"(odometry {r_odo:.4f}); max|d XNK| from phase 8's "
+        f"precomputed-suffix run {d:.3e}")
 
 
 def missing_keys(got, ref, where=""):
@@ -2462,7 +2115,7 @@ def missing_keys(got, ref, where=""):
     return out
 
 
-def phase_reproduce(device, card, zero, n_mc=3, mc_sweeps=5, n_sim=2,
+def phase_reproduce(device, zero, n_mc=3, mc_sweeps=5, n_sim=2,
                     box_sweeps=2, disturbances=(0.0, 10.0)):
     """Phase 21: the reproduction scripts at full width, small depth. K6
     launches of run_mc: per run T (filter) + sweeps T + sweeps - 1
@@ -2497,12 +2150,10 @@ def phase_reproduce(device, card, zero, n_mc=3, mc_sweeps=5, n_sim=2,
     ]
     for stem, fn, expect in cases:
         reset_launch_counts()
-        t0 = time.perf_counter()
         out = json.loads(json.dumps(fn()))
         sync(device)
-        wall = time.perf_counter() - t0
         counts = launch_counts()
-        log(f"[21] {stem}: {wall:.2f} s on {card}; launches {counts}")
+        log(f"[21] {stem}: launches {counts}")
         if counts != expect:
             raise AssertionError(f"launch counts {counts} != {expect}")
         ref_keys = ref[stem]
@@ -2542,21 +2193,17 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
     ``bench.main(["--quick"])`` on the card: the card's stamp, then the
     terrain PF row and the headline row, each with bench.py's four keys and
     finite positive values, and the quick filter's launches (a warm-up and
-    3 repeats at T=64: K4 1, K1 and K2 63, K3 8 a run). Then bench.py's
-    131,072-particle row at full width (m=125, n_lin 128, T=192, bf16,
-    lowrank r=8, store_trajectories=False) through ``bench_rbpf`` with one
-    repeat: phase 4's launches a run, ms/step and peak device memory; and
-    one more run of the same filter whose result is checked: finite logw,
-    traj_mean and P_mean, no history, position RMSE under the
-    odometry's."""
+    3 repeats at T=64: K4 1, K1 and K2 63, K3 8 a run). Then one run of
+    bench.py's 131,072-particle filter at full width (m=125, n_lin 128,
+    T=192, bf16, lowrank r=8, store_trajectories=False) through
+    ``bench.rbpf_case``: phase 4's launches, finite logw, traj_mean and
+    P_mean, no history, position RMSE under the odometry's."""
     reset_launch_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(["--quick"])
     counts = launch_counts()
     lines = out.getvalue().strip().splitlines()
-    for line in lines:
-        log(f"[22] {line}")
     if not lines[0].startswith(f"card: {card}"):
         raise AssertionError(f"bench's first line is not the card's stamp: "
                              f"{lines[0]!r}")
@@ -2574,40 +2221,19 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
         raise AssertionError(f"headline vs_baseline {rows[-1]}")
     quick = {**zero, "grad_basis": 4, "jac3d_rows": 4 * 63,
              "gather_cp": 4 * 63, "rebase": 4 * 8}
-    log(f"[22] bench --quick launches {counts}")
+    log(f"[22] bench --quick: the card's stamp, rows {names} with the four "
+        f"keys and finite positive values; launches {counts}")
     if counts != quick:
         raise AssertionError(f"launch counts {counts} != {quick}")
 
-    kw = dict(cov_dtype="bfloat16", kf_kernel="lowrank",
-              store_trajectories=False)
-    torch.cuda.reset_peak_memory_stats(device)
+    run, problem, data = bench.rbpf_case(
+        125, n_big, T, device=device, cov_dtype="bfloat16",
+        kf_kernel="lowrank", store_trajectories=False)
     reset_launch_counts()
-    rate, best, T_b = bench.bench_rbpf(125, n_big, T, repeats=1,
-                                       device=device, **kw)
+    res = run(1)
     counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated(device)
-    log(f"[22] bench_rbpf N_P={n_big} m=125 (n_lin 128) T={T_b} bf16 lowrank "
-        f"r=8 no-traj, a warm-up and 1 repeat: {best:.4f} s = {rate:.1f} "
-        f"particle-steps/s ({best / T_b * 1e3:.4f} ms/step), peak device "
-        f"memory {peak / 2**30:.3f} GiB on {card}; launches {counts}")
-    expect = {k: 2 * v for k, v in lowrank.items()}
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
-    run, problem, data = bench.rbpf_case(125, n_big, T, device=device, **kw)
-    # this run under the profiler: K2's device time a launch on the 131k row
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        res = run(1)
-        sync(device)
-    k2 = [e for e in prof.key_averages() if "gather_cp" in e.key]
-    k2_us = sum(getattr(e, "device_time_total", 0) for e in k2)
-    k2_n = sum(e.count for e in k2)
-    if k2_n != lowrank["gather_cp"]:
-        raise AssertionError(f"the profiled 131k run shows {k2_n} K2 kernels "
-                             f"({[e.key for e in k2]})")
-    log(f"[22] N_P={n_big} K2 gather_cp on the card in the profiled run: "
-        f"{k2_n} launches, {k2_us / 1e3:.3f} ms in all, "
-        f"{k2_us / k2_n / 1e3:.4f} ms a launch ({k2[0].key[:60]})")
+    if counts != lowrank:
+        raise AssertionError(f"launch counts {counts} != {lowrank}")
     for field, shape in (("traj_mean", (T, 7)), ("traj_max", (T, 7)),
                          ("logw", (n_big,)), ("P_mean", (128, 128)),
                          ("ancestors", (T - 1, n_big))):
@@ -2625,8 +2251,10 @@ def phase_bench(device, card, zero, lowrank, n_big=131072, T=192):
         torch.sum((res.traj_mean[:, :3] - truth) ** 2, dim=-1))))
     rmse_odo = float(torch.sqrt(torch.mean(torch.sum((odo - truth) ** 2,
                                                      dim=-1))))
-    log(f"[22] N_P={n_big} result: position RMSE of traj_mean {rmse:.4f} m "
-        f"(odometry {rmse_odo:.4f} m); chol_retries {int(res.chol_retries)}")
+    log(f"[22] bench.rbpf_case N_P={n_big} m=125 (n_lin 128) T={T} bf16 "
+        f"lowrank r=8 no-traj: launches {counts}; position RMSE of traj_mean "
+        f"{rmse:.4f} m (odometry {rmse_odo:.4f} m); chol_retries "
+        f"{int(res.chol_retries)}")
     if not rmse < rmse_odo:
         raise AssertionError(f"RMSE {rmse} not under the odometry's "
                              f"{rmse_odo}")
@@ -2664,11 +2292,7 @@ def phase_predictive(device):
     cell's shape also against a float64 solve of the same float32 L and
     rows (variance 1e-5 relative, mean 1e-5 of its largest magnitude,
     beside the float32 solve's own errors); two launches bit-equal in each
-    case. Timed beside its bound (rows n_lin^2 operations at 67 TFLOP/s,
-    benchmark/roofline_pf.py's yardstick), its plain version and, as the
-    library's yardstick, the float32 torch.linalg.solve_triangular of the
-    same rows that the predictive ran before K12 (C = [I | g] built
-    outside the timing). Returns the kernels line's row."""
+    case. Returns the kernels line's row (the cell's shape)."""
     check_tf32_off()
     row = None
     for n, m in ((65536, 1000), (512, 1000), (1001, 997)):
@@ -2678,8 +2302,7 @@ def phase_predictive(device):
         note = f"N={n} rows={rows} n_lin={n_lin} float32"
         r = compare("predictive", lambda: gp_predictive(pc, g),
                     lambda: gp_predictive_plain(pc, g), device,
-                    torch.float32, note, (g, pc.table),
-                    rows * n_lin * n_lin)
+                    torch.float32, note, (g, pc.table))
         a, b = gp_predictive(pc, g), gp_predictive(pc, g)
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"[23] predictive {note}: two launches "
@@ -2690,9 +2313,6 @@ def phase_predictive(device):
         C = torch.cat([torch.eye(3, device=device).expand(n, 3, 3), g],
                       dim=-1).reshape(rows, n_lin)
         Lt = L.to(torch.float32)
-        lib_ms = time_ms(lambda: torch.linalg.solve_triangular(
-            Lt, C.T, upper=False), device)
-        r["library_ms"] = lib_ms
         V = torch.linalg.solve_triangular(Lt.double(), C.double().T,
                                           upper=False)
         var64 = sigma2 * torch.sum(V * V, dim=0)
@@ -2721,27 +2341,13 @@ def phase_predictive(device):
         if not (ek[0] <= 1e-5 and ek[1] <= 1e-5):
             raise AssertionError("K12 outside its float32 tolerance of the "
                                  "float64 solve")
-        log(f"[23] predictive {note}: kernel {r['ms']:.4f} ms = "
-            f"{rows * n_lin * n_lin / r['ms'] / 1e9:.2f} TFLOP/s of the "
-            f"bound's flops ({100 * r['bound_ms'] / r['ms']:.1f} % of "
-            f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-            f"solve_triangular {lib_ms:.4f} ms (library_ms)")
         row = r
     return row
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--k2", action="store_true",
-                    help="phases 1-2, then only phase 3's K2 and K8 on the "
-                         "main paths' own indices (k2_main_paths)")
-    ap.add_argument("--predictive", action="store_true",
-                    help="phases 1-2, then only phase 23 (K12)")
-    ap.add_argument("--parent", default=None,
-                    help="with --k2: the root of another checkout of the "
-                         "port, whose K2 is timed in turns with this one "
-                         "and held against it bit for bit (reported)")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "needs one NVIDIA GPU")
@@ -2757,44 +2363,29 @@ def main(argv=None) -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    t0 = time.perf_counter()
     _lib.lib()
-    nvcc = ("a cached build" if _lib.build_seconds is None
-            else f"nvcc {_lib.build_seconds:.2f} s")
-    log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"({nvcc})")
-    if args.k2:
-        parent = None
-        if args.parent:
-            basis_kernel_times.load_port(args.parent, "parent_port")
-            parent = importlib.import_module("parent_port.kernels")
-        k2_main_paths(device, torch.Generator(device=device).manual_seed(0),
-                      parent)
-        return 0
-    if args.predictive:
-        phase_predictive(device)
-        return 0
+    log(f"[2] kernels built and loaded ("
+        + ("a cached build" if _lib.build_seconds is None else "nvcc") + ")")
 
-    rows = phase_compare(device)
+    rows, counts_3 = phase_compare(device)
     zero = dict.fromkeys(_lib.KERNEL_NAMES, 0)
     # lowrank, T=192: step 0 (K4) + 191 steps (K1, K2) in 23 periods of 8
     # and a remainder period of 7, each closed by one rebase (K3)
     lowrank = {**zero, "grad_basis": 1, "jac3d_rows": 191,
                "gather_cp": 191, "rebase": 24}
-    counts, _ = run_path("4", device, 125, 192,
-                             filter_config(16384, "bfloat16"), card, lowrank)
-    run_path("5", device, 509, 192, filter_config(4096, "float32"), card,
-             lowrank)
+    counts = run_path("4", device, 125, 192, filter_config(16384, "bfloat16"),
+                      lowrank)
+    run_path("5", device, 509, 192, filter_config(4096, "float32"), lowrank)
     # block_gather: K4 at every step's Jacobian (step 0 included), K5 at
     # every step after step 0; xla: K4 only
     block = {**zero, "grad_basis": 192, "block_gather": 191}
-    counts_block, _ = run_path(
+    counts_block = run_path(
         "4b", device, 125, 192,
-        filter_config(16384, "bfloat16", "block_gather"), card, block)
+        filter_config(16384, "bfloat16", "block_gather"), block)
     run_path("5b", device, 509, 192,
-             filter_config(4096, "float32", "block_gather"), card, block)
+             filter_config(4096, "float32", "block_gather"), block)
     run_path("4c", device, 125, 192,
-             filter_config(16384, "bfloat16", "xla", "multinomial"), card,
+             filter_config(16384, "bfloat16", "xla", "multinomial"),
              {**zero, "grad_basis": 192})
     counts["block_gather"] = counts_block["block_gather"]
     phase_plain_vs_kernel(device)
@@ -2802,35 +2393,35 @@ def main(argv=None) -> int:
     phase_ekf_plain_vs_card(device)
     phase_pf_plain_vs_card(device)
     phase_sparse_plain_vs_card(device)
-    counts["phi_basis"] = phase_radio(device, card, zero)["phi_basis"]
-    counts_s, problem, data, res = phase_mag_smoother(device, card, zero)
+    counts["phi_basis"] = phase_radio(device, zero)["phi_basis"]
+    counts_s, problem, data, res = phase_mag_smoother(device, zero)
     log(f"[8] grad_basis launches on the filter's lowrank path "
         f"{counts['grad_basis']}, on the smoother's path "
         f"{counts_s['grad_basis']}")
     counts["grad_basis"] = counts_s["grad_basis"]
     counts["jac3d"] = phase_jac3d_entry(device, zero, problem, data,
                                         res)["jac3d"]
-    phase_resume_info(device, card, zero, problem, res)
+    phase_resume_info(device, zero, problem, res)
     problem8, data8, res8 = problem, data, res
     del problem, data, res
-    phase_resume_radio(device, card, zero)
-    counts_p = phase_kernel_parts(device, zero)
+    phase_resume_radio(device, zero)
+    # the probes K8-K11 run on no path of the port: their launches in
+    # phase 3's checks
     for name in ("probe_gather_cp", "probe_rebase_parts", "probe_gather",
                  "probe_block_products"):
-        counts[name] = counts_p[name]
-    counts_m = phase_dense_mag(device, card, zero)
+        counts[name] = counts_3[name]
+    counts_m = phase_dense_mag(device, zero)
     log(f"[11] grad_basis launches on the dense-mag comparison "
         f"{counts_m['grad_basis']} (the kernels line keeps phase 8's)")
-    phase_terrain_pf(device, card, zero)
-    counts["predictive"] = phase_mag_localization(device, card,
-                                                  zero)["predictive"]
-    phase_sparse_visual(device, card, zero)
-    phase_profiling(device, card, lowrank)
-    phase_cli(device, card, zero)
-    phase_mesh(device, card, zero, problem8, res8)
+    phase_terrain_pf(device, zero)
+    counts["predictive"] = phase_mag_localization(device, zero)["predictive"]
+    phase_sparse_visual(device, zero)
+    phase_profiling(device, lowrank)
+    phase_cli(device, zero)
+    phase_mesh(device, zero, problem8, res8)
     phase_kalman_one_particle(device, zero)
-    phase_gates(device, card, zero, lowrank, problem8, data8, res8)
-    phase_reproduce(device, card, zero)
+    phase_gates(device, zero, lowrank, problem8, data8, res8)
+    phase_reproduce(device, zero)
     phase_bench(device, card, zero, lowrank)
     rows["predictive"] = phase_predictive(device)
 

@@ -44,21 +44,32 @@ import math
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .basis import hypercube_basis
+from .data.fields import draw_scalar_potential_field
 from .engines import (
+    PFConfig,
     RBPFConfig,
     RBPSConfig,
+    run_pf_localization,
     run_rbpf,
     run_rbps_information_form,
 )
+from .math.quaternions import qinv, qmul
+from .models.terrain import TerrainModel, make_gridded_terrain_model
 from .reproduce.common import setup, stamp
 from .utils.profiling import trace_to
-from .workloads import profile_terrain_pf
 from .workloads.dense_mag import build_problem
+from .workloads.mag_localization import (
+    _heading_quats,
+    _quat,
+    _test_loop,
+    default_Q,
+)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 
@@ -150,14 +161,113 @@ def bench_rbps_info(m_basis=512, n_particles=100, n_steps=192, n_sweeps=3,
     return n_particles * T * n_sweeps / best, best, T
 
 
+TERRAIN_THETA = (10.0, 1.0, 25.0, 4.0)
+TERRAIN_EXTENT = 4.0
+
+
+class TerrainPFProblem(NamedTuple):
+    """The inputs of one gridded terrain PF run, float32 on one device."""
+
+    mean_grid: torch.Tensor   # [n_grid, n_grid, 3]
+    var_grid: torch.Tensor    # [n_grid, n_grid, 3]
+    lo: torch.Tensor          # [2]
+    spacing: torch.Tensor     # [2]
+    sigma2: float
+    u: torch.Tensor           # [T-1, 7] odometry (position, quaternion)
+    y: torch.Tensor           # [T, 3] body-frame readings
+    init: torch.Tensor        # [N, 7] initial cloud
+    Q: torch.Tensor           # [6, 6]
+    dt: float
+    path: torch.Tensor        # [T, 3] the true positions
+
+    def to(self, device) -> "TerrainPFProblem":
+        return self._replace(**{
+            f: v.to(device) for f, v in self._asdict().items()
+            if isinstance(v, torch.Tensor)})
+
+    def model(self) -> TerrainModel:
+        return make_gridded_terrain_model(self.mean_grid, self.var_grid,
+                                          self.lo, self.spacing, self.sigma2)
+
+    def run(self, config: PFConfig, *, generator=None, noise=None):
+        """run_pf_localization on the problem's device, with the draws of
+        ``generator`` or the injected ``noise``."""
+        model = self.model()
+        return run_pf_localization(
+            model.dynamics, model.log_weight, self.u, self.y, self.init,
+            self.Q, self.dt, config, n_noise=model.n_noise,
+            generator=generator, device=self.y.device, noise=noise)
+
+
+def build_terrain_problem(n_particles: int, n_steps: int, *, device,
+                          seed: int = 0, n_grid: int = 192,
+                          m_sim: int = 512) -> TerrainPFProblem:
+    """bench.py:127-195's terrain PF problem on ``device`` from a generator
+    seeded with ``seed``: a curl-free field (theta = (10, 1, 25, 4),
+    ``m_sim`` basis functions) drawn on an ``n_grid`` x ``n_grid`` grid
+    over [-4, 4]^2 and along a loop test path, the drawn field as the
+    grid's mean and 0.3 as its variance, the path's body-frame readings
+    and odometry, and a cloud spread uniformly over the grid."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xs = np.linspace(-TERRAIN_EXTENT, TERRAIN_EXTENT, n_grid)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    grid_pts = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], -1)
+    path = _test_loop(TERRAIN_EXTENT * 0.9, n_steps)
+    LLs = np.stack([[-TERRAIN_EXTENT - 1, -TERRAIN_EXTENT - 1, -1.0],
+                    [TERRAIN_EXTENT + 1, TERRAIN_EXTENT + 1, 1.0]])
+    pts = torch.as_tensor(np.concatenate([grid_pts, path]),
+                          dtype=torch.float32, device=device)
+    d = draw_scalar_potential_field(
+        pts, m_sim, LLs, TERRAIN_THETA,
+        z_w=torch.randn(m_sim + 3, generator=gen, device=device),
+        z_n=torch.randn((pts.shape[0], 3), generator=gen, device=device))
+    _, Rm = _heading_quats(path)
+    quat = _quat(Rm.transpose(0, 2, 1))
+    y_body = np.einsum("tij,tj->ti", Rm, d.y[X.size:].cpu().numpy())
+    qt = torch.as_tensor(quat)
+    u = np.concatenate([np.diff(path, axis=0),
+                        qmul(qinv(qt[:-1]), qt[1:]).numpy()], -1)
+    xy = (2 * torch.rand((n_particles, 2), generator=gen, device=device)
+          - 1) * TERRAIN_EXTENT
+    init = torch.cat([xy, torch.zeros((n_particles, 1), device=device),
+                      torch.as_tensor(quat[0], device=device)
+                      .expand(n_particles, 4)], dim=-1)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return TerrainPFProblem(
+        mean_grid=d.df[:X.size].reshape(n_grid, n_grid, 3),
+        var_grid=torch.full((n_grid, n_grid, 3), 0.3, device=device),
+        lo=f32([xs[0], xs[0]]), spacing=f32([xs[1] - xs[0]] * 2),
+        sigma2=TERRAIN_THETA[3], u=f32(u), y=f32(y_body), init=init,
+        Q=default_Q().to(device), dt=0.1, path=f32(path))
+
+
+def terrain_config(n_particles: int) -> PFConfig:
+    """bench.py:185's filter: systematic, the ESS gate at 0.5."""
+    return PFConfig(n_particles=n_particles, resampling="systematic",
+                    ess_threshold=0.5)
+
+
+def terrain_position_error(problem: TerrainPFProblem,
+                           res) -> tuple[float, float]:
+    """(mean over the last two thirds, mean over the last five steps) of
+    the distance between traj_mean and the true path in the plane."""
+    err = torch.linalg.vector_norm(res.traj_mean[:, :2]
+                                   - problem.path[:, :2], dim=-1)
+    T = err.shape[0]
+    return float(err[T // 3:].mean()), float(err[-5:].mean())
+
+
 def bench_pf(n_particles, n_steps, repeats=3, *, device="cuda"):
     """Gridded terrain PF throughput (bench.py:127-195's problem,
-    ``workloads/profile_terrain_pf.py``): the engine without a covariance
-    that scales to a million particles. (particle-steps/s, best s)."""
+    :func:`build_terrain_problem`): the engine without a covariance that
+    scales to a million particles. (particle-steps/s, best s)."""
     device = torch.device(device)
-    problem = profile_terrain_pf.build_problem(n_particles, n_steps,
-                                               device=device)
-    cfg = profile_terrain_pf.config(n_particles)
+    problem = build_terrain_problem(n_particles, n_steps, device=device)
+    cfg = terrain_config(n_particles)
     gen = torch.Generator(device=device)
 
     def run(seed):

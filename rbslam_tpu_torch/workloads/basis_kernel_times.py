@@ -1,10 +1,12 @@
 """The basis kernels K1, K4, K6 and K7 at their main paths' shapes: the
 form their planner picks, held bit for bit against a second launch and
 against the direct form, and their device-only time beside their launch
-interval and their bound; with ``--parent``, the same kernels of another
-checkout of the port, loaded in the same process, timed in turns with
-this one, and their outputs held against this one's bit for bit.
-chip_smoke.py phase 3 runs this without a parent.
+interval and their bound; then K12 (the exact GP predictive) at the
+exact localization cell's shape, beside its bound and its plain version.
+With ``--parent``, the same kernels of another checkout of the port,
+loaded in the same process, are timed in turns with this one, and their
+outputs held against this one's bit for bit (K12 where the parent has
+it).
 
     python -m rbslam_tpu_torch.workloads.basis_kernel_times \
         [--parent DIR] [--out FILE]
@@ -18,6 +20,11 @@ median of five replays). Launch interval: ``profile_kernel_parts.
 time_stats`` (ten wrapper calls back to back between CUDA events, median
 of five groups), which the host sets when a kernel is shorter than its
 launch. The order of a case is parent, this tree, this tree, parent.
+K12's inputs: K4's basis gradients at
+65,536 positions over the cell's mapped area (m = 1000: 196,608 field rows
+of width 1003) and the factor of a random symmetric positive definite
+matrix for its posterior; its time does not depend on the values. Its
+plain version is timed as the launch interval.
 A last row times a one-element PyTorch op (``x.add_(0)`` on one float)
 the same two ways: the launch floor that K6 at the radio shape is held
 against. Needs a CUDA device.
@@ -58,6 +65,11 @@ CASES = (
     ("jac3d", 192, 3, 512, 640, torch.float32),
     ("jac3d", 16384, 3, 125, 128, torch.float32),
 )
+# K12 at the exact localization cell's shape: (N, m), the basis on the
+# mapped area [-4, 4]^2 padded by 1.6, sigma2 the cell's theta[3]
+PREDICTIVE = (65536, 1000)
+LOC_BOUNDS = [[-5.6, -5.6, -1.6], [5.6, 5.6, 1.6]]
+LOC_SIGMA2 = 4.0
 
 
 def load_port(root, name: str):
@@ -161,11 +173,67 @@ def run(device, parent_root=None, seed=0):
             "bit_equal_to_parent": equal, "two_launches_equal": again,
             "equal_to_direct_form": direct,
             "device_ms": dev, "launch_interval_ms": launch,
-            "bound_ms": b, "bound_by": by,
+            "bound_ms": b, "bound_by": by, "plain_ms": None,
         })
         del outs
+    rows.append(predictive_row(device, trees, order, seed + len(CASES)))
     rows.append(launch_floor_row(device))
     return rows
+
+
+def predictive_row(device, trees, order, seed) -> dict:
+    """K12 at the exact localization cell's shape, as a row of :func:`run`:
+    two launches bit-equal (and equal to the parent's, where the parent
+    has K12), device-only time and launch interval, the bound (every
+    row's n_lin^2 operations at the float32 peak, or its bytes: g, the
+    table and the outputs once) and the plain version's launch interval
+    (``plain_ms``)."""
+    n, m = PREDICTIVE
+    n_lin = m + 3
+    this = trees["this"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.rand((n, 3), generator=g, device=device) - 0.5) \
+        * torch.tensor([8.0, 8.0, 0.2], device=device)
+    grad = this.grad_basis(
+        this.pack_basis_constants(hypercube_basis(m, LOC_BOUNDS), device), x)
+    host = torch.Generator().manual_seed(seed)
+    A = torch.randn((n_lin, n_lin), generator=host, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.T / n_lin
+                              + torch.eye(n_lin, dtype=torch.float64))
+    w = torch.randn(n_lin, generator=host, dtype=torch.float64).to(device)
+    trees = {k: kern for k, kern in trees.items()
+             if hasattr(kern, "gp_predictive")}
+    consts = {k: kern.pack_predictive(L, w, LOC_SIGMA2)
+              for k, kern in trees.items()}
+    fns = {k: (lambda k=k, kern=kern: kern.gp_predictive(consts[k], grad))
+           for k, kern in trees.items()}
+    outs = {k: fn() for k, fn in fns.items()}
+    torch.cuda.synchronize(device)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    dev = {k: [] for k in trees}
+    launch = {k: [] for k in trees}
+    for k in (k for k in order if k in trees):
+        dev[k].append(device_ms(fns[k], device))
+        launch[k].append(time_stats(fns[k], device))
+    rows = 3 * n
+    b, by = bound_ms(grad.numel() * 4 + consts["this"].table.numel() * 4
+                     + 2 * rows * 4, rows * n_lin * n_lin, torch.float32)
+    return {
+        "kernel": "predictive", "n": n, "d": 3, "m": m, "nl_pad": None,
+        "dtype": "float32", "shape": tuple(outs["this"][0].shape),
+        "form": None,
+        "bit_equal_to_parent": (same(outs["this"], outs["parent"])
+                                if "parent" in outs else None),
+        "two_launches_equal": same(fns["this"](), outs["this"]),
+        "equal_to_direct_form": None,
+        "device_ms": dev, "launch_interval_ms": launch,
+        "bound_ms": b, "bound_by": by,
+        "plain_ms": time_stats(
+            lambda: this.gp_predictive_plain(consts["this"], grad), device),
+    }
 
 
 def launch_floor_row(device) -> dict:
@@ -187,7 +255,7 @@ def launch_floor_row(device) -> dict:
                                device_ms(fn, device)]},
         "launch_interval_ms": {"this": [time_stats(fn, device),
                                         time_stats(fn, device)]},
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "plain_ms": None,
     }
 
 
@@ -228,6 +296,9 @@ def report(rows) -> list[str]:
             lines.append(f"    {k:6s} device-only ms {fmt(r['device_ms'][k])};"
                          f" launch interval ms "
                          f"{fmt(r['launch_interval_ms'][k])}")
+        if r["plain_ms"] is not None:
+            lines.append(f"    plain  launch interval ms "
+                         f"{fmt([r['plain_ms']])}")
     return lines
 
 

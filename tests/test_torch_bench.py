@@ -248,3 +248,22 @@ def test_sweep_rows():
         assert set(r) == {"config", "particle_steps_per_s", "step_ms",
                           "wall_s"}
         assert r["particle_steps_per_s"] > 0 and r["step_ms"] > 0
+
+
+def test_terrain_problem_runs_on_cpu():
+    """bench_pf's problem and filter at a tiny size, as bench_pf calls
+    them: a finite ESS at every step and no kernel launched (the gridded
+    terrain PF is plain PyTorch)."""
+    from rbslam_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    n, T = 256, 8
+    problem = tbench.build_terrain_problem(n, T, device="cpu", n_grid=24,
+                                           m_sim=64)
+    reset_launch_counts()
+    res = problem.run(tbench.terrain_config(n),
+                      generator=torch.Generator().manual_seed(1))
+    assert set(launch_counts().values()) == {0}
+    assert res.ess.shape == (T,) and bool(torch.isfinite(res.ess).all())
+    assert bool(torch.isfinite(res.traj_mean).all())
+    err, err_end = tbench.terrain_position_error(problem, res)
+    assert math.isfinite(err) and math.isfinite(err_end)
