@@ -1647,12 +1647,13 @@ def info_mesh_counts(T, n_sweeps):
     """The collectives of one run_rbps_information_form call (woodbury,
     symmetrized) over a mesh. Each sweep: at step 0 P C' over the map, the
     symmetrization's all-to-all and the log-weights' all-gather; per
-    transition the resampler's all-gather, seven ancestor gathers (xn,
-    hldM, xl, P, ivec, Imat, hldp), P C' and the all-to-all, the
-    log-weights; after the first sweep also the rows of the two initial
-    factorizations (one all-reduce), and per transition the future weights'
-    quadratic forms (one all-reduce), their normalization (one all-gather)
-    and two Woodbury transitions (an all-reduce and an all-gather each);
+    transition the resampler's all-gather, five ancestor gathers (xn, xl,
+    P, ivec, hldp), P C' and the all-to-all, the log-weights; after the
+    first sweep also the rows of the two initial factorizations (one
+    all-reduce), and per transition two more ancestor gathers (W, hldM),
+    the future weights' quadratic forms (one all-reduce), their
+    normalization (one all-gather) and two Woodbury transitions (an
+    all-reduce and an all-gather each);
     at the end the history, the ancestors and the kept map's rows (three
     all-gathers) and three all-reduces (its xl and P rows, the retries)."""
     steps = T - 1
@@ -1660,7 +1661,7 @@ def info_mesh_counts(T, n_sweeps):
            "all_to_all": 0}
     for k in range(n_sweeps):
         later = k > 0
-        out["all_gather"] += 2 + (10 + 3 * later) * steps + 3
+        out["all_gather"] += 2 + (8 + 5 * later) * steps + 3
         out["all_reduce"] += later + 3 * later * steps + 3
         out["all_to_all"] += 1 + steps
     return out

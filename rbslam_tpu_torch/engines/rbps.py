@@ -109,10 +109,13 @@ class RBPSResult(NamedTuple):
 class SweepDraws(NamedTuple):
     """The random draws of one sweep: ``step(i)`` -> (u_res, w_dyn, u_anc)
     for transition i -> i+1, ``pick()`` -> the uniform that selects the
-    kept trajectory (called once, after the last step)."""
+    kept trajectory (called once, after the last step). ``tables``, where
+    the draws are injected: the sweep's (u, w, u_anc) with the transition
+    on the first axis, for a step that indexes it on the device."""
 
     step: Callable
     pick: Callable
+    tables: Optional[tuple] = None
 
 
 class SweepOut(NamedTuple):
@@ -398,7 +401,7 @@ def _run_sweeps(sweep_fn, model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
         if noise is not None:
             u, w, u_anc, u_pick = (a[k] for a in noise)
             return SweepDraws(step=lambda i: (u[i], w[i], u_anc[i]),
-                              pick=lambda: u_pick)
+                              pick=lambda: u_pick, tables=(u, w, u_anc))
 
         def step(i):
             return (

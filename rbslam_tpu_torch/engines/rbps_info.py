@@ -41,15 +41,24 @@ and holds a row block of P and of Imat (or W) over the ``map`` axis; the
 ancestor weights, the resampling CDF and the reference particle's
 ancestor draw come from the whole ensemble's log-weights, gathered, and
 the reference particle (the last) lives on the last particle rank.
+
+One function runs a step (:func:`_info_step`): it reads the step index
+from a tensor on the device and writes the carried state back in place,
+so that on one CUDA device a sweep's steps can run as replays of one
+captured CUDA graph (:class:`_StepGraphs`, where :func:`_graphs_engage`
+allows) instead of several hundred launches from the host each; the
+eager loop runs the same function.
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels import _lib
 from ..math.linalg import (
     half_logdet,
     logsumexp_normalize,
@@ -110,7 +119,7 @@ def _info_future_log_weights(ivec, Imat, P, halfLogDetP, ivec_add, Imat_add,
     return logw, retried
 
 
-def _woodbury_rank_ny(W, hldM, U, sign: float, jitter, axis=None):
+def _woodbury_rank_ny(W, hldM, U, sign: float, jitter, axis=None, out=None):
     """Exact rank-ny update of (W = M^-1, hldM = 0.5 log|M|) under
     M' = M + sign * U U' (sign = +1 update / -1 downdate).
 
@@ -125,7 +134,8 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter, axis=None):
     With a map ``axis`` W is this rank's row block [N, nl/S, nl]: G's rows
     are local, Bpos is completed by one all-reduce and the correction's
     other factor by one all-gather of G (the collectives of
-    parallel/map_axis.py). Returns (W', hldM', retried).
+    parallel/map_axis.py). W' is written into ``out`` where given (a
+    tensor other than W). Returns (W', hldM', retried).
     """
     ny = U.shape[-1]
     rows = slice(None) if axis is None else axis.rows
@@ -146,7 +156,7 @@ def _woodbury_rank_ny(W, hldM, U, sign: float, jitter, axis=None):
     corr = sum(
         GB[..., l][:, :, None] * G_all[..., l][:, None, :] for l in range(ny)
     )
-    W_new = W - (sign * corr).to(W.dtype)
+    W_new = torch.sub(W, (sign * corr).to(W.dtype), out=out)
     return W_new, hldM_new, retried
 
 
@@ -193,190 +203,444 @@ def _kf_info_update_batched(C, P, xl, ivec, Imat, hldp, y_t, R, Rinv,
     return xl_new, P_new, ivec_new, Imat_new, hldp_new, logw, retried
 
 
-def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
-                config: RBPSConfig, xnk, is_first: bool,
-                draws: SweepDraws, mesh=None) -> SweepOut:
-    """One information-form sweep over tensors already on the run's device
-    (see engines/rbps.py::_cpf_as_sweep for the arguments), on this rank's
-    particles and map rows where ``mesh`` is given."""
+class _Sweep(NamedTuple):
+    """What a step of one sweep reads besides tensors."""
+
+    model: DenseModel
+    config: RBPSConfig
+    ens: Ensemble
+    is_first: bool
+    precomp: bool       # the suffix sums precomputed (else carried, downdated)
+    use_wood: bool      # the Woodbury ancestor form (W carried in "Imat")
+    has_ref: bool       # the reference particle is on this process
+    ref: int            # its local index
+    draws: SweepDraws
+
+
+def _sweep_setup(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                 config: RBPSConfig, xnk, is_first: bool, draws: SweepDraws,
+                 mesh):
+    """A sweep up to its first transition: the ensemble's state after the
+    update at t = 0, the tensors every step reads, and the step's other
+    arguments. Returns (sweep, state, io, retries_shared): ``state`` the
+    carried tensors, ``io`` the inputs, ``retries_shared`` the retries of
+    the factorizations every process does alike (counted once)."""
     n_p = config.n_particles
     T, ny = y.shape
     device = y.device
-    with phase_annotation("setup", memory_of=device):
-        n_lin = model.n_lin
-        cov_dtype = _DTYPES[config.cov_dtype]
-        Rinv = torch.linalg.inv(R)
-        if mesh is None:
-            ens = Ensemble(n_p)
+    n_lin = model.n_lin
+    cov_dtype = _DTYPES[config.cov_dtype]
+    Rinv = torch.linalg.inv(R)
+    if mesh is None:
+        ens = Ensemble(n_p)
+    else:
+        from ..parallel.sharded import ShardedEnsemble
+
+        ens = ShardedEnsemble(n_p, mesh, n_lin)
+    axis, rows, n_loc = ens.map, ens.map_rows, ens.n_local
+    # the reference particle (the last) on this process: its local index
+    ref = n_p - 1 - ens.start
+    has_ref = 0 <= ref < n_loc
+
+    xn = ens.local(x0_nonlin.expand(n_p, -1)).clone()
+    if not is_first and has_ref:
+        xn[ref] = xnk[0]
+    xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
+    xl0 = ens.local(xl0)
+
+    # initial information pair; P0 treated as diagonal (:110-115)
+    p0_diag = torch.diagonal(P0_lin)
+    Imat0_single = torch.diag(1.0 / p0_diag)
+    ivec0 = xl0 / p0_diag[None, :]
+    hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_loc)
+    P0 = P0_lin.to(cov_dtype)[rows]
+    P0 = P0.expand((n_loc,) + P0.shape)
+    half_logdet_R = 0.5 * torch.linalg.slogdet(R)[1]
+
+    woodbury = config.ancestor_form == "woodbury"
+    precomp = config.suffix_precompute and not is_first
+    # Woodbury ancestor form: carry W = (Imat+ImatAdd)^-1 in the Imat slot
+    # and hldM = 0.5 log|Imat+ImatAdd| alongside, maintained by exact
+    # rank-ny transitions instead of per-step factorizations. The first
+    # sweep weighs no ancestor, so it carries neither Imat nor W.
+    use_wood = woodbury and not is_first
+    carry_imat = not (woodbury or is_first)
+    io = {"R": R, "Rinv": Rinv, "half_logdet_R": half_logdet_R, "y": y,
+          "dx": dx, "dt": dt, "Q": Q}
+    if draws.tables is not None:
+        io.update(zip(("u", "w", "u_anc"), draws.tables))
+    state = {}
+    if not is_first:
+        io["xnk"] = xnk
+        C_ref = _jacobian_batch(model, xnk)          # [T, ny, n_lin]
+        # whole-trajectory suffix pair (:132-146)
+        terms_iv = torch.einsum("tik,ij,tj->tk", C_ref, Rinv, y)
+        ivec_add = torch.sum(terms_iv, dim=0)
+        Imat_add = torch.einsum("tki,kl,tlj->ij", C_ref, Rinv, C_ref)
+        if precomp:
+            # suffix sums for every t at once: ivec_adds[t] =
+            # sum_{j >= t} C_j' R^-1 y_j (one reverse cumulative sum per
+            # sweep instead of T sequential downdates)
+            io["ivec_adds"] = torch.flip(
+                torch.cumsum(torch.flip(terms_iv, (0,)), dim=0), (0,))
+            if not woodbury:
+                terms_im = torch.einsum("tki,kl,tlj->tij", C_ref, Rinv,
+                                        C_ref)
+                io["Imat_adds"] = torch.flip(
+                    torch.cumsum(torch.flip(terms_im, (0,)), dim=0), (0,))
+                del terms_im
         else:
-            from ..parallel.sharded import ShardedEnsemble
+            # the suffix pair carried and downdated a step at a time
+            io["C_ref"] = C_ref
+            state["ivec_add"] = ivec_add
+            if not woodbury:
+                state["Imat_add"] = Imat_add
+    RiT = torch.linalg.inv(torch.linalg.cholesky(R)).T   # U = C' L_R^-T
+    if use_wood:
+        io["RiT"] = RiT
+        # the downdate's factor C_ref[t]' L_R^-T of every step
+        io["Vb"] = C_ref.transpose(-1, -2) @ RiT            # [T, n_lin, ny]
 
-            ens = ShardedEnsemble(n_p, mesh, n_lin)
-        axis, rows, n_loc = ens.map, ens.map_rows, ens.n_local
-        # the reference particle (the last) on this process: its local index
-        ref = n_p - 1 - ens.start
-        has_ref = 0 <= ref < n_loc
-
-        xn = ens.local(x0_nonlin.expand(n_p, -1)).clone()
-        if not is_first and has_ref:
-            xn[ref] = xnk[0]
-        xl0, P0_lin = _init_linear(x0_lin, P0_lin, n_p, device)
-        xl0 = ens.local(xl0)
-
-        # initial information pair; P0 treated as diagonal (:110-115)
-        p0_diag = torch.diagonal(P0_lin)
-        Imat0_single = torch.diag(1.0 / p0_diag)
-        ivec0 = xl0 / p0_diag[None, :]
-        hldp0 = (0.5 * torch.sum(torch.log(p0_diag))).expand(n_loc)
-        P0 = P0_lin.to(cov_dtype)[rows]
-        P0 = P0.expand((n_loc,) + P0.shape)
+    # t = 0
+    C0 = _jacobian_batch(model, xn)
+    Imat0 = None
+    if carry_imat:
         Imat0 = Imat0_single.to(cov_dtype)[rows]
         Imat0 = Imat0.expand((n_loc,) + Imat0.shape)
-        half_logdet_R = 0.5 * torch.linalg.slogdet(R)[1]
+    xl, P, ivec, Imat, hldp, logw1, retried0 = _kf_info_update_batched(
+        C0, P0, xl0, ivec0, Imat0, hldp0, y[0], R, Rinv, half_logdet_R,
+        config.jitter, config.joseph, config.symmetrize_cov,
+        update_imat=carry_imat, axis=axis)
+    retries = retried0.sum()
+    retries_shared = torch.zeros((), dtype=retries.dtype, device=device)
+    _, logw_n, _, logw_all = ens.normalize(logw1)
+    state.update(xn=xn, xl=xl, P=P, ivec=ivec, hldp=hldp, logw_n=logw_n,
+                 retries=retries)
+    if logw_all is not logw_n:          # the whole ensemble's, on a mesh
+        state["logw_all"] = logw_all
+    if carry_imat:
+        state["Imat"] = Imat
 
-        woodbury = config.ancestor_form == "woodbury"
-        precomp = config.suffix_precompute and not is_first
-        ivec_add = Imat_add = None
-        if not is_first:
-            C_ref = _jacobian_batch(model, xnk)          # [T, ny, n_lin]
-            # whole-trajectory suffix pair (:132-146)
-            terms_iv = torch.einsum("tik,ij,tj->tk", C_ref, Rinv, y)
-            ivec_add = torch.sum(terms_iv, dim=0)
-            Imat_add = torch.einsum("tki,kl,tlj->ij", C_ref, Rinv, C_ref)
-            if precomp:
-                # suffix sums for every t at once: ivec_adds[t] =
-                # sum_{j >= t} C_j' R^-1 y_j (one reverse cumulative sum per
-                # sweep instead of T sequential downdates)
-                ivec_adds = torch.flip(
-                    torch.cumsum(torch.flip(terms_iv, (0,)), dim=0), (0,))
-                if not woodbury:
-                    terms_im = torch.einsum("tki,kl,tlj->tij", C_ref, Rinv,
-                                            C_ref)
-                    Imat_adds = torch.flip(
-                        torch.cumsum(torch.flip(terms_im, (0,)), dim=0), (0,))
-                    del terms_im
+    if use_wood:
+        # W(1) = (Imat(0 post) + ImatAdd_[1:T))^-1. All rows of xn are the
+        # broadcast initial state except the pinned reference particle
+        # (the last), so two nl x nl factorizations cover the ensemble.
+        C2 = ens.rows_at(C0, torch.tensor([0, n_p - 1], device=device))
+        D2 = torch.einsum("pki,kl,plj->pij", C2, Rinv, C2)
+        Add1 = Imat_add - C_ref[0].T @ Rinv @ C_ref[0]
+        M2 = Imat0_single[None] + D2 + Add1[None]
+        L2, retried_w1 = psd_cholesky(M2, config.jitter)
+        W2 = torch.cholesky_solve(
+            torch.eye(n_lin, device=device).expand(2, n_lin, n_lin), L2)
+        hld2 = half_logdet(L2)
+        W = W2[0, rows].to(cov_dtype).expand(n_loc, -1, -1).clone()
+        hldM = hld2[0].expand(n_loc).clone()
+        if has_ref:
+            W[ref] = W2[1, rows].to(cov_dtype)
+            hldM[ref] = hld2[1]
+        state["Imat"], state["hldM"] = W, hldM
+        retries_shared = retries_shared + retried_w1.sum()
+    sweep = _Sweep(model, config, ens, is_first, precomp, use_wood, has_ref,
+                   ref, draws)
+    return sweep, state, io, retries_shared
 
-        # Woodbury ancestor form: carry W = (Imat+ImatAdd)^-1 in the Imat slot
-        # and hldM = 0.5 log|Imat+ImatAdd| alongside, maintained by exact
-        # rank-ny transitions instead of per-step factorizations
-        use_wood = woodbury and not is_first
-        RiT = torch.linalg.inv(torch.linalg.cholesky(R)).T   # U = C' L_R^-T
 
-        def meas_all(xn, xl, P, ivec, Imat, hldp, y_t):
-            C = _jacobian_batch(model, xn)
-            return (C,) + _kf_info_update_batched(
-                C, P, xl, ivec, Imat, hldp, y_t, R, Rinv, half_logdet_R,
-                config.jitter, config.joseph, config.symmetrize_cov,
-                update_imat=not use_wood, axis=axis,
-            )
+def _info_step(sw: _Sweep, s: dict, io: dict, phase=phase_annotation):
+    """Transition t-1 -> t of an information-form sweep, in place.
 
-        # t = 0
-        C0, xl, P, ivec, Imat, hldp, logw1, retried0 = meas_all(
-            xn, xl0, P0, ivec0, Imat0, hldp0, y[0]
-        )
-        retries = retried0.sum()
-        # factorizations every process does alike (counted once)
-        retries_shared = torch.zeros((), dtype=retries.dtype, device=device)
-        _, logw_n, _, logw_all = ens.normalize(logw1)
+    Reads the carried state ``s`` and the sweep's inputs ``io`` at the
+    step index io["ti"] = (t, t - 1), a tensor on the run's device: every
+    read of t is an ``index_select`` and every write an ``index_copy_``,
+    so one capture of the step serves every step of its sweep kind
+    (:class:`_StepGraphs`). Each new value is written back into its tensor
+    of ``s`` as soon as the old one has been read for the last time (P
+    after the update, W by the second rank-ny update), then io["ti"]
+    advances. ``phase`` names the child phases."""
+    model, cfg, ens = sw.model, sw.config, sw.ens
+    axis = ens.map
+    t, i = io["ti"][:1], io["ti"][1:]
 
-        if use_wood:
-            # W(1) = (Imat(0 post) + ImatAdd_[1:T))^-1. All rows of xn are the
-            # broadcast initial state except the pinned reference particle
-            # (the last), so two nl x nl factorizations cover the ensemble.
-            C2 = ens.rows_at(C0, torch.tensor([0, n_p - 1], device=device))
-            D2 = torch.einsum("pki,kl,plj->pij", C2, Rinv, C2)
-            Add1 = Imat_add - C_ref[0].T @ Rinv @ C_ref[0]
-            M2 = Imat0_single[None] + D2 + Add1[None]
-            L2, retried_w1 = psd_cholesky(M2, config.jitter)
-            W2 = torch.cholesky_solve(
-                torch.eye(n_lin, device=device).expand(2, n_lin, n_lin), L2)
-            hld2 = half_logdet(L2)
-            Imat = W2[0, rows].to(cov_dtype).expand(n_loc, -1, -1).clone()
-            hldM = hld2[0].expand(n_loc).clone()
-            if has_ref:
-                Imat[ref] = W2[1, rows].to(cov_dtype)
-                hldM[ref] = hld2[1]
-            retries_shared = retries_shared + retried_w1.sum()
+    def at(name, idx):
+        return io[name].index_select(0, idx)[0]
+
+    with phase("resample"):
+        if "u" in io:
+            u_res, w_dyn, u_anc = at("u", i), at("w", i), at("u_anc", i)
         else:
-            hldM = torch.zeros((n_loc,), device=device)
+            u_res, w_dyn, u_anc = sw.draws.step(i)
+        ai, _ = ens.resample(u_res, torch.exp(s["logw_n"]), cfg.resampling)
+    dx_i, dt_i, Q_i = at("dx", i), at("dt", i), at("Q", i)
+    if not sw.is_first:
+        with phase("ancestor"):
+            xnk_t = at("xnk", t)
+            Imat_add = None
+            if sw.precomp:
+                ivec_add = at("ivec_adds", t)
+                if not sw.use_wood:
+                    Imat_add = at("Imat_adds", t)
+            else:
+                # downdate the suffix pair by the (t-1) term (:194-201)
+                C_prev = at("C_ref", i)
+                CtRinv_prev = C_prev.T @ io["Rinv"]
+                ivec_add = s["ivec_add"] - CtRinv_prev @ at("y", i)
+                s["ivec_add"].copy_(ivec_add)
+                if not sw.use_wood:
+                    Imat_add = s["Imat_add"] - CtRinv_prev @ C_prev
+                    s["Imat_add"].copy_(Imat_add)
 
-        xn_hist = torch.empty((T, n_loc, xn.shape[-1]), device=device)
-        xn_hist[0] = xn
-        ancestors = torch.empty((T - 1, n_loc), dtype=torch.int32,
-                                device=device)
-        ess = torch.empty((T,), device=device)
-        ess[0] = _ess(logw_all)
-
-    for t in range(1, T):
-        with phase_annotation("step", memory_of=device, t=t):
-            i = t - 1
-            with phase_annotation("resample"):
-                u_res, w_dyn, u_anc = draws.step(i)
-                ai, _ = ens.resample(u_res, torch.exp(logw_n),
-                                     config.resampling)
-            if not is_first:
-                with phase_annotation("ancestor"):
-                    if precomp:
-                        ivec_add = ivec_adds[t]
-                        if not use_wood:
-                            Imat_add = Imat_adds[t]
-                    else:
-                        # downdate the suffix pair by the (t-1) term
-                        # (:194-201)
-                        CtRinv_prev = C_ref[t - 1].T @ Rinv
-                        ivec_add = ivec_add - CtRinv_prev @ y[t - 1]
-                        Imat_add = Imat_add - CtRinv_prev @ C_ref[t - 1]
-
-                    logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i],
-                                                dt[i], Q[i])
-                    if use_wood:
-                        logw_meas = _woodbury_future_log_weights(
-                            ivec, Imat, P, hldp, hldM, ivec_add, axis
-                        )
-                    else:
-                        logw_meas, retried = _info_future_log_weights(
-                            ivec, Imat, P, hldp, ivec_add, Imat_add,
-                            config.jitter, axis
-                        )
-                        retries = retries + retried.sum()
-                    pa_all = ens.normalize(logw_n + logw_dyn + logw_meas)[3]
-                    anc = sample_categorical(u_anc, torch.exp(pa_all))
-                    if has_ref:
-                        ai[ref] = anc
-
-            with phase_annotation("dynamics"):
-                xn = _dynamics_batch(model, ens.local(w_dyn),
-                                     ens.take(xn, ai), dx[i], dt[i], Q[i])
-                if not is_first and has_ref:
-                    xn[ref] = xnk[t]
-            with phase_annotation("update"):
-                hldM = ens.take(hldM, ai)
-                C_t, xl, P, ivec, Imat, hldp, logw, retried_kf = meas_all(
-                    xn, ens.take(xl, ai), ens.take(P, ai),
-                    ens.take(ivec, ai), ens.take(Imat, ai),
-                    ens.take(hldp, ai), y[t]
+            logw_dyn = _dyn_log_weights(model, xnk_t, s["xn"], dx_i, dt_i,
+                                        Q_i)
+            if sw.use_wood:
+                logw_meas = _woodbury_future_log_weights(
+                    s["ivec"], s["Imat"], s["P"], s["hldp"], s["hldM"],
+                    ivec_add, axis
                 )
-                retries = retries + retried_kf.sum()
-            if use_wood:
-                with phase_annotation("woodbury"):
-                    # W: M(t) -> M(t+1) = M(t) + C_t' R^-1 C_t
-                    #                           - C_ref' R^-1 C_ref
-                    U = torch.einsum("pki,km->pim", C_t, RiT)
-                    Imat, hldM, r_u = _woodbury_rank_ny(
-                        Imat, hldM, U, 1.0, config.jitter, axis)
-                    Vb = (C_ref[t].T @ RiT)[None].expand(n_loc, n_lin, ny)
-                    Imat, hldM, r_d = _woodbury_rank_ny(
-                        Imat, hldM, Vb, -1.0, config.jitter, axis)
-                    retries = retries + r_u.sum() + r_d.sum()
-            with phase_annotation("weights"):
-                _, logw_n, _, logw_all = ens.normalize(logw)
-                xn_hist[t] = xn
-                ancestors[i] = ai
-                ess[t] = _ess(logw_all)
+            else:
+                logw_meas, retried = _info_future_log_weights(
+                    s["ivec"], s["Imat"], s["P"], s["hldp"], ivec_add,
+                    Imat_add, cfg.jitter, axis
+                )
+                s["retries"].add_(retried.sum())
+            pa_all = ens.normalize(s["logw_n"] + logw_dyn + logw_meas)[3]
+            anc = sample_categorical(u_anc, torch.exp(pa_all))
+            if sw.has_ref:
+                ai[sw.ref] = anc
+
+    with phase("dynamics"):
+        xn = _dynamics_batch(model, ens.local(w_dyn), ens.take(s["xn"], ai),
+                             dx_i, dt_i, Q_i)
+        if not sw.is_first and sw.has_ref:
+            xn[sw.ref] = xnk_t
+        s["xn"].copy_(xn)
+    with phase("update"):
+        carry_imat = "Imat" in s and not sw.use_wood
+        C_t = _jacobian_batch(model, xn)
+        xl, P, ivec, Imat, hldp, logw, retried = _kf_info_update_batched(
+            C_t, ens.take(s["P"], ai), ens.take(s["xl"], ai),
+            ens.take(s["ivec"], ai),
+            ens.take(s["Imat"], ai) if carry_imat else None,
+            ens.take(s["hldp"], ai), at("y", t), io["R"], io["Rinv"],
+            io["half_logdet_R"], cfg.jitter, cfg.joseph, cfg.symmetrize_cov,
+            update_imat=carry_imat, axis=axis,
+        )
+        s["retries"].add_(retried.sum())
+        for name, new in (("xl", xl), ("P", P), ("ivec", ivec),
+                          ("hldp", hldp), ("Imat", Imat)):
+            if new is not None:
+                s[name].copy_(new)
+        del P, Imat
+    if sw.use_wood:
+        with phase("woodbury"):
+            # W: M(t) -> M(t+1) = M(t) + C_t' R^-1 C_t
+            #                           - C_ref' R^-1 C_ref
+            U = torch.einsum("pki,km->pim", C_t, io["RiT"])
+            W, hldM, r_u = _woodbury_rank_ny(
+                ens.take(s["Imat"], ai), ens.take(s["hldM"], ai), U, 1.0,
+                cfg.jitter, axis)
+            Vb = at("Vb", t)[None].expand((ens.n_local,) + U.shape[1:])
+            _, hldM, r_d = _woodbury_rank_ny(W, hldM, Vb, -1.0, cfg.jitter,
+                                             axis, out=s["Imat"])
+            s["hldM"].copy_(hldM)
+            s["retries"].add_(r_u.sum() + r_d.sum())
+    with phase("weights"):
+        _, logw_n, _, logw_all = ens.normalize(logw)
+        s["logw_n"].copy_(logw_n)
+        if "logw_all" in s:
+            s["logw_all"].copy_(logw_all)
+        io["xn_hist"].index_copy_(0, t, xn[None])
+        io["ancestors"].index_copy_(0, i, ai[None])
+        io["ess"].index_copy_(0, t, _ess(logw_all)[None])
+    io["ti"].add_(1)
+
+
+_QUIET = contextlib.nullcontext()
+
+
+def _no_phase(name, **attrs):
+    """A phase that records nothing: the child phases of a captured step
+    (a replay keeps only its ``step`` span)."""
+    return _QUIET
+
+
+def _graphs_engage(device, mesh, ny: int, ancestor_form: str,
+                   is_first: bool, injected: bool) -> bool:
+    """Whether a sweep's steps run as replays of a captured CUDA graph.
+    Only where the step reads nothing back to the host: one CUDA device
+    and no mesh (NCCL collectives), the small-ny update (for ny > 3 the
+    update and the rank-ny inverse factor with psd_cholesky, which reads a
+    failure flag), the first sweep or the Woodbury ancestor form (the
+    Cholesky form factors with psd_cholesky every step), and draws that
+    are ``injected`` or come from a generator this torch can register
+    with a capture."""
+    if torch.device(device).type != "cuda" or mesh is not None or ny > 3:
+        return False
+    if not is_first and ancestor_form != "woodbury":
+        return False
+    return injected or hasattr(torch.cuda.CUDAGraph,
+                               "register_generator_state")
+
+
+class _EagerSteps:
+    """The eager runner: every step launched from the host, on tensors of
+    the sweep's own."""
+
+    @staticmethod
+    def static(name, value):
+        """A tensor of the sweep's own holding ``value`` (which may be a
+        view the step must not write through)."""
+        return value.clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def buffer(name, shape, dtype, device):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    @staticmethod
+    def run(step, T, device, kind):
+        for t in range(1, T):
+            with phase_annotation("step", memory_of=device, t=t, graph=False):
+                step(phase_annotation)
+
+
+_side_streams: dict = {}   # device -> the stream of every warm-up and capture
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    """One stream a device for every warm-up and capture of the process (a
+    capture needs a stream other than the default one, and cuBLAS keeps a
+    workspace, 32 MiB on Hopper, for each stream it has run on)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
+class _StepGraphs:
+    """The graph runner of one run_rbps_information_form call.
+
+    A step of each sweep kind (the first sweep; the conditioned ones) runs
+    eagerly once to warm its kernels, is captured into a CUDA graph at the
+    next step, and that graph is replayed for every later step of its kind
+    in the call. The graphs read and write one set of static buffers for
+    the call: the carried state, the sweep's inputs (refilled by each
+    sweep's set-up) and its outputs. Warm-ups and captures run on
+    :func:`_side_stream`, replays on the caller's stream. A replay counts
+    the launches its capture counted (kernels/_lib.py::count_replay).
+    :meth:`release` drops the graphs, their memory pools and the buffers.
+    """
+
+    def __init__(self, generator=None):
+        self.generator = generator      # registered with every capture
+        self._buffers = {}
+        self._graphs = {}               # kind -> (replay, launches)
+
+    def static(self, name, value):
+        """The call's buffer ``name``, filled with ``value``."""
+        buf = self._buffers.get(name)
+        if buf is None:
+            buf = self._buffers[name] = torch.empty_like(
+                value, memory_format=torch.contiguous_format)
+        return buf.copy_(value)
+
+    def buffer(self, name, shape, dtype, device):
+        """The call's buffer ``name`` (an output, written by the steps)."""
+        if name not in self._buffers:
+            self._buffers[name] = torch.empty(shape, dtype=dtype,
+                                              device=device)
+        return self._buffers[name]
+
+    def run(self, step, T, device, kind):
+        """Steps 1..T-1 of a sweep of ``kind``: ``step(phase)`` runs one."""
+        for t in range(1, T):
+            graph = self._graphs.get(kind)
+            warm = graph is None and t == 1
+            with phase_annotation("step", memory_of=device, t=t,
+                                  graph=not warm):
+                if warm:
+                    self._on_side_stream(device,
+                                         lambda: step(phase_annotation))
+                elif graph is None:
+                    before = _lib.launch_counts()
+                    replay = self._capture(device, lambda: step(_no_phase))
+                    self._graphs[kind] = (replay, {
+                        k: n - before[k]
+                        for k, n in _lib.launch_counts().items()
+                        if n != before[k]})
+                    replay()    # the capture counted this step's launches
+                else:
+                    graph[0]()
+                    _lib.count_replay(graph[1])
+
+    def release(self):
+        self._graphs.clear()
+        self._buffers.clear()
+
+    @staticmethod
+    def _on_side_stream(device, fn):
+        side = _side_stream(device)
+        caller = torch.cuda.current_stream(device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            fn()
+        caller.wait_stream(side)
+
+    def _capture(self, device, fn):
+        """``fn``'s launches captured into a CUDA graph: its replay."""
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+
+        def capture():
+            graph.capture_begin()
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+
+        self._on_side_stream(device, capture)
+        return graph.replay
+
+
+def _info_sweep(model: DenseModel, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                config: RBPSConfig, xnk, is_first: bool,
+                draws: SweepDraws, mesh=None, graphs=None) -> SweepOut:
+    """One information-form sweep over tensors already on the run's device
+    (see engines/rbps.py::_cpf_as_sweep for the arguments), on this rank's
+    particles and map rows where ``mesh`` is given. Its steps run as
+    replays of the call's ``graphs`` (:class:`_StepGraphs`) where
+    :func:`_graphs_engage` allows, else eagerly."""
+    T, ny = y.shape
+    device = y.device
+    steps = _EagerSteps
+    if graphs is not None and _graphs_engage(
+            device, mesh, ny, config.ancestor_form, is_first,
+            draws.tables is not None):
+        steps = graphs
+    with phase_annotation("setup", memory_of=device):
+        sw, state, io, retries_shared = _sweep_setup(
+            model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt, config, xnk,
+            is_first, draws, mesh)
+        state = {k: steps.static(k, v) for k, v in state.items()}
+        io = {k: steps.static(k, v) for k, v in io.items()}
+        io["ti"] = steps.static("ti", torch.arange(1, -1, -1, device=device))
+        n_loc, n_nonlin = state["xn"].shape
+        io["xn_hist"] = steps.buffer("xn_hist", (T, n_loc, n_nonlin),
+                                     torch.float32, device)
+        io["ancestors"] = steps.buffer("ancestors", (T - 1, n_loc),
+                                       torch.int32, device)
+        io["ess"] = steps.buffer("ess", (T,), torch.float32, device)
+        logw_all = state.get("logw_all", state["logw_n"])
+        io["xn_hist"][0] = state["xn"]
+        io["ess"][0] = _ess(logw_all)
+
+    steps.run(partial(_info_step, sw, state, io), T, device, is_first)
 
     with phase_annotation("finish", memory_of=device):
-        return _finish_sweep(xn_hist, ancestors, logw_all, xl, P, ess,
-                             retries, draws, ens, retries_shared)
+        return _finish_sweep(io["xn_hist"], io["ancestors"].clone(),
+                             logw_all, state["xl"], state["P"],
+                             io["ess"].clone(), state["retries"], draws,
+                             sw.ens, retries_shared)
 
 
 def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
@@ -388,7 +652,10 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
     """N_K information-form CPF-AS sweeps on ``device`` (dense features
     only, :77-80). Arguments, ``generator`` and ``noise`` as
     :func:`rbslam_tpu_torch.engines.rbps.run_rbps`; ``mask`` is ignored
-    (dense models have no visibility masking).
+    (dense models have no visibility masking). On one CUDA device a
+    sweep's steps run as replays of a captured CUDA graph wherever the
+    step reads nothing back to the host (:func:`_graphs_engage`), with the
+    eager loop's results bit for bit.
 
     ``mesh`` (parallel.make_mesh) shards each sweep's ensemble over its
     ("particles", "map") dims: N/S_p particles and n_lin/S_map rows of P
@@ -411,7 +678,11 @@ def run_rbps_information_form(model: DenseModel, dx, y, x0_nonlin, x0_lin,
     _check_supported(model, config)
     refuse_tf32(device, "the information-form smoother (it maintains W "
                 "by cancellation)")
-    sweep = _info_sweep if mesh is None else partial(_info_sweep, mesh=mesh)
-    return _run_sweeps(sweep, model, dx, y, x0_nonlin, x0_lin, P0_lin,
-                       Q, R, dt, config, generator, device, noise,
-                       checkpoint_dir, mesh)
+    graphs = _StepGraphs(None if noise is not None else generator)
+    try:
+        return _run_sweeps(partial(_info_sweep, mesh=mesh, graphs=graphs),
+                           model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
+                           config, generator, device, noise, checkpoint_dir,
+                           mesh)
+    finally:
+        graphs.release()

@@ -14,7 +14,9 @@ launch) and otherwise passes the entry's code to :func:`check` right after
 its launch: a non-zero code raises, and a launch is counted there and
 nowhere else. :func:`launch_counts` / :func:`reset_launch_counts`
 read and clear the counters, so a run can show which kernels its path
-went through. K2 also counts on the device the P_base matrices it reads:
+went through. A replay of a captured CUDA graph passes through no wrapper:
+the code that replays it adds the launches its capture counted, once a
+replay, with :func:`count_replay`. K2 also counts on the device the P_base matrices it reads:
 :func:`k2_reads_counter` gives it a counter while ``utils.profiling.
 recording()`` is on, and a null pointer otherwise.
 """
@@ -195,6 +197,13 @@ def check(code: int, name: str) -> None:
 
 def launch_counts() -> dict:
     return dict(_launches)
+
+
+def count_replay(launches: dict) -> None:
+    """Count one replay of a captured CUDA graph: ``launches`` are the
+    counts that :func:`check` made while the graph was captured."""
+    for name, n in launches.items():
+        _launches[name] += n
 
 
 def reset_launch_counts() -> None:

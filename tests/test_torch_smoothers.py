@@ -14,6 +14,8 @@ systematic resampling, in the woodbury and cholesky forms, with
 suffix_precompute off, and with bf16 storage against JAX's bf16 run.
 JAX's draws are replayed from its key flow (rbslam_tpu/engines/
 rbps.py:366, rbps_info.py:351,439,461) and injected through ``noise``.
+The same cases through the step's CUDA-graph runner, its capture replaced
+by the captured Python: bit-equal to the eager loop.
 
 Tolerances: XNK atol 1e-4, XLK atol 1e-3, PK 1e-3 of its scale, ess rtol
 1e-3, retry counts equal. The JAX result does not expose its ancestors;
@@ -506,6 +508,31 @@ def test_slice_mag3d_info_form_matches_jax(mag, mag_noise, case):
     # bf16 storage: PK within one bf16 rounding of its scale
     assert_smoothers_match(port, ref,
                            pk_rel=2 ** -8 if "bf16" in case else 1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(MAG_CASES))
+def test_slice_mag3d_info_form_replayed_steps(mag, mag_noise, case,
+                                              monkeypatch):
+    """The same cases through the CUDA-graph runner of the step, its capture
+    replaced by the captured Python (tests/test_torch_step_graphs.py): the
+    step function driven at the device-side index over static buffers
+    gives the eager loop's arrays bit for bit, and so JAX's (above); the
+    Cholesky form's conditioned sweeps stay eager."""
+    from test_torch_step_graphs import PythonGraphs, _engage_as_on_a_card
+
+    cfg = _mag_config(RBPSConfig, **MAG_CASES[case])
+
+    def run():
+        return run_rbps_information_form(
+            *mag["prob"].rbpf_args(), cfg, generator=None, device="cpu",
+            noise=mag_noise)
+
+    eager = run()
+    monkeypatch.setattr(tinfo, "_StepGraphs", PythonGraphs)
+    monkeypatch.setattr(tinfo, "_graphs_engage", _engage_as_on_a_card)
+    replayed = run()
+    for field, a, b in zip(eager._fields, eager, replayed):
+        assert a.dtype == b.dtype and torch.equal(a, b), field
 
 
 def test_seed_margins(mag, mag_noise):
