@@ -223,7 +223,11 @@ def _cpf_as_sweep(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     """One conditional-particle-filter sweep over tensors already on the
     run's device; Q [T-1, nw, nw], dt [T-1]; xnk [T, n_nonlin] the
     reference trajectory (ignored if ``is_first``); mask [T, ny] the
-    visibility of a sparse model's observations."""
+    visibility of a sparse model's observations. Each transition is a
+    ``step`` span (``t``) with ``resample``, ``ancestor`` (conditioned
+    sweeps; ``rows`` = (T - t) ny live rows of the future system, ``width``
+    = T ny, ``n_lin``, ``n`` the particles), ``dynamics``, ``update`` and
+    ``weights`` inside."""
     n_p = config.n_particles
     T, ny = y.shape
     device = y.device
@@ -266,28 +270,38 @@ def _cpf_as_sweep(model, dx, y, x0_nonlin, x0_lin, P0_lin, Q, R, dt,
     ess = torch.empty((T,), device=device)
     ess[0] = _ess(logw_n)
 
+    n_lin = xl0.shape[-1]
     for t in range(1, T):
         i = t - 1
-        u_res, w_dyn, u_anc = draws.step(i)
-        ai = resample_indices(u_res, torch.exp(logw_n), n_p,
-                              config.resampling)
-        if not is_first:
-            # ancestor sampling for the pinned particle (:159-244)
-            logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i], dt[i], Q[i])
-            logw_meas, retried = future_log_weights(t, xl, P)
-            pa, _, _ = logsumexp_normalize(logw_n + logw_dyn + logw_meas)
-            ai[n_p - 1] = sample_categorical(u_anc, pa)
-            retries = retries + retried.sum()
-
-        xn = _dynamics_batch(model, w_dyn, xn[ai], dx[i], dt[i], Q[i])
-        if not is_first:
-            xn[n_p - 1] = xnk[t]                  # keep the reference state
-        xl, P, logw, retried_kf = update(t, xn, xl[ai], P[ai])
-        _, logw_n, _ = logsumexp_normalize(logw)
-        retries = retries + retried_kf.sum()
-        xn_hist[t] = xn
-        ancestors[i] = ai
-        ess[t] = _ess(logw_n)
+        with phase_annotation("step", t=t):
+            with phase_annotation("resample"):
+                u_res, w_dyn, u_anc = draws.step(i)
+                ai = resample_indices(u_res, torch.exp(logw_n), n_p,
+                                      config.resampling)
+            if not is_first:
+                # ancestor sampling for the pinned particle (:159-244)
+                with phase_annotation("ancestor", rows=(T - t) * ny,
+                                      width=T * ny, n_lin=n_lin, n=n_p):
+                    logw_dyn = _dyn_log_weights(model, xnk[t], xn, dx[i],
+                                                dt[i], Q[i])
+                    logw_meas, retried = future_log_weights(t, xl, P)
+                    pa, _, _ = logsumexp_normalize(logw_n + logw_dyn
+                                                   + logw_meas)
+                    ai[n_p - 1] = sample_categorical(u_anc, pa)
+                    retries = retries + retried.sum()
+            with phase_annotation("dynamics"):
+                xn = _dynamics_batch(model, w_dyn, xn[ai], dx[i], dt[i],
+                                     Q[i])
+                if not is_first:
+                    xn[n_p - 1] = xnk[t]          # keep the reference state
+            with phase_annotation("update"):
+                xl, P, logw, retried_kf = update(t, xn, xl[ai], P[ai])
+            with phase_annotation("weights"):
+                _, logw_n, _ = logsumexp_normalize(logw)
+                retries = retries + retried_kf.sum()
+                xn_hist[t] = xn
+                ancestors[i] = ai
+                ess[t] = _ess(logw_n)
 
     return _finish_sweep(xn_hist, ancestors, logw_n, xl, P, ess, retries,
                          draws)

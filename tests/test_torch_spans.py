@@ -167,8 +167,9 @@ def test_smoother_spans(problem):
 
 
 def test_cpf_as_sweeps_and_checkpoints(problem, tmp_path):
-    """run_rbps has the root and sweep spans (its inner loop is not
-    instrumented); a checkpoint directory adds one span a sweep."""
+    """run_rbps has the root and sweep spans (its steps nest inside each
+    sweep, tests/test_torch_cpfas_radio.py); a checkpoint directory adds
+    one span a sweep."""
     with recording() as rec:
         _smoother(problem, run_rbps, checkpoint_dir=str(tmp_path))
     names = [(s.name, s.attrs.get("k")) for s in
